@@ -1,0 +1,16 @@
+"""besskge_tpu_torch — the PyTorch/CUDA port of besskge_tpu for NVIDIA Hopper.
+
+A second package beside the JAX reference ``besskge_tpu``, with the same
+module names. Plain tensor code is PyTorch; every Pallas TPU kernel on a
+ported path is a CUDA kernel written by hand for ``sm_90a``
+(``csrc/``, built at first use by :mod:`besskge_tpu_torch._build`).
+
+The port imports neither ``jax`` nor ``besskge_tpu``: the numpy-only modules
+it needs are copied. Entry points run on ``cuda`` unless the caller passes
+``device="cpu"``, and raise when no card is there.
+
+Ported so far: TopK serving of TransE (``bess.TopKQueryBessKGE`` with
+``build_topk_forward``) on one device.
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,106 @@
+"""Build the port's CUDA sources at first use and load them with ``ctypes``.
+
+Each ``csrc/*.cu`` file is compiled by one ``nvcc`` call into a shared
+library with a plain C interface under ``build/besskge_tpu_torch/`` at the
+root of the checkout (``.gitignore`` lists ``build/``). The library's name
+carries a hash of its source and of the flags, so an edited source is
+rebuilt and an unchanged one is loaded as it is. Sources that need building
+are compiled in parallel, one ``nvcc`` process each, all started together.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict, Iterable, Optional
+
+__all__ = ["BUILD_DIR", "NVCC_FLAGS", "SOURCES", "build", "find_nvcc", "load_library"]
+
+_CSRC = Path(__file__).resolve().parent / "csrc"
+#: Where the shared libraries go: ``build/besskge_tpu_torch/`` beside the package.
+BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "besskge_tpu_torch"
+#: Hopper only: ``sm_90a`` keeps wgmma/setmaxnreg available to later kernels.
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+)
+#: Every CUDA source of the port, by library name.
+SOURCES = {"l1_distance": _CSRC / "l1_distance.cu"}
+#: Where the CUDA toolkit is looked for when ``CUDA_HOME`` is not set.
+DEFAULT_CUDA_HOME = "/usr/local/cuda"
+
+_loaded: Dict[str, ctypes.CDLL] = {}
+_lock = threading.Lock()
+
+
+def find_nvcc() -> str:
+    """Path of ``nvcc``: ``$CUDA_HOME/bin``, ``DEFAULT_CUDA_HOME/bin``, then
+    ``PATH``. Raises ``RuntimeError`` when there is none."""
+    for home in (os.environ.get("CUDA_HOME"), DEFAULT_CUDA_HOME):
+        if home and (Path(home) / "bin" / "nvcc").is_file():
+            return str(Path(home) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError(
+            "nvcc not found (CUDA_HOME, /usr/local/cuda, PATH): the port's"
+            " CUDA kernels are built on a machine with the CUDA toolkit"
+        )
+    return found
+
+
+def library_path(name: str) -> Path:
+    """Path of the library built from ``SOURCES[name]`` as it is now."""
+    digest = hashlib.sha256(
+        SOURCES[name].read_bytes() + " ".join(NVCC_FLAGS).encode()
+    ).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def build(names: Iterable[str] = tuple(SOURCES), nvcc: Optional[str] = None) -> Dict[str, Path]:
+    """Compile each named source whose library is missing, one ``nvcc``
+    process per source, all running at once. Returns the library paths.
+
+    :param nvcc: compiler to use (default: :func:`find_nvcc`).
+    """
+    names = list(names)
+    paths = {name: library_path(name) for name in names}
+    todo = [name for name in names if not paths[name].is_file()]
+    if not todo:
+        return paths
+    nvcc = nvcc or find_nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = []
+    for name in todo:
+        # Write under a private name and rename: a concurrent build of the
+        # same source never sees a half-written library.
+        tmp = paths[name].with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])]
+        procs.append((name, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+        )))
+    failed = []
+    for name, tmp, proc in procs:
+        log, _ = proc.communicate()
+        if proc.returncode == 0:
+            os.replace(tmp, paths[name])
+        else:
+            tmp.unlink(missing_ok=True)
+            failed.append(f"{SOURCES[name].name}:\n{log}")
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return paths
+
+
+def load_library(name: str, nvcc: Optional[str] = None) -> ctypes.CDLL:
+    """The loaded library of ``SOURCES[name]``, built first if needed."""
+    with _lock:
+        lib = _loaded.get(name)
+        if lib is None:
+            lib = ctypes.CDLL(str(build([name], nvcc)[name]))
+            _loaded[name] = lib
+        return lib

@@ -1,0 +1,318 @@
+"""BESS top-k serving on one device (torch).
+
+Counterpart of the top-k part of ``besskge_tpu/bess.py``:
+:class:`TopKQueryBessKGE` completes (h, r, ?) / (?, r, t) queries against
+every entity by sliding a window over the local entity table, keeping a
+running top-(k+1), and :func:`build_topk_forward` runs it over the
+``(bps, n_shard, ...)`` batches of the batch sampler.
+
+Only the single-device semantics (``axis_name=None``, ``n_shard == 1``) are
+ported: every collective is the identity. A mesh raises
+``NotImplementedError`` (ROADMAP A15). Candidate-set queries (a
+``TripleBasedShardedNegativeSampler``) are not ported yet (ROADMAP A14).
+
+For TransE with L1 scoring the default chunk merge scores each window with
+one launch of the fused L1 kernel (scores + mask + 128-column chunk maxima,
+:func:`besskge_tpu_torch.ops.distance.l1_scores_chunkmax`); the sort merge
+scores it through ``score_tails``/``score_heads`` and the L1 distance kernel.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, Optional, Tuple, Union
+
+import numpy as np
+import torch
+
+from besskge_tpu_torch.metric import Evaluation
+from besskge_tpu_torch.negative_sampler import (
+    PlaceholderNegativeSampler,
+    ShardedNegativeSampler,
+)
+from besskge_tpu_torch.ops.distance import l1_scores_chunkmax as ops_l1_scores_chunkmax
+from besskge_tpu_torch.packed import check_plain_table, take_contiguous_rows, take_rows
+from besskge_tpu_torch.scoring import BaseScoreFunction, DistanceBasedScoreFunction
+from besskge_tpu_torch.utils import gather_indices, resolve_device
+
+__all__ = ["BAD_NEGATIVE_SCORE", "TopKQueryBessKGE", "build_topk_forward"]
+
+#: Sentinel added to masked-out negative scores (reference ``bess.py:31``).
+BAD_NEGATIVE_SCORE = -50000.0
+#: Column chunk of the hierarchical merge: one block of the fused L1 kernel.
+CHUNK = 128
+
+
+def _cast_gathered(emb: torch.Tensor, cd: Optional[torch.dtype]) -> torch.Tensor:
+    """Cast gathered rows to the compute dtype (the table keeps its own)."""
+    if cd is None or emb.dtype == cd:
+        return emb
+    return emb.to(cd)
+
+
+def _no_mesh(axis_name: Optional[str]) -> None:
+    if axis_name is not None:
+        raise NotImplementedError(
+            "multi-device BESS (a mesh axis) is not ported yet (ROADMAP A15);"
+            " use axis_name=None on one device"
+        )
+
+
+class TopKQueryBessKGE:
+    """Top-k completion of (h, r, ?) / (?, r, t) queries against all entities
+    (reference ``besskge/bess.py:606-921``). Inference only.
+
+    :param k: number of completions to return per query.
+    :param candidate_sampler: :class:`PlaceholderNegativeSampler`: score
+        against every entity.
+    :param score_fn: scoring function.
+    :param evaluation: optional metrics (needs ground truth).
+    :param return_scores: return the top-k scores too.
+    :param window_size: entities scored per query per loop iteration, or
+        ``None`` (default) to auto-size as the JAX package does:
+        ``min(cap, local rows)`` rounded down to a 128-multiple, with
+        ``cap`` 131072 for pure-cdist L1 models (the fused window path) and
+        32768 otherwise.
+    :param merge_mode: ``"sort"`` takes the top-(k+1) of the whole window
+        plus the running best; ``"chunk"`` first keeps only the k+1
+        128-column chunks with the largest maxima (exact: a chunk holding a
+        true top-(k+1) element has a maximum at least as large). ``"auto"``
+        (default) picks ``"chunk"`` whenever the window is 128-divisible
+        and wider than ``128·(k+1)``. Tied scores may resolve to different,
+        equally ranked entity IDs in the two modes.
+    :param axis_name: must be ``None`` (one device).
+    """
+
+    def __init__(
+        self,
+        k: int,
+        candidate_sampler: ShardedNegativeSampler,
+        score_fn: BaseScoreFunction,
+        evaluation: Optional[Evaluation] = None,
+        return_scores: bool = False,
+        window_size: Optional[int] = None,
+        merge_mode: str = "auto",
+        axis_name: Optional[str] = None,
+    ) -> None:
+        _no_mesh(axis_name)
+        self.sharding = score_fn.sharding
+        if self.sharding.n_shard != 1:
+            raise NotImplementedError(
+                "n_shard > 1 needs the multi-device path (ROADMAP A15)"
+            )
+        if not isinstance(candidate_sampler, PlaceholderNegativeSampler):
+            raise NotImplementedError(
+                "only the all-entities PlaceholderNegativeSampler is ported;"
+                " candidate sets follow with ROADMAP A14"
+            )
+        if not score_fn.negative_sample_sharing:
+            raise ValueError(
+                "Using flat negative format requires negative sample sharing"
+            )
+        if candidate_sampler.corruption_scheme not in ("h", "t"):
+            raise ValueError(
+                "TopKQueryBessKGE only supports 'h', 't' corruption scheme"
+            )
+        if merge_mode not in ("auto", "sort", "chunk"):
+            raise ValueError(f"Unknown merge_mode {merge_mode!r}")
+        self.negative_sampler = candidate_sampler
+        self.score_fn = score_fn
+        self.evaluation = evaluation
+        self.return_scores = return_scores
+        self.k = k
+        if window_size is None:
+            rows = self.sharding.max_entity_per_shard
+            fused_l1 = (
+                getattr(score_fn, "scoring_norm", None) == 1
+                and type(score_fn).distance_query_vector
+                is not DistanceBasedScoreFunction.distance_query_vector
+            )
+            cap = 131072 if fused_l1 else 32768
+            window_size = max(min(cap, rows) // CHUNK * CHUNK, min(rows, CHUNK))
+        self.window_size = window_size
+        self.merge_mode = merge_mode
+        self.axis_name = axis_name
+        self.entity_embedding_size = score_fn.entity_row_size
+
+    def forward(
+        self,
+        params: Dict[str, torch.Tensor],
+        relation: torch.Tensor,
+        head: Optional[torch.Tensor] = None,
+        tail: Optional[torch.Tensor] = None,
+        triple_mask: Optional[torch.Tensor] = None,
+    ) -> Dict[str, torch.Tensor]:
+        """Top-k of one micro-batch of queries.
+
+        :param relation: (shard_bs,) relation IDs.
+        :param head/tail: (shard_bs,) local ID of the known entity; the other
+            is the ground truth (global IDs) or absent.
+        :param triple_mask: (shard_bs,) real (non-padding) queries.
+        """
+        sharding = self.sharding
+        n_rows = sharding.max_entity_per_shard
+        table = check_plain_table(params["entity_embedding"], n_rows)
+        device = table.device
+        shard_bs = relation.shape[0]
+        n_best = self.k + 1
+        scheme = self.negative_sampler.corruption_scheme
+        window = self.window_size
+        n_candidate = n_rows
+        row_cap = table.shape[0]
+
+        known = take_rows(table, tail if scheme == "h" else head, n_rows)
+        cd = self.score_fn.compute_dtype
+        known = _cast_gathered(known.reshape(-1, self.entity_embedding_size), cd)
+
+        # All-entities mode slides over contiguous local rows. The final
+        # window clamps its start to stay in range; rows it re-reads from the
+        # previous window are masked invalid (idx < i*W), so the merge never
+        # sees an entity twice. A window wider than the table gathers instead.
+        contiguous = window <= row_cap
+        n_chunk = window // CHUNK
+        use_chunk_merge = (
+            self.merge_mode in ("auto", "chunk")
+            and window % CHUNK == 0
+            and n_chunk > n_best
+        )
+        fused_query = None
+        if use_chunk_merge and contiguous and getattr(self.score_fn, "scoring_norm", None) == 1:
+            fused_query = self.score_fn.distance_query_vector(params, known, relation, scheme)
+            if fused_query is not None and cd is not None:
+                fused_query = fused_query.to(cd)
+
+        def merge(
+            score: torch.Tensor, idx: torch.Tensor, chunk_max: Optional[torch.Tensor],
+            best: Tuple[torch.Tensor, torch.Tensor],
+        ) -> Tuple[torch.Tensor, torch.Tensor]:
+            curr_score, curr_idx = best
+            idx = idx.expand_as(score)  # a view: the window's IDs are shared
+            if use_chunk_merge:
+                rows = score.shape[0]
+                s3 = score.reshape(rows, n_chunk, CHUNK)
+                i3 = idx.reshape(rows, n_chunk, CHUNK)
+                if chunk_max is None:
+                    chunk_max = s3.amax(-1)
+                chunk_pos = torch.topk(chunk_max, n_best, dim=1).indices
+                pick = chunk_pos[:, :, None].expand(rows, n_best, CHUNK)
+                score = torch.gather(s3, 1, pick).reshape(rows, n_best * CHUNK)
+                idx = torch.gather(i3, 1, pick).reshape(rows, n_best * CHUNK)
+            merged = torch.cat([score, curr_score], dim=1)
+            top_scores, top_pos = torch.topk(merged, n_best, dim=1)
+            # IDs of the winners without concatenating a (rows, W) ID tensor.
+            width = score.shape[1]
+            from_window = torch.gather(idx, 1, top_pos.clamp(max=width - 1))
+            from_best = torch.gather(curr_idx, 1, (top_pos - width).clamp(min=0))
+            return top_scores, torch.where(top_pos < width, from_window, from_best)
+
+        best = (
+            torch.full((shard_bs, n_best), BAD_NEGATIVE_SCORE, dtype=torch.float32, device=device),
+            torch.full((shard_bs, n_best), n_rows, dtype=torch.int64, device=device),
+        )
+        positions = torch.arange(window, dtype=torch.int64, device=device)
+        for i in range(-(-n_candidate // window)):
+            if contiguous:
+                start = min(i * window, row_cap - window)
+                idx = start + positions
+                valid = (idx >= i * window) & (idx < n_candidate)
+                rows = take_contiguous_rows(table, start, window, n_rows)
+                if fused_query is not None:
+                    score, chunk_max = ops_l1_scores_chunkmax(
+                        fused_query, _cast_gathered(rows, cd), valid,
+                        chunk=CHUNK, bad=BAD_NEGATIVE_SCORE,
+                    )
+                    best = merge(score, idx[None], chunk_max, best)
+                    continue
+            else:
+                idx = i * window + positions
+                valid = idx < n_candidate
+                idx = torch.where(valid, idx, n_candidate - 1)
+                rows = take_rows(table, idx, n_rows)
+            emb = _cast_gathered(rows, cd)[None]
+            if scheme == "h":
+                score = self.score_fn.score_heads(params, emb, relation, known)
+            else:
+                score = self.score_fn.score_tails(params, known, relation, emb)
+            # fp32 merge regardless of the score dtype.
+            score = score.to(torch.float32) + BAD_NEGATIVE_SCORE * (~valid).to(torch.float32)
+            best = merge(score, idx[None], None, best)
+        best_score, best_idx = best
+
+        # One shard: the return AllToAll is the identity.
+        best_score = best_score.reshape(1, shard_bs, n_best)
+        best_idx = best_idx.reshape(1, shard_bs, n_best)
+        # Kill padding-entity scores.
+        counts = torch.as_tensor(sharding.shard_counts, device=device)[:, None, None]
+        best_score = best_score + BAD_NEGATIVE_SCORE * (best_idx >= counts).to(best_score.dtype)
+        # Local -> global IDs through the sharding map.
+        s2e = torch.as_tensor(sharding.shard_and_idx_to_entity, device=device)
+        safe_idx = torch.clamp(best_idx, max=n_rows - 1)
+        best_global = gather_indices(s2e, safe_idx.reshape(1, -1)).reshape(1, shard_bs, n_best)
+        best_global = best_global.transpose(0, 1).reshape(shard_bs, -1)
+
+        final_scores, final_pos = torch.topk(
+            best_score.transpose(0, 1).reshape(shard_bs, -1), self.k, dim=1
+        )
+        topk_global_id = torch.gather(best_global, 1, final_pos).to(torch.int32)
+
+        out: Dict[str, torch.Tensor] = {"topk_global_id": topk_global_id}
+        if self.return_scores:
+            out["topk_scores"] = final_scores
+        if self.evaluation is not None:
+            ground_truth = tail if scheme == "t" else head
+            if ground_truth is None:
+                raise ValueError("Evaluation requires providing ground truth entities")
+            ranks = self.evaluation.ranks_from_indices(ground_truth, topk_global_id)
+            if self.evaluation.return_ranks:
+                out["ranks"] = ranks
+            out["metrics"] = self.evaluation.stacked_metrics_from_ranks(ranks, triple_mask)
+        return out
+
+
+_TOPK_KEYS = ("head", "relation", "tail", "triple_mask")
+
+
+def build_topk_forward(
+    topk: TopKQueryBessKGE,
+    mesh: Any = None,
+    device: Optional[Union[str, torch.device]] = None,
+) -> Callable[[Dict[str, torch.Tensor], Dict[str, Any]], Dict[str, torch.Tensor]]:
+    """Build the top-k query step ``fn(params, batch) -> outputs``.
+
+    ``batch`` is a batch-sampler dict of ``(bps, 1, ...)`` numpy arrays or
+    tensors; ``params`` must already live on ``device`` (default ``cuda``).
+
+    Outputs: ``topk_global_id`` (bps, n_shard, shard_bs, k) int32 and
+    optionally ``topk_scores`` (same, fp32), ``ranks`` (bps, n_shard,
+    shard_bs) and ``metrics`` ((bps, 1, n_metric) sums or (bps, n_shard,
+    n_metric, shard_bs)).
+    """
+    if mesh is not None:
+        _no_mesh("shard")
+    _no_mesh(topk.axis_name)
+    device = resolve_device(device)
+
+    def fn(params: Dict[str, torch.Tensor], batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+        if params["entity_embedding"].device.type != device.type:
+            raise ValueError(
+                f"params on {params['entity_embedding'].device}, step built for {device}"
+            )
+        mbs = {
+            key: torch.as_tensor(np.asarray(val) if not torch.is_tensor(val) else val)
+            .to(device)[:, 0]
+            for key, val in batch.items()
+            if key in _TOPK_KEYS
+        }
+        bps = next(iter(mbs.values())).shape[0]
+        with torch.inference_mode():
+            outs = [topk.forward(params, **{key: v[i] for key, v in mbs.items()}) for i in range(bps)]
+        formatted = {}
+        for key in ("topk_global_id", "topk_scores", "ranks"):
+            if key in outs[0]:
+                formatted[key] = torch.stack([o[key] for o in outs])[:, None]
+        if "metrics" in outs[0]:
+            # (bps, 1, n_metric) sums or (bps, 1, n_metric, shard_bs); the
+            # cross-device psum of the sums is the identity on one device.
+            formatted["metrics"] = torch.stack([o["metrics"] for o in outs])
+        return formatted
+
+    return fn

@@ -1,0 +1,164 @@
+"""Embedding-table initialization (host-side numpy, and on the device).
+
+The numpy initializers are copied from ``besskge_tpu/embedding.py`` so that
+the port never imports the JAX package: for the same seed they give the same
+bits. :func:`device_table_init` draws a table directly on the device with a
+``torch.Generator``; its values differ from the numpy stream.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, List, Optional, Sequence, Union
+
+import numpy as np
+import torch
+from numpy.typing import NDArray
+
+from besskge_tpu_torch.sharding import Sharding
+
+__all__ = [
+    "init_KGE_uniform",
+    "initialize_entity_embedding",
+    "initialize_relation_embedding",
+    "device_table_init",
+]
+
+#: An initializer fills a shape using the provided RNG.
+Initializer = Callable[[Sequence[int], np.random.Generator], NDArray[np.float32]]
+
+
+def init_KGE_uniform(
+    shape: Sequence[int], rng: np.random.Generator, b: float = 1.0,
+    divide_by_embedding_size: bool = True,
+) -> NDArray[np.float32]:
+    """Uniform in ±b (optionally ±b/row_size)
+    (reference ``besskge/embedding.py:65-84``)."""
+    if divide_by_embedding_size:
+        b = b / shape[-1]
+    x = rng.random(size=tuple(shape), dtype=np.float32)
+    return (2.0 * x - 1.0) * np.float32(b)
+
+
+def _build_sliced(
+    shape: Sequence[int],
+    initializers: List[Initializer],
+    row_sizes: List[int],
+    rng: np.random.Generator,
+) -> NDArray[np.float32]:
+    if len(initializers) != len(row_sizes):
+        raise ValueError(
+            f"Got {len(initializers)} initializers for {len(row_sizes)} row slices"
+        )
+    if len(initializers) == 1:
+        return initializers[0](tuple(shape), rng)
+    slices = [
+        fn(tuple(shape[:-1]) + (size,), rng)
+        for fn, size in zip(initializers, row_sizes)
+    ]
+    return np.concatenate(slices, axis=-1)
+
+
+def initialize_entity_embedding(
+    sharding: Sharding,
+    initializer: Union[NDArray[np.float32], List[Initializer]],
+    row_size: List[int],
+    seed: int = 0,
+) -> NDArray[np.float32]:
+    """Build the sharded entity table ``(n_shard, max_entity_per_shard, Σrow)``.
+
+    ``initializer`` is a list of initializer functions, one per row slice in
+    ``row_size``, or a pre-trained table: 2-D ``(n_entity, row)`` (rows are
+    permuted into shards through ``shard_and_idx_to_entity``, padding rows
+    are zero) or 3-D (already sharded, shape-checked).
+    """
+    total = int(sum(row_size))
+    shape = (sharding.n_shard, sharding.max_entity_per_shard, total)
+    if isinstance(initializer, np.ndarray):
+        if initializer.ndim == 3:
+            if initializer.shape != shape:
+                raise ValueError(
+                    f"Pre-sharded table has shape {initializer.shape},"
+                    f" expected {shape}"
+                )
+            return np.ascontiguousarray(initializer, dtype=np.float32)
+        if initializer.ndim == 2:
+            if initializer.shape[0] != sharding.n_entity:
+                raise ValueError(
+                    f"Table has {initializer.shape[0]} rows for"
+                    f" {sharding.n_entity} entities"
+                )
+            if initializer.shape[1] != total:
+                raise ValueError(
+                    f"Table row size {initializer.shape[1]} != sum(row_size)={total}"
+                )
+            ids = sharding.shard_and_idx_to_entity  # (S, rows)
+            safe = np.minimum(ids, sharding.n_entity - 1)
+            table = initializer[safe].astype(np.float32)
+            table[ids >= sharding.n_entity] = 0.0
+            return table
+        raise ValueError("Entity table must be 2-D or 3-D")
+
+    rng = np.random.default_rng(seed)
+    return _build_sliced(shape, initializer, row_size, rng)
+
+
+def initialize_relation_embedding(
+    n_relation_type: int,
+    inverse_relations: bool,
+    initializer: Union[NDArray[np.float32], List[Initializer]],
+    row_size: List[int],
+    seed: int = 0,
+) -> NDArray[np.float32]:
+    """Build the replicated relation table ``(n_relation, Σrow)``; with
+    ``inverse_relations`` the row count doubles (relation ``r + n`` is the
+    inverse of ``r``)."""
+    n_rows = n_relation_type * 2 if inverse_relations else n_relation_type
+    total = int(sum(row_size))
+    if isinstance(initializer, np.ndarray):
+        if initializer.ndim != 2:
+            raise ValueError("Relation table must be 2-D")
+        if initializer.shape != (n_rows, total):
+            raise ValueError(
+                f"Relation table has shape {initializer.shape},"
+                f" expected {(n_rows, total)}"
+            )
+        return np.ascontiguousarray(initializer, dtype=np.float32)
+    rng = np.random.default_rng(seed)
+    return _build_sliced((n_rows, total), initializer, row_size, rng)
+
+
+def device_table_init(
+    initializer: Union[NDArray[np.float32], List[Initializer]],
+    row_sizes: List[int],
+    shape: Sequence[int],
+    dtype: torch.dtype,
+    device: torch.device,
+    generator: Optional[torch.Generator] = None,
+) -> torch.Tensor:
+    """Draw a table of ``shape`` directly on ``device``: no host-side copy of
+    a multi-GB table and no host-to-device transfer.
+
+    Each slice of ``row_sizes`` is drawn with the torch counterpart of its
+    numpy initializer from ``generator`` (a generator on ``device``). Array
+    initializers must already have the target shape.
+    """
+    if isinstance(initializer, np.ndarray):
+        if tuple(initializer.shape) != tuple(shape):
+            raise ValueError(
+                f"Array initializer shape {initializer.shape} != {tuple(shape)}"
+            )
+        return torch.from_numpy(np.ascontiguousarray(initializer)).to(device, dtype)
+    if len(initializer) != len(row_sizes):
+        raise ValueError(
+            f"Got {len(initializer)} initializers for {len(row_sizes)} slices"
+        )
+    out = torch.empty(tuple(shape), dtype=torch.float32, device=device)
+    start = 0
+    for fn, size in zip(initializer, row_sizes):
+        part = out[..., start : start + size]
+        if fn is init_KGE_uniform:
+            part.uniform_(-1.0 / size, 1.0 / size, generator=generator)
+        else:
+            raise ValueError(f"No device counterpart for initializer {fn}")
+        start += size
+    return out.to(dtype)

@@ -1,0 +1,1 @@
+"""Distance ops of the port and their hand-written CUDA kernels."""

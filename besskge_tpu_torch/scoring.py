@@ -1,0 +1,248 @@
+"""KGE score functions on torch tensors.
+
+Counterpart of ``besskge_tpu/scoring.py``: a score function object holds the
+static configuration and builds the tables; the learnable state is an
+explicit ``params`` dict (``{"entity_embedding": (n_shard *
+max_entity_per_shard, row), "relation_embedding": (n_relation, row)}``)
+passed to every method. Only :class:`TransE` is ported so far.
+
+Score-method shape contract (as in the JAX package):
+
+* ``score_triple(params, head (B, r_e), rel_id (B,), tail (B, r_e)) -> (B,)``
+* ``score_heads(params, heads (b, n, r_e), rel_id (B,), tail (B, r_e))
+  -> (B, b*n)`` if sample sharing, else ``(B, n)`` with ``b == B``.
+* ``score_tails`` symmetric.
+"""
+
+from __future__ import annotations
+
+from abc import ABC, abstractmethod
+from typing import Dict, List, Optional, Union
+
+import numpy as np
+import torch
+
+from besskge_tpu_torch.embedding import (
+    Initializer,
+    device_table_init,
+    init_KGE_uniform,
+    initialize_entity_embedding,
+    initialize_relation_embedding,
+)
+from besskge_tpu_torch.ops.distance import p_distance_matrix
+from besskge_tpu_torch.sharding import Sharding
+from besskge_tpu_torch.utils import resolve_device
+
+__all__ = ["BaseScoreFunction", "DistanceBasedScoreFunction", "TransE"]
+
+Params = Dict[str, torch.Tensor]
+TableOrInit = Union[np.ndarray, List[Initializer]]
+
+#: Softening for norms at exactly zero.
+_NORM_EPS = 1e-12
+
+
+class BaseScoreFunction(ABC):
+    """Base class for scoring functions; tables are built lazily by
+    :meth:`initial_params` (numpy, bit-equal to the JAX package) or
+    :meth:`initial_params_device` (drawn on the device)."""
+
+    #: Share negative entities across all queries of the micro-batch.
+    negative_sample_sharing: bool
+    #: Entity sharding (device table layout: 2-D shard-major rows).
+    sharding: Sharding
+    #: Width of one entity-table row.
+    entity_row_size: int
+    #: Width of one relation-table row.
+    relation_row_size: int
+    #: Nominal embedding size of the model.
+    embedding_size: int
+    #: Optional compute precision for scoring (e.g. ``torch.bfloat16``):
+    #: gathered rows are cast to it while storage stays in ``dtype``.
+    compute_dtype: Optional[torch.dtype] = None
+
+    def _build_tables(
+        self,
+        sharding: Sharding,
+        n_relation_type: int,
+        inverse_relations: bool,
+        entity_initializer: TableOrInit,
+        entity_slices: List[int],
+        relation_initializer: TableOrInit,
+        relation_slices: List[int],
+        seed: int,
+        dtype: torch.dtype,
+    ) -> None:
+        self.sharding = sharding
+        self.n_relation_type = n_relation_type
+        self.inverse_relations = inverse_relations
+        self.dtype = dtype
+        self.seed = seed
+        self.entity_row_size = int(sum(entity_slices))
+        self.relation_row_size = int(sum(relation_slices))
+        self._entity_spec = (entity_initializer, list(entity_slices))
+        self._relation_spec = (relation_initializer, list(relation_slices))
+
+    def initial_params(self, device: Optional[Union[str, torch.device]] = None) -> Params:
+        """The initial tables, drawn on the host with numpy exactly as the
+        JAX package's ``initial_params`` draws them, then moved to ``device``
+        (default ``cuda``)."""
+        device = resolve_device(device)
+        ent_init, ent_slices = self._entity_spec
+        rel_init, rel_slices = self._relation_spec
+        ent = initialize_entity_embedding(
+            self.sharding, ent_init, ent_slices, seed=self.seed
+        ).reshape(-1, self.entity_row_size)
+        rel = initialize_relation_embedding(
+            self.n_relation_type,
+            self.inverse_relations,
+            rel_init,
+            rel_slices,
+            seed=self.seed + 1,
+        )
+        return {
+            "entity_embedding": torch.from_numpy(ent).to(device, self.dtype),
+            "relation_embedding": torch.from_numpy(rel).to(device, self.dtype),
+        }
+
+    def initial_params_device(
+        self,
+        device: Optional[Union[str, torch.device]] = None,
+        generator: Optional[torch.Generator] = None,
+    ) -> Params:
+        """The initial tables drawn directly on ``device`` (default ``cuda``)
+        from ``generator`` (default: a generator on ``device`` seeded with
+        :attr:`seed`). Values differ from :meth:`initial_params`."""
+        device = resolve_device(device)
+        if generator is None:
+            generator = torch.Generator(device).manual_seed(self.seed)
+        n_rel = self.n_relation_type * (2 if self.inverse_relations else 1)
+        ent_shape = (
+            self.sharding.n_shard * self.sharding.max_entity_per_shard,
+            self.entity_row_size,
+        )
+        return {
+            "entity_embedding": device_table_init(
+                *self._entity_spec, ent_shape, self.dtype, device, generator
+            ),
+            "relation_embedding": device_table_init(
+                *self._relation_spec, (n_rel, self.relation_row_size),
+                self.dtype, device, generator,
+            ),
+        }
+
+    def relation_embedding(self, params: Params, relation_id: torch.Tensor) -> torch.Tensor:
+        """Gather relation rows from the replicated table (cast to
+        :attr:`compute_dtype` when set)."""
+        r = params["relation_embedding"][relation_id.long()]
+        if self.compute_dtype is not None and r.dtype != self.compute_dtype:
+            r = r.to(self.compute_dtype)
+        return r
+
+    @abstractmethod
+    def score_triple(
+        self, params: Params, head_emb: torch.Tensor, relation_id: torch.Tensor,
+        tail_emb: torch.Tensor,
+    ) -> torch.Tensor:
+        """Score a batch of (h, r, t) triples; see module docstring."""
+        raise NotImplementedError
+
+    @abstractmethod
+    def score_heads(
+        self, params: Params, head_emb: torch.Tensor, relation_id: torch.Tensor,
+        tail_emb: torch.Tensor,
+    ) -> torch.Tensor:
+        """Score head candidates against fixed (r, t) queries."""
+        raise NotImplementedError
+
+    @abstractmethod
+    def score_tails(
+        self, params: Params, head_emb: torch.Tensor, relation_id: torch.Tensor,
+        tail_emb: torch.Tensor,
+    ) -> torch.Tensor:
+        """Score tail candidates against fixed (h, r) queries."""
+        raise NotImplementedError
+
+
+class DistanceBasedScoreFunction(BaseScoreFunction, ABC):
+    """Base for distance scorers: p-norm reduction + broadcasted distance."""
+
+    def __init__(self, negative_sample_sharing: bool, scoring_norm: int) -> None:
+        self.negative_sample_sharing = negative_sample_sharing
+        self.scoring_norm = scoring_norm
+
+    def reduce_embedding(self, v: torch.Tensor) -> torch.Tensor:
+        """p-norm along the last axis."""
+        if self.scoring_norm == 1:
+            return torch.sum(torch.abs(v), dim=-1)
+        if self.scoring_norm == 2:
+            return torch.sqrt(torch.sum(v * v, dim=-1) + _NORM_EPS)
+        return torch.sum(torch.abs(v) ** self.scoring_norm, dim=-1) ** (
+            1.0 / self.scoring_norm
+        )
+
+    def broadcasted_distance(self, v1: torch.Tensor, v2: torch.Tensor) -> torch.Tensor:
+        """p-distance of queries ``v1 (B, d)`` against candidates
+        ``v2 (b, n, d)``; with sample sharing one all-pairs distance matrix
+        (the L1 kernel on CUDA)."""
+        if self.negative_sample_sharing:
+            return p_distance_matrix(
+                v1, v2.reshape(-1, v2.shape[-1]), p=self.scoring_norm
+            )
+        return self.reduce_embedding(v1[:, None, :] - v2)
+
+    def distance_query_vector(
+        self, params: Params, known_emb: torch.Tensor, relation_id: torch.Tensor,
+        scheme: str,
+    ) -> Optional[torch.Tensor]:
+        """Transformed query ``a`` such that scoring against a shared
+        candidate pool equals ``−cdist_p(a, pool)``: the hook for the fused
+        window kernel. ``None`` means the model has no pure-cdist form."""
+        return None
+
+
+class TransE(DistanceBasedScoreFunction):
+    """TransE: ``-||h + r − t||_p`` (reference ``besskge/scoring.py:258-354``)."""
+
+    def __init__(
+        self,
+        negative_sample_sharing: bool,
+        scoring_norm: int,
+        sharding: Sharding,
+        n_relation_type: int,
+        embedding_size: int,
+        entity_initializer: Optional[TableOrInit] = None,
+        relation_initializer: Optional[TableOrInit] = None,
+        inverse_relations: bool = False,
+        seed: int = 0,
+        dtype: torch.dtype = torch.float32,
+    ) -> None:
+        super().__init__(negative_sample_sharing, scoring_norm)
+        self.embedding_size = embedding_size
+        self._build_tables(
+            sharding,
+            n_relation_type,
+            inverse_relations,
+            entity_initializer if entity_initializer is not None else [init_KGE_uniform],
+            [embedding_size],
+            relation_initializer if relation_initializer is not None else [init_KGE_uniform],
+            [embedding_size],
+            seed,
+            dtype,
+        )
+
+    def score_triple(self, params, head_emb, relation_id, tail_emb):
+        r = self.relation_embedding(params, relation_id)
+        return -self.reduce_embedding(head_emb + r - tail_emb)
+
+    def score_heads(self, params, head_emb, relation_id, tail_emb):
+        r = self.relation_embedding(params, relation_id)
+        return -self.broadcasted_distance(tail_emb - r, head_emb)
+
+    def score_tails(self, params, head_emb, relation_id, tail_emb):
+        r = self.relation_embedding(params, relation_id)
+        return -self.broadcasted_distance(head_emb + r, tail_emb)
+
+    def distance_query_vector(self, params, known_emb, relation_id, scheme):
+        r = self.relation_embedding(params, relation_id)
+        return known_emb - r if scheme == "h" else known_emb + r

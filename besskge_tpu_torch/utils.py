@@ -1,0 +1,35 @@
+"""Small tensor helpers shared across the port's modules."""
+
+from __future__ import annotations
+
+from typing import Optional, Union
+
+import torch
+
+__all__ = ["gather_indices", "resolve_device"]
+
+
+def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.device:
+    """The device an entry point runs on: ``cuda`` unless the caller names
+    another. Raises when CUDA is asked for and no card is there, so that no
+    entry point carries on on the CPU by itself."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "besskge_tpu_torch runs on a CUDA device and none is available;"
+            " pass device='cpu' to run the plain versions on the CPU"
+        )
+    return dev
+
+
+def gather_indices(x: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
+    """Gather columns of a 2-D tensor with a (broadcastable) 2-D index.
+
+    ``out[i, j] = x[i, index[i, j]]``; if ``index`` has a single row it is
+    shared by all rows of ``x`` (and vice versa), as in
+    ``besskge_tpu.utils.gather_indices``.
+    """
+    rows = torch.broadcast_shapes(x.shape[:1], index.shape[:1])
+    x_b = x.expand(rows + x.shape[1:])
+    idx_b = index.expand(rows + index.shape[1:])
+    return torch.gather(x_b, 1, idx_b.long())

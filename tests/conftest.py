@@ -27,3 +27,9 @@ jax.config.update("jax_platforms", "cpu")
 
 assert jax.default_backend() == "cpu", jax.default_backend()
 assert len(jax.devices()) >= 8, jax.devices()
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA CUDA card and nvcc; skipped without a card"
+    )
