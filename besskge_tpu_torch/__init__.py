@@ -9,8 +9,9 @@ The port imports neither ``jax`` nor ``besskge_tpu``: the numpy-only modules
 it needs are copied. Entry points run on ``cuda`` unless the caller passes
 ``device="cpu"``, and raise when no card is there.
 
-Ported so far: TopK serving of TransE (``bess.TopKQueryBessKGE`` with
-``build_topk_forward``) on one device.
+Ported so far, on one device: TopK serving of TransE
+(``bess.TopKQueryBessKGE`` with ``build_topk_forward``) and sparse training
+of TransE (``trainer.build_train_step``, ``trainer.Trainer``).
 """
 
 __version__ = "0.1.0"

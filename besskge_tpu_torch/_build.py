@@ -1,11 +1,13 @@
-"""Build the port's CUDA sources at first use and load them with ``ctypes``.
+"""Build the port's native sources at first use and load them with ``ctypes``.
 
-Each ``csrc/*.cu`` file is compiled by one ``nvcc`` call into a shared
-library with a plain C interface under ``build/besskge_tpu_torch/`` at the
-root of the checkout (``.gitignore`` lists ``build/``). The library's name
-carries a hash of its source and of the flags, so an edited source is
-rebuilt and an unchanged one is loaded as it is. Sources that need building
-are compiled in parallel, one ``nvcc`` process each, all started together.
+Each ``csrc/*.cu`` file of the port is compiled by one ``nvcc`` call, and the
+repository's host-side C++ loops (``csrc/bess_host.cpp``, shared with the JAX
+package) by one call of the host C++ compiler, into shared libraries with a
+plain C interface under ``build/besskge_tpu_torch/`` at the root of the
+checkout (``.gitignore`` lists ``build/``). A library's name carries a hash of
+its source and of the flags, so an edited source is rebuilt and an unchanged
+one is loaded as it is. Sources that need building are compiled in parallel,
+one compiler process each, all started together.
 """
 
 from __future__ import annotations
@@ -15,13 +17,18 @@ import hashlib
 import os
 import shutil
 import subprocess
+import sysconfig
 import threading
 from pathlib import Path
 from typing import Dict, Iterable, Optional
 
-__all__ = ["BUILD_DIR", "NVCC_FLAGS", "SOURCES", "build", "find_nvcc", "load_library"]
+__all__ = [
+    "BUILD_DIR", "CUDA_SOURCES", "HOST_FLAGS", "NVCC_FLAGS", "SOURCES", "build", "check_launch",
+    "find_nvcc", "load_library",
+]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
+_REPO_CSRC = Path(__file__).resolve().parent.parent / "csrc"
 #: Where the shared libraries go: ``build/besskge_tpu_torch/`` beside the package.
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "besskge_tpu_torch"
 #: Hopper only: ``sm_90a`` keeps wgmma/setmaxnreg available to later kernels.
@@ -29,8 +36,15 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
+#: Host C++ flags: position-independent, optimised, no CPU-specific code.
+HOST_FLAGS = ("-std=c++17", "-O3", "-shared", "-fPIC")
 #: Every CUDA source of the port, by library name.
-SOURCES = {"l1_distance": _CSRC / "l1_distance.cu"}
+CUDA_SOURCES = {
+    "l1_distance": _CSRC / "l1_distance.cu",
+    "row_update": _CSRC / "row_update.cu",
+}
+#: Every native source, by library name: the CUDA kernels and the host loops.
+SOURCES = {**CUDA_SOURCES, "bess_host": _REPO_CSRC / "bess_host.cpp"}
 #: Where the CUDA toolkit is looked for when ``CUDA_HOME`` is not set.
 DEFAULT_CUDA_HOME = "/usr/local/cuda"
 
@@ -53,36 +67,55 @@ def find_nvcc() -> str:
     return found
 
 
+def _flags(name: str) -> tuple:
+    return NVCC_FLAGS if name in CUDA_SOURCES else HOST_FLAGS
+
+
+def host_compiler() -> str:
+    """The host C++ compiler: Python's configured ``CXX``, else ``g++``."""
+    return (sysconfig.get_config_var("CXX") or "g++").split()[0]
+
+
 def library_path(name: str) -> Path:
     """Path of the library built from ``SOURCES[name]`` as it is now."""
     digest = hashlib.sha256(
-        SOURCES[name].read_bytes() + " ".join(NVCC_FLAGS).encode()
+        SOURCES[name].read_bytes() + " ".join(_flags(name)).encode()
     ).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
 def build(names: Iterable[str] = tuple(SOURCES), nvcc: Optional[str] = None) -> Dict[str, Path]:
-    """Compile each named source whose library is missing, one ``nvcc``
+    """Compile each named source whose library is missing, one compiler
     process per source, all running at once. Returns the library paths.
 
-    :param nvcc: compiler to use (default: :func:`find_nvcc`).
+    :param nvcc: CUDA compiler to use (default: :func:`find_nvcc`, looked up
+        only when a CUDA source needs building).
     """
     names = list(names)
     paths = {name: library_path(name) for name in names}
     todo = [name for name in names if not paths[name].is_file()]
     if not todo:
         return paths
-    nvcc = nvcc or find_nvcc()
+    if any(name in CUDA_SOURCES for name in todo):
+        nvcc = nvcc or find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = []
-    for name in todo:
-        # Write under a private name and rename: a concurrent build of the
-        # same source never sees a half-written library.
-        tmp = paths[name].with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])]
-        procs.append((name, tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
-        )))
+    try:
+        for name in todo:
+            compiler = nvcc if name in CUDA_SOURCES else host_compiler()
+            # Write under a private name and rename: a concurrent build of
+            # the same source never sees a half-written library.
+            tmp = paths[name].with_suffix(f".{os.getpid()}.tmp")
+            cmd = [compiler, *_flags(name), "-o", str(tmp), str(SOURCES[name])]
+            procs.append((name, tmp, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+            )))
+    except OSError:
+        for _, tmp, proc in procs:
+            proc.kill()
+            proc.wait()
+            tmp.unlink(missing_ok=True)
+        raise
     failed = []
     for name, tmp, proc in procs:
         log, _ = proc.communicate()
@@ -92,7 +125,7 @@ def build(names: Iterable[str] = tuple(SOURCES), nvcc: Optional[str] = None) -> 
             tmp.unlink(missing_ok=True)
             failed.append(f"{SOURCES[name].name}:\n{log}")
     if failed:
-        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+        raise RuntimeError("native build failed for " + "\n".join(failed))
     return paths
 
 
@@ -104,3 +137,10 @@ def load_library(name: str, nvcc: Optional[str] = None) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build([name], nvcc)[name]))
             _loaded[name] = lib
         return lib
+
+
+def check_launch(name: str, rc: int) -> None:
+    """Raise when a kernel entry point returned a CUDA error (a refused
+    launch never runs, and a later synchronisation would not report it)."""
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with cudaError {rc}")

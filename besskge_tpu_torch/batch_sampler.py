@@ -10,11 +10,10 @@ the device's tiled AllToAll over the shard axis, the tail block of partition
 ``(h, t)`` lands on shard ``h`` next to its heads.
 
 Batches are dicts of numpy arrays — no framework tensors. Copied from
-``besskge_tpu/batch_sampler.py`` (numpy path only: the C++ host loops, the
-threaded dataloader, triple weighting, duplicated batches and
-``RandomShardedBatchSampler`` are not ported yet), so
-that the port never imports the JAX package; for the same seed its batches
-equal the JAX package's.
+``besskge_tpu/batch_sampler.py`` (with the C++ host loops of
+:mod:`besskge_tpu_torch.native` and the threaded dataloader; triple weighting
+and duplicated batches are not ported yet), so that the port never imports
+the JAX package; for the same seed its batches equal the JAX package's.
 """
 
 from __future__ import annotations
@@ -24,12 +23,14 @@ from typing import Dict, Iterator, Optional, Sequence
 
 import numpy as np
 
+from besskge_tpu_torch import native
 from besskge_tpu_torch.negative_sampler import ShardedNegativeSampler
 from besskge_tpu_torch.sharding import PartitionedTripleSet
 
 __all__ = [
     "ShardedBatchSampler",
     "RigidShardedBatchSampler",
+    "RandomShardedBatchSampler",
 ]
 
 Batch = Dict[str, np.ndarray]
@@ -45,6 +46,8 @@ class ShardedBatchSampler(ABC):
     :param seed: RNG seed.
     :param return_triple_idx: also return positions (into
         ``partitioned_triple_set.triples``) of the sampled triples.
+    :param use_native: assemble batches with the C++ host loops (the same
+        arrays as the numpy path; raises when the library cannot be built).
     """
 
     def __init__(
@@ -55,6 +58,7 @@ class ShardedBatchSampler(ABC):
         batches_per_step: int,
         seed: int,
         return_triple_idx: bool = False,
+        use_native: bool = True,
     ) -> None:
         self.n_shard = partitioned_triple_set.sharding.n_shard
         self.triples = partitioned_triple_set.triples
@@ -65,6 +69,7 @@ class ShardedBatchSampler(ABC):
         self.negative_sampler = negative_sampler
         self.shard_bs = shard_bs
         self.batches_per_step = batches_per_step
+        self.use_native = use_native
 
         if self.triple_partition_mode == "ht_shardpair":
             # Micro-batch on shard h = n_shard partition blocks (h, 0..S-1).
@@ -104,13 +109,19 @@ class ShardedBatchSampler(ABC):
         parts = self.sample_triples(idx)
         sample_idx = parts.pop("sample_idx")
 
-        hrt = self.triples[sample_idx]  # (..., 3)
-        head = hrt[..., 0]
-        relation = hrt[..., 1]
-        tail = hrt[..., 2]
-        if self.triple_partition_mode == "ht_shardpair":
-            # Pre-transpose tails (shard_h <-> shard_t) for the AllToAll.
-            tail = np.ascontiguousarray(tail.transpose(0, 2, 1, 3))
+        if self.use_native and (
+            sample_idx.ndim == 4 or self.triple_partition_mode != "ht_shardpair"
+        ):
+            # C++ fused gather (+ tail pre-transpose for ht_shardpair).
+            head, relation, tail = native.assemble_hrt(self.triples, sample_idx)
+        else:
+            hrt = self.triples[sample_idx]  # (..., 3)
+            head = hrt[..., 0]
+            relation = hrt[..., 1]
+            tail = hrt[..., 2]
+            if self.triple_partition_mode == "ht_shardpair":
+                # Pre-transpose tails (shard_h <-> shard_t) for the AllToAll.
+                tail = np.ascontiguousarray(tail.transpose(0, 2, 1, 3))
 
         batch: Batch = {
             "head": np.asarray(head, np.int32),
@@ -148,6 +159,51 @@ class ShardedBatchSampler(ABC):
             if len(block):
                 yield block
 
+    def get_dataloader(
+        self,
+        shuffle: bool = True,
+        prefetch: int = 2,
+        repeat: bool = False,
+        seed_offset: int = 0,
+    ) -> Iterator[Batch]:
+        """Iterate batches with background-thread prefetch.
+
+        The numpy batch assembly (the CPU hot loop) runs in a worker thread so
+        it overlaps device execution; ``prefetch`` bounds the queue depth.
+        """
+        import queue
+        import threading
+
+        rng = np.random.default_rng(self.seed + seed_offset)
+        q: "queue.Queue" = queue.Queue(maxsize=max(prefetch, 1))
+        stop = threading.Event()
+
+        def worker() -> None:
+            try:
+                while True:
+                    for block in self.epoch_index_blocks(shuffle, rng):
+                        if stop.is_set():
+                            return
+                        q.put(self.sample_batch(block))
+                    if not repeat:
+                        break
+            finally:
+                q.put(None)
+
+        thread = threading.Thread(target=worker, daemon=True)
+        thread.start()
+        try:
+            while True:
+                item = q.get()
+                if item is None:
+                    break
+                yield item
+        finally:
+            stop.set()
+            # Drain so the worker can exit.
+            while not q.empty():
+                q.get_nowait()
+
 
 class RigidShardedBatchSampler(ShardedBatchSampler):
     """Deterministic epoch cover: every partition padded (by cyclic triple
@@ -168,6 +224,21 @@ class RigidShardedBatchSampler(ShardedBatchSampler):
 
     def sample_triples(self, idx: Sequence[int]) -> Dict[str, np.ndarray]:
         idx = np.asarray(idx)
+        if (
+            self.use_native
+            and self.triple_padded_idx.ndim == 3
+            and idx.size % self.batches_per_step == 0
+        ):
+            # ht_shardpair fast path: the C++ loop writes the
+            # (bps, S, S, t) layout directly (no numpy fancy-index temp).
+            take, mask = native.rigid_take(
+                self.triple_padded_idx,
+                self.triple_counts.astype(np.int64),
+                idx.astype(np.int64),
+                self.batches_per_step,
+                idx.size // self.batches_per_step,
+            )
+            return dict(sample_idx=take, triple_mask=mask)
         take = self.triple_padded_idx[..., idx]  # (shard, [shard,] bps*t)
         mask = self.triple_mask[..., idx]
 
@@ -178,3 +249,33 @@ class RigidShardedBatchSampler(ShardedBatchSampler):
             return np.moveaxis(x, -2, 0)
 
         return dict(sample_idx=split_steps(take), triple_mask=split_steps(mask))
+
+
+class RandomShardedBatchSampler(ShardedBatchSampler):
+    """IID sampling with replacement from every partition (no padding mask)."""
+
+    def __len__(self) -> int:
+        return int(np.ceil(self.triple_counts.max() / self.partition_sample_size))
+
+    def sample_triples(self, idx: Sequence[int]) -> Dict[str, np.ndarray]:
+        if self.triple_partition_mode == "ht_shardpair":
+            size = (
+                self.batches_per_step,
+                self.n_shard,
+                self.n_shard,
+                self.positive_per_partition,
+            )
+        else:
+            size = (self.batches_per_step, self.n_shard, self.positive_per_partition)
+        draws = self.rng.integers(1 << 62, size=size)
+        sample_idx = (
+            self.triple_offsets[None, ..., None]
+            + draws % np.maximum(self.triple_counts[None, ..., None], 1)
+        )
+        return dict(sample_idx=sample_idx)
+
+    def epoch_index_blocks(
+        self, shuffle: bool = True, rng: Optional[np.random.Generator] = None
+    ) -> Iterator[np.ndarray]:
+        for i in range(len(self)):
+            yield np.array([i])

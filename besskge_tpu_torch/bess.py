@@ -1,15 +1,21 @@
-"""BESS top-k serving on one device (torch).
+"""BESS modules on one device (torch): training forward and top-k serving.
 
-Counterpart of the top-k part of ``besskge_tpu/bess.py``:
-:class:`TopKQueryBessKGE` completes (h, r, ?) / (?, r, t) queries against
-every entity by sliding a window over the local entity table, keeping a
-running top-(k+1), and :func:`build_topk_forward` runs it over the
-``(bps, n_shard, ...)`` batches of the batch sampler.
+Counterpart of ``besskge_tpu/bess.py``:
+
+* :class:`BessKGE` and :class:`EmbeddingMovingBessKGE` score one
+  micro-batch of positives against their (shared) negatives and return the
+  loss: the forward of the training step
+  (:func:`besskge_tpu_torch.trainer.build_train_step`);
+* :class:`TopKQueryBessKGE` completes (h, r, ?) / (?, r, t) queries against
+  every entity by sliding a window over the local entity table, keeping a
+  running top-(k+1), and :func:`build_topk_forward` runs it over the
+  ``(bps, n_shard, ...)`` batches of the batch sampler.
 
 Only the single-device semantics (``axis_name=None``, ``n_shard == 1``) are
 ported: every collective is the identity. A mesh raises
-``NotImplementedError`` (ROADMAP A15). Candidate-set queries (a
-``TripleBasedShardedNegativeSampler``) are not ported yet (ROADMAP A14).
+``NotImplementedError`` (ROADMAP A15). ``ScoreMovingBessKGE``, candidate-set
+queries (a ``TripleBasedShardedNegativeSampler``) and ``AllScoresBESS`` are
+not ported yet (ROADMAP A14).
 
 For TransE with L1 scoring the default chunk merge scores each window with
 one launch of the fused L1 kernel (scores + mask + 128-column chunk maxima,
@@ -19,11 +25,13 @@ scores it through ``score_tails``/``score_heads`` and the L1 distance kernel.
 
 from __future__ import annotations
 
+from abc import ABC, abstractmethod
 from typing import Any, Callable, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
+from besskge_tpu_torch.loss import BaseLossFunction
 from besskge_tpu_torch.metric import Evaluation
 from besskge_tpu_torch.negative_sampler import (
     PlaceholderNegativeSampler,
@@ -34,7 +42,13 @@ from besskge_tpu_torch.packed import check_plain_table, take_contiguous_rows, ta
 from besskge_tpu_torch.scoring import BaseScoreFunction, DistanceBasedScoreFunction
 from besskge_tpu_torch.utils import gather_indices, resolve_device
 
-__all__ = ["BAD_NEGATIVE_SCORE", "TopKQueryBessKGE", "build_topk_forward"]
+__all__ = [
+    "BAD_NEGATIVE_SCORE",
+    "BessKGE",
+    "EmbeddingMovingBessKGE",
+    "TopKQueryBessKGE",
+    "build_topk_forward",
+]
 
 #: Sentinel added to masked-out negative scores (reference ``bess.py:31``).
 BAD_NEGATIVE_SCORE = -50000.0
@@ -55,6 +69,235 @@ def _no_mesh(axis_name: Optional[str]) -> None:
             "multi-device BESS (a mesh axis) is not ported yet (ROADMAP A15);"
             " use axis_name=None on one device"
         )
+
+
+class BessKGE(ABC):
+    """Base class for BESS distribution modules (reference
+    ``besskge/bess.py:34-305``), on one device.
+
+    :param negative_sampler: sharded negative sampler (defines layouts).
+    :param score_fn: scoring function (owns table shapes).
+    :param loss_fn: loss, required for training.
+    :param evaluation: must be ``None``: metrics of training micro-batches
+        are not ported yet (ROADMAP A14).
+    :param return_scores: return positive/negative scores.
+    :param augment_negative: use in-batch heads/tails as extra negatives.
+    :param axis_name: must be ``None`` (one device; requires ``n_shard == 1``).
+    """
+
+    def __init__(
+        self,
+        negative_sampler: ShardedNegativeSampler,
+        score_fn: BaseScoreFunction,
+        loss_fn: Optional[BaseLossFunction] = None,
+        evaluation: Optional[Evaluation] = None,
+        return_scores: bool = False,
+        augment_negative: bool = False,
+        axis_name: Optional[str] = None,
+    ) -> None:
+        _no_mesh(axis_name)
+        if evaluation is not None:
+            raise NotImplementedError(
+                "metrics in BessKGE.forward are not ported yet (ROADMAP A14)"
+            )
+        self.sharding = score_fn.sharding
+        self.negative_sampler = negative_sampler
+        self.score_fn = score_fn
+        self.loss_fn = loss_fn
+        self.return_scores = return_scores
+        self.augment_negative = augment_negative
+        self.axis_name = axis_name
+        if not (loss_fn or return_scores):
+            raise ValueError(
+                "Nothing to return. At least one of loss_fn or return_scores"
+                " needs to be != None"
+            )
+        if augment_negative and not score_fn.negative_sample_sharing:
+            raise ValueError("Negative augmentation requires negative sample sharing")
+        if negative_sampler.flat_negative_format and not score_fn.negative_sample_sharing:
+            raise ValueError("Using flat negative format requires negative sample sharing")
+        if self.sharding.n_shard != 1:
+            raise ValueError("axis_name=None requires n_shard == 1")
+        self.entity_embedding_size: int = score_fn.entity_row_size
+
+    def forward(
+        self,
+        params: Dict[str, torch.Tensor],
+        head: torch.Tensor,
+        relation: torch.Tensor,
+        tail: torch.Tensor,
+        negative: torch.Tensor,
+        triple_mask: Optional[torch.Tensor] = None,
+        triple_weight: Optional[torch.Tensor] = None,
+        negative_mask: Optional[torch.Tensor] = None,
+        gathered_emb: Optional[torch.Tensor] = None,
+    ) -> Dict[str, torch.Tensor]:
+        """One micro-batch: gather → score → loss (reference
+        ``bess.py:117-276``). Free of data-dependent Python branches, so it
+        runs under ``torch.func.vmap`` over micro-batches.
+
+        ``params["entity_embedding"]`` is the local table (plain or
+        pair-major); ``gathered_emb`` optionally supplies the gathered entity
+        rows (see :meth:`gather_plan`). ``triple_mask`` is taken for the
+        batch layout's sake and not used: it only masks metrics.
+        """
+        if triple_weight is None:
+            triple_weight = torch.ones((), dtype=torch.float32, device=relation.device)
+        positive_score, negative_score = self.score_batch(
+            params, head, relation, tail, negative, gathered_emb=gathered_emb
+        )
+        n_shard, ppp = relation.shape
+        bs = n_shard * ppp
+        device = negative_score.device
+        flat_ht = (
+            self.negative_sampler.flat_negative_format
+            and self.negative_sampler.corruption_scheme == "ht"
+        )
+
+        mask_flat = None
+        if negative_mask is not None:
+            # (B, n_shard_src, pad) -> (B, n_shard_src * pad)
+            mask_flat = negative_mask.reshape(negative_mask.shape[0], -1)
+            if flat_ht:
+                cut = ppp // 2
+                width = mask_flat.shape[-1]
+                mask_h = mask_flat[0][None, None, :].expand(n_shard, cut, width)
+                mask_t = mask_flat[1][None, None, :].expand(n_shard, ppp - cut, width)
+                mask_flat = torch.cat([mask_h, mask_t], dim=1).reshape(bs, width)
+
+        if self.augment_negative:
+            # Kill the score of each triple's own true head/tail, which was
+            # prepended to the candidate pool (reference ``bess.py:207-238``).
+            n_col = negative_score.shape[1]
+            cols = torch.arange(n_col, dtype=torch.int64, device=device)[None, :]
+            rows = torch.arange(bs, dtype=torch.int64, device=device)
+            if self.negative_sampler.flat_negative_format:
+                if flat_ht:
+                    cut = ppp // 2
+                    target = (rows // ppp) * cut + (rows % ppp) % cut
+                else:
+                    target = rows
+            else:
+                target = rows * (1 + negative.shape[0] * negative.shape[2])
+            aug_mask = cols == target[:, None]
+            if mask_flat is not None:
+                width = mask_flat.shape[-1]
+                aug_mask = torch.cat([aug_mask[:, : n_col - width], ~mask_flat], dim=1)
+            negative_score = negative_score + BAD_NEGATIVE_SCORE * aug_mask.to(
+                negative_score.dtype
+            )
+        elif mask_flat is not None:
+            negative_score = negative_score + BAD_NEGATIVE_SCORE * (~mask_flat).to(
+                negative_score.dtype
+            )
+
+        out: Dict[str, torch.Tensor] = {}
+        if self.return_scores:
+            out["positive_score"] = positive_score
+            out["negative_score"] = negative_score
+        if self.loss_fn is not None:
+            out["loss"] = self.loss_fn(
+                positive_score.float(), negative_score.float(), triple_weight.float()
+            )
+        return out
+
+    @abstractmethod
+    def score_batch(
+        self,
+        params: Dict[str, torch.Tensor],
+        head: torch.Tensor,
+        relation: torch.Tensor,
+        tail: torch.Tensor,
+        negative: torch.Tensor,
+        gathered_emb: Optional[torch.Tensor] = None,
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Positive (bs,) and negative (bs, n_neg_total) scores for the
+        micro-batch."""
+        raise NotImplementedError
+
+    def gather_plan(
+        self, head: torch.Tensor, tail: torch.Tensor, negative: torch.Tensor
+    ) -> torch.Tensor:
+        """Local row indices gathered by :meth:`score_batch`, shape (S, G)."""
+        return torch.cat([head, tail, negative.reshape(negative.shape[0], -1)], dim=1)
+
+
+class EmbeddingMovingBessKGE(BessKGE):
+    """Score negatives on the head (processing) shard: one fused local gather
+    of [head | tail | negative] rows (reference ``besskge/bess.py:308-468``).
+    On one device the AllToAll that moves tail and negative embeddings is the
+    identity."""
+
+    def score_batch(self, params, head, relation, tail, negative, gathered_emb=None):
+        n_shard, ppp = relation.shape
+        bs = n_shard * ppp
+        d = self.entity_embedding_size
+        scheme = self.negative_sampler.corruption_scheme
+        flat = self.negative_sampler.flat_negative_format
+        b_neg, n_neg = negative.shape[1], negative.shape[2]
+
+        if gathered_emb is None:
+            gathered_emb = take_rows(
+                params["entity_embedding"],
+                self.gather_plan(head, tail, negative),
+                n_logical=self.sharding.max_entity_per_shard,
+            )
+        emb = _cast_gathered(gathered_emb, self.score_fn.compute_dtype)
+        head_emb = emb[:, :ppp]
+        # One shard: the AllToAll of [tail | negative] rows is the identity,
+        # with or without local sampling.
+        tail_emb = emb[:, ppp : 2 * ppp]
+        neg_emb = emb[:, 2 * ppp :]
+        # (S, B, n_neg, d) -> (B, S * n_neg, d): source-shard-major pool.
+        neg_emb = (
+            neg_emb.reshape(n_shard, b_neg, n_neg, d)
+            .permute(1, 0, 2, 3)
+            .reshape(b_neg, n_shard * n_neg, d)
+        )
+
+        positive_score = self.score_fn.score_triple(
+            params, head_emb.reshape(bs, d), relation.reshape(bs), tail_emb.reshape(bs, d)
+        )
+
+        if scheme == "h":
+            if self.augment_negative:
+                neg_emb = torch.cat([head_emb.reshape(neg_emb.shape[0], -1, d), neg_emb], dim=1)
+            negative_score = self.score_fn.score_heads(
+                params, neg_emb, relation.reshape(bs), tail_emb.reshape(bs, d)
+            )
+        elif scheme == "t":
+            if self.augment_negative:
+                neg_emb = torch.cat([tail_emb.reshape(neg_emb.shape[0], -1, d), neg_emb], dim=1)
+            negative_score = self.score_fn.score_tails(
+                params, head_emb.reshape(bs, d), relation.reshape(bs), neg_emb
+            )
+        elif scheme == "ht":
+            # First half of each partition: head-corrupted; second: tail-
+            # corrupted (reference ``bess.py:400-466``).
+            cut = ppp // 2
+            rel1 = relation[:, :cut].reshape(-1)
+            rel2 = relation[:, cut:].reshape(-1)
+            h1, h2 = head_emb[:, :cut], head_emb[:, cut:]
+            t1, t2 = tail_emb[:, :cut], tail_emb[:, cut:]
+            if flat:
+                neg_h, neg_t = neg_emb[0:1], neg_emb[1:2]
+            else:
+                ne = neg_emb.reshape(n_shard, ppp, -1, d)
+                neg_h = ne[:, :cut].reshape(n_shard * cut, -1, d)
+                neg_t = ne[:, cut:].reshape(n_shard * (ppp - cut), -1, d)
+            if self.augment_negative:
+                neg_h = torch.cat([h1.reshape(neg_h.shape[0], -1, d), neg_h], dim=1)
+                neg_t = torch.cat([t2.reshape(neg_t.shape[0], -1, d), neg_t], dim=1)
+            ns_h = self.score_fn.score_heads(params, neg_h, rel1, t1.reshape(-1, d))
+            ns_t = self.score_fn.score_tails(params, h2.reshape(-1, d), rel2, neg_t)
+            negative_score = torch.cat(
+                [ns_h.reshape(n_shard, cut, -1), ns_t.reshape(n_shard, ppp - cut, -1)],
+                dim=1,
+            ).reshape(bs, -1)
+        else:
+            raise ValueError(f"Unsupported corruption scheme {scheme}")
+
+        return positive_score, negative_score
 
 
 class TopKQueryBessKGE:
@@ -266,6 +509,31 @@ class TopKQueryBessKGE:
                 out["ranks"] = ranks
             out["metrics"] = self.evaluation.stacked_metrics_from_ranks(ranks, triple_mask)
         return out
+
+
+#: Batch keys that :meth:`BessKGE.forward` takes.
+_FORWARD_KEYS = (
+    "head",
+    "relation",
+    "tail",
+    "negative",
+    "triple_mask",
+    "triple_weight",
+    "negative_mask",
+)
+
+
+def _format_outputs(bess: BessKGE, outs: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Stacked per-micro-batch outputs ``(bps, ...)`` -> step outputs: the
+    loss summed over micro-batches, a unit shard axis inserted after ``bps``
+    (the cross-device sum is the identity on one device)."""
+    formatted = {}
+    if "loss" in outs:
+        formatted["loss"] = torch.sum(outs["loss"])
+    for key in ("positive_score", "negative_score"):
+        if key in outs:
+            formatted[key] = outs[key][:, None]
+    return formatted
 
 
 _TOPK_KEYS = ("head", "relation", "tail", "triple_mask")

@@ -1,33 +1,76 @@
-"""Carry parameters between the JAX package and the port."""
+"""Carry parameters and optimizer state between the JAX package and the port.
+
+The JAX package's values arrive as numpy arrays or as its own containers
+(optax states are named tuples); nothing here imports JAX or optax.
+"""
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Union
+from typing import Any, Dict, Optional, Union
 
 import numpy as np
 import torch
 
 from besskge_tpu_torch.utils import resolve_device
 
-__all__ = ["params_from_jax"]
+__all__ = ["opt_state_from_jax", "opt_state_to_numpy", "params_from_jax", "params_to_numpy"]
+
+Device = Optional[Union[str, torch.device]]
 
 
-def params_from_jax(
-    params: Dict[str, np.ndarray],
-    device: Optional[Union[str, torch.device]] = None,
-) -> Dict[str, torch.Tensor]:
+def _tensor(value: Any, device: torch.device) -> torch.Tensor:
+    arr = np.array(value)  # a writable copy: torch.from_numpy shares memory
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16).to(device)
+    return torch.from_numpy(arr).to(device)
+
+
+def params_from_jax(params: Dict[str, Any], device: Device = None) -> Dict[str, torch.Tensor]:
     """The port's params from the JAX package's, given as numpy arrays
     (``{k: np.asarray(v) for k, v in jax_params.items()}``), on ``device``
-    (default ``cuda``). Values and dtypes are kept bit for bit; bfloat16
-    arrays (numpy dtype ``bfloat16`` from ``ml_dtypes``) are carried by
-    their bits."""
+    (default ``cuda``). Values and dtypes are kept bit for bit — a plain
+    ``(N, D)`` table, a pair-major interleaved ``(2N, D)`` one and its
+    ``(1, ·, D)`` block alike; bfloat16 arrays (numpy dtype ``bfloat16``
+    from ``ml_dtypes``) are carried by their bits."""
     device = resolve_device(device)
-    out = {}
-    for key, value in params.items():
-        arr = np.ascontiguousarray(value)
-        if arr.dtype.name == "bfloat16":
-            tensor = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
-        else:
-            tensor = torch.from_numpy(arr)
-        out[key] = tensor.to(device)
-    return out
+    return {key: _tensor(value, device) for key, value in params.items()}
+
+
+def opt_state_from_jax(state: Dict[str, Any], device: Device = None) -> Dict[str, Any]:
+    """The port's optimizer state from the JAX package's
+    ``init_optimizer_state(optax.sgd(lr, momentum), params, None, row_opt)``
+    state, ``{"entity": {"count"}, "other": (TraceState(trace={...}), ...)}``,
+    on ``device`` (default ``cuda``): ``{"entity": {"count"}, "other":
+    {"count", "trace"}}`` for :class:`~besskge_tpu_torch.optim.RowSGDM` and
+    :class:`~besskge_tpu_torch.optim.SGD`. The dense step count is the
+    schedule's count when the optax chain keeps one, else the entity
+    optimizer's."""
+    device = resolve_device(device)
+    entity = {k: _tensor(v, device) for k, v in state["entity"].items()}
+    other: Dict[str, Any] = {"count": entity["count"].clone()}
+    parts = state["other"]
+    for part in parts if isinstance(parts, (tuple, list)) else (parts,):
+        fields = getattr(part, "_fields", ())
+        if "trace" in fields:
+            other["trace"] = {k: _tensor(v, device) for k, v in part.trace.items()}
+        if "count" in fields:
+            other["count"] = _tensor(part.count, device).to(torch.int32)
+    return {"entity": entity, "other": other}
+
+
+def _numpy(value: Any) -> Any:
+    if isinstance(value, dict):
+        return {k: _numpy(v) for k, v in value.items()}
+    if value.dtype == torch.bfloat16:
+        value = value.float()  # exact: numpy has no bfloat16
+    return value.detach().cpu().numpy()
+
+
+def params_to_numpy(params: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """The port's params as numpy arrays (bfloat16 widened to float32)."""
+    return _numpy(params)
+
+
+def opt_state_to_numpy(state: Dict[str, Any]) -> Dict[str, Any]:
+    """The port's optimizer state as nested dicts of numpy arrays."""
+    return _numpy(state)

@@ -1,20 +1,29 @@
 """Sharded negative samplers (host-side numpy).
 
 Copied from ``besskge_tpu/negative_sampler.py`` so that the port never
-imports the JAX package. Only the base class and the placeholder that the
-top-k serving path uses are ported; the random, type-based and triple-based
-samplers follow with the training slice.
+imports the JAX package. Ported: the base class, the uniform
+:class:`RandomShardedNegativeSampler` of the training path (native pcg32 and
+numpy streams, bit-equal to the JAX package's for the same seed) and the
+placeholder of top-k serving. The type-based and triple-based samplers are
+not ported yet (ROADMAP A14).
 """
 
 from __future__ import annotations
 
 from abc import ABC, abstractmethod
-from typing import Dict, Union
+from typing import Dict, Tuple, Union
 
 import numpy as np
 from numpy.typing import NDArray
 
-__all__ = ["ShardedNegativeSampler", "PlaceholderNegativeSampler"]
+from besskge_tpu_torch import native
+from besskge_tpu_torch.sharding import Sharding
+
+__all__ = [
+    "ShardedNegativeSampler",
+    "RandomShardedNegativeSampler",
+    "PlaceholderNegativeSampler",
+]
 
 BatchArrays = Dict[str, Union[NDArray[np.int32], NDArray[np.bool_]]]
 
@@ -43,6 +52,70 @@ class ShardedNegativeSampler(ABC):
             sampler-specific masks / sorting indices.
         """
         raise NotImplementedError
+
+
+def _batch_geometry(
+    sample_idx: NDArray[np.int64],
+) -> Tuple[int, int, int]:
+    """(bps, n_shard, shard_bs) from a (bps, n_shard, [n_shard,] ppp) index."""
+    bps, n_shard = sample_idx.shape[:2]
+    ppp = sample_idx.shape[-1]
+    shard_bs = ppp if sample_idx.ndim == 3 else n_shard * ppp
+    return bps, n_shard, shard_bs
+
+
+class RandomShardedNegativeSampler(ShardedNegativeSampler):
+    """Uniform random negatives.
+
+    Drawing a local row id uniformly in ``[0, shard_counts[s])`` on every
+    shard ``s`` is exactly uniform sampling over all entities *conditioned on
+    balance* — the BESS trick that makes the exchange an equal-split AllToAll.
+
+    :param use_native: draw with the C++ pcg32 loop (deterministic in
+        (seed, call index); a different stream than the numpy path). Raises
+        when the native library cannot be built; ``False`` draws from the
+        numpy generator.
+    """
+
+    def __init__(
+        self,
+        n_negative: int,
+        sharding: Sharding,
+        seed: int,
+        corruption_scheme: str,
+        local_sampling: bool,
+        flat_negative_format: bool = False,
+        use_native: bool = True,
+    ) -> None:
+        self.n_negative = n_negative
+        self.sharding = sharding
+        self.shard_counts = sharding.shard_counts
+        self.corruption_scheme = corruption_scheme
+        self.local_sampling = local_sampling
+        self.flat_negative_format = flat_negative_format
+        self.seed = seed
+        self.rng = np.random.default_rng(seed)
+        self.use_native = use_native
+        self._native_calls = 0
+
+    def __call__(self, sample_idx: NDArray[np.int64]) -> BatchArrays:
+        bps, n_shard, shard_bs = _batch_geometry(sample_idx)
+        if self.flat_negative_format:
+            b = 2 if self.corruption_scheme == "ht" else 1
+        else:
+            b = shard_bs
+        if self.use_native:
+            call_seed = (self.seed * 0x9E3779B9 + self._native_calls) & (2**63 - 1)
+            out = native.random_negatives(
+                call_seed, self.shard_counts, bps, n_shard, b, self.n_negative
+            )
+            self._native_calls += 1
+            return dict(negative_entities=out)
+        draws = self.rng.integers(
+            1 << 31, size=(bps, n_shard, n_shard, b, self.n_negative), dtype=np.int64
+        )
+        local = draws % self.shard_counts[None, :, None, None, None]
+        return dict(negative_entities=local.astype(np.int32))
 
 
 class PlaceholderNegativeSampler(ShardedNegativeSampler):

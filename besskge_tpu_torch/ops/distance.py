@@ -1,13 +1,26 @@
 """Distance matrices and the fused top-k window op, dispatched by device.
 
-Counterpart of ``besskge_tpu/ops/distance.py``. On a CUDA tensor the p=1 ops
-always launch the hand-written kernels of :mod:`.l1_kernels` (the JAX
-package's size gate was measured on a TPU and does not carry over); on a CPU
-tensor they compute the plain versions. p=2 is the ``|a|² + |b|² − 2ab``
-decomposition through ``torch.matmul``, as the JAX package leaves it to XLA.
+Counterpart of ``besskge_tpu/ops/distance.py``. p=2 is the
+``|a|² + |b|² − 2ab`` decomposition through ``torch.matmul``, as the JAX
+package leaves it to XLA. p=1 is a ``torch.autograd.Function`` whose forward
+and backward are each another kernel, on every device: on a CUDA tensor they
+launch the hand-written kernels of :mod:`.l1_kernels` (the JAX package's size
+gate was measured on a TPU and does not carry over), on a CPU tensor they
+compute the plain versions. Under ``torch.func.vmap`` (the trainer's
+micro-batches) the Functions' ``vmap`` rules call the batched kernels, as the
+JAX package's ``custom_vmap`` rules do:
+
+=====================  ============  ============================
+                       unbatched     under ``torch.func.vmap``
+=====================  ============  ============================
+forward (:class:`_L1`) B5            B1
+backward (``_L1Grads``) B6           B2
+=====================  ============  ============================
 """
 
 from __future__ import annotations
+
+from typing import Any, Optional, Sequence, Tuple
 
 import torch
 
@@ -21,6 +34,64 @@ __all__ = ["p_distance_matrix", "l1_scores_chunkmax"]
 
 #: Softening for sqrt at zero distance.
 _EPS = 1e-12
+
+
+def _batch_first(
+    batch_size: int, in_dims: Sequence[Optional[int]], *tensors: torch.Tensor
+) -> Tuple[torch.Tensor, ...]:
+    """Each tensor with its vmapped dimension first; an unbatched one
+    (``in_dims`` entry ``None``) is expanded to the group count."""
+    return tuple(
+        t.expand(batch_size, *t.shape) if dim is None else t.movedim(dim, 0)
+        for t, dim in zip(tensors, in_dims)
+    )
+
+
+class _L1Grads(torch.autograd.Function):
+    """``(da, db)`` of the L1 distance matrix for a cotangent ``g``, in fp32
+    (B6; B2 under vmap). First-order only."""
+
+    @staticmethod
+    def forward(a: torch.Tensor, b: torch.Tensor, g: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+        return l1_kernels.l1_distance_grads(a, b, g)
+
+    @staticmethod
+    def setup_context(ctx: Any, inputs: Tuple, output: Tuple) -> None:
+        pass
+
+    @staticmethod
+    def backward(ctx: Any, *grads: torch.Tensor) -> None:
+        raise NotImplementedError("the L1 distance has no second derivative here")
+
+    @staticmethod
+    def vmap(info: Any, in_dims: Tuple, a, b, g):
+        a, b, g = _batch_first(info.batch_size, in_dims, a, b, g)
+        return l1_kernels.l1_distance_grads_batched(a, b, g), (0, 0)
+
+
+class _L1(torch.autograd.Function):
+    """All-pairs L1 distance in the dtype of ``a`` (B5; B1 under vmap), with
+    the sign-subgradient VJP of :class:`_L1Grads`: ``sign(0) = 0`` at exact
+    ties, fp32 sums, cast back to the inputs' dtypes."""
+
+    @staticmethod
+    def forward(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        return l1_kernels.l1_distance_matrix(a, b)
+
+    @staticmethod
+    def setup_context(ctx: Any, inputs: Tuple, output: torch.Tensor) -> None:
+        ctx.save_for_backward(*inputs)
+
+    @staticmethod
+    def backward(ctx: Any, g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        a, b = ctx.saved_tensors
+        da, db = _L1Grads.apply(a, b, g.float())
+        return da.to(a.dtype), db.to(b.dtype)
+
+    @staticmethod
+    def vmap(info: Any, in_dims: Tuple, a, b):
+        a, b = _batch_first(info.batch_size, in_dims, a, b)
+        return l1_kernels.l1_distance_matrix_batched(a, b), 0
 
 
 def p_distance_matrix(a: torch.Tensor, b: torch.Tensor, p: int) -> torch.Tensor:
@@ -38,5 +109,5 @@ def p_distance_matrix(a: torch.Tensor, b: torch.Tensor, p: int) -> torch.Tensor:
         sq = torch.clamp(a2 + b2 - 2.0 * ab, min=_EPS)
         return torch.sqrt(sq).to(a.dtype)
     if p == 1:
-        return l1_kernels.l1_distance_matrix(a, b)
+        return _L1.apply(a, b)
     raise ValueError(f"Unsupported distance order p={p}")

@@ -1,0 +1,245 @@
+"""In-place sparse row updates on Hopper, their plain PyTorch versions, and
+launch counts.
+
+The counterpart of two Pallas TPU kernels of the sparse optimizer path:
+
+* :func:`scatter_rows` replaces ``besskge_tpu/ops/pallas_scatter.py``
+  ``scatter_rows`` (B3): ``table[idx[i] : idx[i]+h] = rows[h·i : h·i+h]`` in
+  place, optionally writing only the first slot of each sorted run;
+* :func:`fused_pair_sgdm` replaces ``besskge_tpu/ops/pallas_row_sgdm.py``
+  ``fused_pair_sgdm`` (B4): the whole SGD-momentum update of the touched
+  [param | momentum] pairs of a pair-major table, in place.
+
+Both kernels live in ``csrc/row_update.cu`` and are bound through ``ctypes``
+(:mod:`besskge_tpu_torch._build`). A wrapper given CPU tensors computes the
+plain version; given CUDA tensors it launches its kernel or raises. Each
+wrapper counts its launches in ``wrapper.launches``.
+
+Unlike the TPU kernels these need no padding of ``idx`` to a multiple of a
+block: the grid masks the ragged tail, which writes the same set of rows.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Union
+
+import torch
+
+from besskge_tpu_torch import _build
+from besskge_tpu_torch.utils import on_cuda
+
+__all__ = [
+    "fused_pair_sgdm",
+    "fused_pair_sgdm_plain",
+    "reset_launch_counts",
+    "scatter_rows",
+    "scatter_rows_plain",
+]
+
+LearningRate = Union[float, torch.Tensor]
+
+
+def _library() -> ctypes.CDLL:
+    lib = _build.load_library("row_update")
+    if not hasattr(lib, "_bess_declared"):
+        p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+        lib.bess_scatter_rows.argtypes = [p, p, p, ll, i, ll, i, i, i, p]
+        lib.bess_scatter_rows.restype = i
+        lib.bess_fused_pair_sgdm.argtypes = [p, p, p, ll, i, ll, p, f, f, f, p]
+        lib.bess_fused_pair_sgdm.restype = i
+        lib._bess_declared = True
+    return lib
+
+
+def _flat(table: torch.Tensor) -> torch.Tensor:
+    """The (n, D) view of a table that may carry a leading unit axis."""
+    if table.dim() == 3 and table.shape[0] == 1:
+        return table[0]
+    if table.dim() != 2:
+        raise ValueError(f"expected an (n, D) or (1, n, D) table, got {tuple(table.shape)}")
+    return table
+
+
+def _first_of_run(idx: torch.Tensor) -> torch.Tensor:
+    """True at the first slot of each run of equal sorted indices."""
+    keep = torch.ones_like(idx, dtype=torch.bool)
+    keep[1:] = idx[1:] != idx[:-1]
+    return keep
+
+
+def _check_range(idx: torch.Tensor, n_rows: int, h: int) -> None:
+    if idx.numel() and (int(idx.min()) < 0 or int(idx.max()) > n_rows - h):
+        raise IndexError(f"row index outside [0, {n_rows - h}] for {h}-row slices")
+
+
+def _check_scatter(table: torch.Tensor, idx: torch.Tensor, rows: torch.Tensor, h: int) -> None:
+    t = _flat(table)
+    if idx.dim() != 1:
+        raise ValueError(f"idx must be 1-D, got {tuple(idx.shape)}")
+    if rows.shape != (h * idx.shape[0], t.shape[1]):
+        raise ValueError(
+            f"rows has shape {tuple(rows.shape)}, expected {(h * idx.shape[0], t.shape[1])}"
+        )
+    if not t.is_contiguous():
+        raise ValueError("the table must be contiguous (it is written in place)")
+
+
+def scatter_rows_plain(
+    table: torch.Tensor,
+    idx: torch.Tensor,
+    rows: torch.Tensor,
+    slice_rows: int = 1,
+    skip_dups: bool = False,
+) -> torch.Tensor:
+    """Plain version of :func:`scatter_rows`: one index write of the
+    selected slots' ``(h, D)`` blocks into ``table``, in place."""
+    h = slice_rows
+    _check_scatter(table, idx, rows, h)
+    t = _flat(table)
+    _check_range(idx, t.shape[0], h)
+    blocks = rows.to(t.dtype).reshape(idx.shape[0], h, t.shape[1])
+    idx = idx.long()
+    if skip_dups:
+        keep = _first_of_run(idx)
+        idx, blocks = idx[keep], blocks[keep]
+    offsets = torch.arange(h, dtype=torch.long, device=idx.device)
+    t[(idx[:, None] + offsets).reshape(-1)] = blocks.reshape(-1, t.shape[1])
+    return table
+
+
+def scatter_rows(
+    table: torch.Tensor,
+    idx: torch.Tensor,
+    rows: torch.Tensor,
+    slice_rows: int = 1,
+    skip_dups: bool = False,
+) -> torch.Tensor:
+    """``table[idx[i] : idx[i]+h] = rows[h·i : h·i+h]`` in place (replaces
+    Pallas B3); returns ``table``.
+
+    :param table: (n, D) table, or its (1, n, D) block; contiguous.
+    :param idx: (R,) row indices in ``[0, n − h]``; duplicates allowed when
+        their rows are identical, or under ``skip_dups``.
+    :param rows: (h·R, D) replacement rows (cast to the table's dtype).
+    :param slice_rows: rows ``h`` written per index (``h = 2``: the
+        [param | momentum] pairs of a pair-major table).
+    :param skip_dups: ``idx`` is sorted and only the first slot of each run
+        of equal indices is written; later slots' rows may hold anything.
+    """
+    h = slice_rows
+    _check_scatter(table, idx, rows, h)
+    if not on_cuda("scatter_rows", table, idx, rows):
+        return scatter_rows_plain(table, idx, rows, h, skip_dups)
+    t = _flat(table)
+    idx = idx.to(torch.int32).contiguous()
+    rows = rows.to(t.dtype).contiguous()
+    row_bytes = t.shape[1] * t.element_size()
+    unit = next(u for u in (16, 4, 2, 1) if row_bytes % u == 0
+                and t.data_ptr() % u == 0 and rows.data_ptr() % u == 0)
+    if unit == 1:
+        raise ValueError(f"scatter_rows copies 2-byte units at least; rows of {row_bytes} bytes")
+    rc = _library().bess_scatter_rows(
+        t.data_ptr(), idx.data_ptr(), rows.data_ptr(), idx.shape[0], h, t.shape[0],
+        row_bytes, unit, int(skip_dups), torch.cuda.current_stream(t.device).cuda_stream,
+    )
+    _build.check_launch("scatter_rows", rc)
+    scatter_rows.launches += 1
+    return table
+
+
+def _check_pair_sgdm(table: torch.Tensor, phys: torch.Tensor, grads: torch.Tensor) -> None:
+    t = _flat(table)
+    if t.dtype != torch.float32 or t.shape[0] % 2:
+        raise ValueError(f"expected a pair-major (2N, D) fp32 table, got {t.dtype} {tuple(t.shape)}")
+    if phys.dim() != 1 or grads.shape != (phys.shape[0], t.shape[1]):
+        raise ValueError(
+            f"expected phys (R,) and grads (R, {t.shape[1]}),"
+            f" got {tuple(phys.shape)}, {tuple(grads.shape)}"
+        )
+    if not t.is_contiguous():
+        raise ValueError("the table must be contiguous (it is written in place)")
+
+
+def fused_pair_sgdm_plain(
+    table: torch.Tensor,
+    phys: torch.Tensor,
+    grads: torch.Tensor,
+    lr: LearningRate,
+    momentum: float = 0.9,
+    weight_decay: float = 0.0,
+) -> torch.Tensor:
+    """Plain version of :func:`fused_pair_sgdm`: index reads of the runs'
+    first slots, the update, one index write of the pairs, in place."""
+    _check_pair_sgdm(table, phys, grads)
+    t = _flat(table)
+    if phys.numel() and (bool((phys % 2 != 0).any())):
+        raise IndexError("fused_pair_sgdm takes even physical rows only")
+    _check_range(phys, t.shape[0], 2)
+    keep = _first_of_run(phys)
+    rows = phys.long()[keep]
+    g = grads.float()[keep]
+    p, m = t[rows], t[rows + 1]
+    if weight_decay:
+        g = g + weight_decay * p
+    m = momentum * m + g
+    p = p - lr * m
+    t[torch.stack([rows, rows + 1], 1).reshape(-1)] = torch.stack([p, m], 1).reshape(-1, t.shape[1])
+    return table
+
+
+def fused_pair_sgdm(
+    table: torch.Tensor,
+    phys: torch.Tensor,
+    grads: torch.Tensor,
+    lr: LearningRate,
+    momentum: float = 0.9,
+    weight_decay: float = 0.0,
+) -> torch.Tensor:
+    """In-place SGD with momentum over the touched pairs of a pair-major
+    table (replaces Pallas B4); returns ``table``. For every sorted slot
+    that starts a run: ``m ← momentum·m + g (+ weight_decay·p)`` and
+    ``p ← p − lr·m`` on the pair [p | m] at rows ``phys[i], phys[i] + 1``.
+
+    :param table: (2N, D) fp32 pair-major table or its (1, 2N, D) block;
+        contiguous, D a multiple of 4 on a card.
+    :param phys: (R,) sorted even physical rows; duplicates carry the same
+        summed gradient, and only the first slot of each run is applied.
+    :param grads: (R, D) summed per-row gradients.
+    :param lr: learning rate, a Python float or a one-element tensor on the
+        table's device (read there by the kernel: no host synchronisation).
+    """
+    _check_pair_sgdm(table, phys, grads)
+    lr_tensor = torch.is_tensor(lr)
+    if not on_cuda("fused_pair_sgdm", table, phys, grads, *([lr] if lr_tensor else [])):
+        return fused_pair_sgdm_plain(table, phys, grads, lr, momentum, weight_decay)
+    t = _flat(table)
+    if t.shape[1] % 4:
+        raise ValueError(f"the CUDA kernel takes D a multiple of 4, got {t.shape[1]}")
+    phys = phys.to(torch.int32).contiguous()
+    grads = grads.to(torch.float32).contiguous()
+    lr_ptr, lr_value = None, 0.0
+    if lr_tensor:
+        if lr.numel() != 1:
+            raise ValueError(f"lr must hold one value, got shape {tuple(lr.shape)}")
+        lr = lr.to(torch.float32).contiguous()
+        lr_ptr = lr.data_ptr()
+    else:
+        lr_value = float(lr)
+    rc = _library().bess_fused_pair_sgdm(
+        t.data_ptr(), phys.data_ptr(), grads.data_ptr(), phys.shape[0], t.shape[1],
+        t.shape[0], lr_ptr, lr_value, float(momentum), float(weight_decay),
+        torch.cuda.current_stream(t.device).cuda_stream,
+    )
+    _build.check_launch("fused_pair_sgdm", rc)
+    fused_pair_sgdm.launches += 1
+    return table
+
+
+def reset_launch_counts() -> None:
+    """Set every kernel's launch count to 0."""
+    scatter_rows.launches = 0  # type: ignore[attr-defined]
+    fused_pair_sgdm.launches = 0  # type: ignore[attr-defined]
+
+
+reset_launch_counts()

@@ -7,8 +7,8 @@ micro-batch with a single balanced AllToAll of tail/negative embeddings.
 
 This module is pure host-side numpy, copied from ``besskge_tpu/sharding.py``
 so that the port never imports the JAX package; its arrays are identical to
-the JAX package's for the same seed. ``Sharding`` save/load and
-``PartitionedTripleSet.create_from_dataset`` are not ported yet.
+the JAX package's for the same seed. ``Sharding`` save/load is not ported
+yet.
 """
 
 from __future__ import annotations
@@ -200,6 +200,78 @@ class PartitionedTripleSet:
     neg_heads: Optional[NDArray[np.int32]] = None
     #: int32[n_triple or 1, n_neg] — global IDs of predefined negative tails.
     neg_tails: Optional[NDArray[np.int32]] = None
+
+    @classmethod
+    def create_from_dataset(
+        cls,
+        dataset: KGDataset,
+        part: str,
+        sharding: Sharding,
+        partition_mode: str = "ht_shardpair",
+        add_inverse_triples: bool = False,
+    ) -> "PartitionedTripleSet":
+        """Partition one split of a :class:`KGDataset`.
+
+        With ``add_inverse_triples``, every triple (h, r, t) is doubled by
+        (t, r + n_relation_type, h); per-triple negative heads/tails are
+        swapped accordingly (reference ``besskge/sharding.py:267-376``).
+        """
+        triples = dataset.triples[part]
+        n_orig = triples.shape[0]
+        if add_inverse_triples:
+            inv = triples[:, ::-1].copy()
+            inv[:, 1] += dataset.n_relation_type
+            triples = np.concatenate([triples, inv], axis=0)
+
+        sorted_triples, counts, offsets, sort_idx = _partition_triples(
+            triples, sharding, partition_mode
+        )
+
+        types = None
+        ht_types = dataset.ht_types
+        if ht_types and part in ht_types:
+            types = ht_types[part]
+            if add_inverse_triples:
+                types = np.concatenate([types, types[:, ::-1]], axis=0)
+            types = types[sort_idx]
+
+        neg_h = dataset.neg_heads.get(part) if dataset.neg_heads else None
+        neg_t = dataset.neg_tails.get(part) if dataset.neg_tails else None
+        if add_inverse_triples and (neg_h is None) != (neg_t is None):
+            raise ValueError(
+                "Inverse triples require both or neither of negative heads"
+                f" and tails for part '{part}'"
+            )
+        if neg_h is not None:
+            neg_h = neg_h.reshape(-1, neg_h.shape[-1])
+        if neg_t is not None:
+            neg_t = neg_t.reshape(-1, neg_t.shape[-1])
+        if add_inverse_triples and neg_h is not None and neg_t is not None:
+            n_neg = neg_h.shape[-1]
+            h_broad = np.broadcast_to(neg_h, (n_orig, n_neg))
+            t_broad = np.broadcast_to(neg_t, (n_orig, n_neg))
+            # Corrupting the head of an inverse triple corrupts the original
+            # tail, so the candidate sets swap roles on the inverse half.
+            neg_h = np.concatenate([h_broad, t_broad], axis=0)
+            neg_t = np.concatenate([t_broad, h_broad], axis=0)
+        if neg_h is not None and neg_h.shape[0] != 1:
+            neg_h = neg_h[sort_idx]
+        if neg_t is not None and neg_t.shape[0] != 1:
+            neg_t = neg_t[sort_idx]
+
+        return cls(
+            sharding=sharding,
+            inverse_triples=add_inverse_triples,
+            partition_mode=partition_mode,
+            dummy="none",
+            triples=sorted_triples,
+            triple_counts=counts,
+            triple_offsets=offsets,
+            triple_sort_idx=sort_idx,
+            types=types,
+            neg_heads=neg_h,
+            neg_tails=neg_t,
+        )
 
     @classmethod
     def create_from_queries(

@@ -6,7 +6,7 @@ from typing import Optional, Union
 
 import torch
 
-__all__ = ["gather_indices", "resolve_device"]
+__all__ = ["gather_indices", "on_cuda", "resolve_device"]
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.device:
@@ -20,6 +20,18 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
             " pass device='cpu' to run the plain versions on the CPU"
         )
     return dev
+
+
+def on_cuda(name: str, *tensors: torch.Tensor) -> bool:
+    """How a kernel wrapper dispatches: True when its tensors lie on a CUDA
+    device (launch the kernel), False when they lie on the CPU (compute the
+    plain version); raises for any other device or for tensors on two."""
+    device = tensors[0].device
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name} runs on cuda or cpu, not {device}")
+    if any(t.device != device for t in tensors[1:]):
+        raise ValueError(f"{name}: tensors on {[str(t.device) for t in tensors]}")
+    return device.type == "cuda"
 
 
 def gather_indices(x: torch.Tensor, index: torch.Tensor) -> torch.Tensor:

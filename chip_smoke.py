@@ -1,28 +1,43 @@
 #!/usr/bin/env python3
-"""Build the port's CUDA kernels and drive its top-k serving path on one card.
+"""Build the port's kernels and drive its serving and training paths on one card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--profile]
 
 Run from the root of a checkout on a machine with an NVIDIA Hopper card and
 the CUDA toolkit. Phases, one line each with its elapsed seconds:
 
 1. device: ``nvidia-smi`` name and power limit, torch and CUDA versions;
-2. build: every ``besskge_tpu_torch/csrc`` source, one ``nvcc`` each, in
-   parallel;
-3. kernels: each kernel against its plain PyTorch version on the card, at
-   the serving shape, a ragged shape and a shape with a wholly invalid
-   128-column chunk, in fp32 and bf16; times of the kernel, the plain
-   version, one PyTorch library call, and the card's bound;
+2. build: every native source of the port (``besskge_tpu_torch/csrc/*.cu``
+   with ``nvcc``, ``csrc/bess_host.cpp`` with the host compiler), one
+   compiler process each, in parallel;
+3. kernels: each kernel against its plain PyTorch version on the card, with
+   times of the kernel, the plain version, one PyTorch library call, and the
+   card's bound. B7/B5 at the serving shape, a ragged shape and a shape with
+   a wholly invalid 128-column chunk, in fp32 and bf16; B1/B2/B6 at the
+   training shape (8 x 256 x 288 x 128) and a ragged one, in fp32 and bf16,
+   with planted exact ties; B3/B4 with R = 8,704 slots over the
+   (5,001,208, 128) pair-major table and a ragged R, with duplicate runs
+   whose later slots hold garbage;
 4. serving: ``build_topk_forward`` of TransE-L1 at ogbl-wikikg2 width
    (2,500,604 entities, 535 relation types, d = 128, 512 queries per batch,
-   k = 10) once with the chunk merge (B7) and once with the sort merge (B5),
-   launch counts set to 0 before and read after each; MRR of planted
-   answers, and the top-10 of 32 queries against a plain full-table
-   reference.
+   k = 10) once with the chunk merge (B7) and once with the sort merge (B5);
+   MRR of planted answers, and the top-10 of 32 queries against a plain
+   full-table reference;
+5. autograd: ``p_distance_matrix(·, ·, 1)`` with a gradient on the card
+   (B5 forward, B6 backward) against the sign-subgradient formula;
+6. training: the sparse TransE-L1 step of the wikikg2 configuration
+   (1,000,000 random triples, 32 shared "ht" negatives with augmentation,
+   bf16 scoring, RowSGDM interleaved, 8 x 512 positives per step) through
+   ``build_train_step``: one step held against the same step on the CPU,
+   one step of each update variant (B3 and B4) held against each other,
+   ``Trainer.fit`` over a few steps, and 20 timed steps of each variant.
 
-Then one JSON line describing each kernel, and the result line. Any failed
-check raises, so the script exits non-zero and prints no result; so it does
-when no CUDA card is available.
+Each path is driven with every launch count set to 0 just before it and
+read just after. Then one JSON line describing each kernel, and the result
+line. Any failed check raises, so the script exits non-zero and prints no
+result; so it does when no CUDA card is available. ``--profile`` adds a
+``torch.profiler`` trace of training steps: device time by kernel, and the
+device's busy share.
 """
 
 from __future__ import annotations
@@ -32,19 +47,31 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import Dict
 
 import numpy as np
 import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
-from besskge_tpu_torch import _build  # noqa: E402
-from besskge_tpu_torch.batch_sampler import RigidShardedBatchSampler  # noqa: E402
-from besskge_tpu_torch.bess import TopKQueryBessKGE, build_topk_forward  # noqa: E402
+from besskge_tpu_torch import _build, optim, trainer  # noqa: E402
+from besskge_tpu_torch.batch_sampler import (  # noqa: E402
+    RandomShardedBatchSampler,
+    RigidShardedBatchSampler,
+)
+from besskge_tpu_torch.bess import (  # noqa: E402
+    EmbeddingMovingBessKGE,
+    TopKQueryBessKGE,
+    build_topk_forward,
+)
 from besskge_tpu_torch.dataset import KGDataset  # noqa: E402
+from besskge_tpu_torch.loss import SampledSoftmaxCrossEntropyLoss  # noqa: E402
 from besskge_tpu_torch.metric import Evaluation  # noqa: E402
-from besskge_tpu_torch.negative_sampler import PlaceholderNegativeSampler  # noqa: E402
-from besskge_tpu_torch.ops import l1_kernels  # noqa: E402
+from besskge_tpu_torch.negative_sampler import (  # noqa: E402
+    PlaceholderNegativeSampler,
+    RandomShardedNegativeSampler,
+)
+from besskge_tpu_torch.ops import distance, l1_kernels, row_kernels  # noqa: E402
 from besskge_tpu_torch.scoring import TransE  # noqa: E402
 from besskge_tpu_torch.sharding import PartitionedTripleSet, Sharding  # noqa: E402
 
@@ -67,17 +94,57 @@ BF16_ULP = 2.0**-7
 FP32_INSTR_PER_S = 67e12 / 2
 HBM_BYTES_PER_S = 3.35e12
 
-B7_SOURCE = "besskge_tpu_torch/csrc/l1_distance.cu"
+# Training configuration: bench.py's wikikg2 recipe (_setup_wikikg2) with the
+# momentum interleaved and bf16 scoring math.
+N_TRIPLE, SHARD_BS_TRAIN, BPS, N_NEGATIVE, LR, MOMENTUM = 1_000_000, 512, 8, 32, 1e-3, 0.9
+FIT_TRIPLES = 40_960  # Trainer.fit over 10 steps
+TIMED_STEPS = 20
+N_UNTOUCHED = 10_000
+# Card against CPU at bf16 scoring: each side rounds its fp32 distance sums
+# (B1) and row gradients (B2, cast to bf16 by the VJP) to bf16, and the two
+# may land on neighbouring values: one bf16 ulp of a score moves the loss by
+# at most that relative amount, and a gradient (hence a momentum row) by a
+# bf16 ulp of each contribution, bounded by 2^-7 of the largest value.
+BF16_STEP_RTOL = 2.0**-7
+U32 = 2.0**-24
+
+L1_SOURCE = "besskge_tpu_torch/csrc/l1_distance.cu"
+ROW_SOURCE = "besskge_tpu_torch/csrc/row_update.cu"
 KERNELS = {
     "l1_scores_chunkmax": {
-        "id": "B7",
+        "id": "B7", "source": L1_SOURCE,
         "replaces": "besskge_tpu/ops/pallas_distance.py:153",
         "wrapper": l1_kernels.l1_scores_chunkmax,
     },
     "l1_distance_matrix": {
-        "id": "B5",
+        "id": "B5", "source": L1_SOURCE,
         "replaces": "besskge_tpu/ops/pallas_distance.py:89",
         "wrapper": l1_kernels.l1_distance_matrix,
+    },
+    "l1_distance_matrix_batched": {
+        "id": "B1", "source": L1_SOURCE,
+        "replaces": "besskge_tpu/ops/pallas_distance.py:238",
+        "wrapper": l1_kernels.l1_distance_matrix_batched,
+    },
+    "l1_distance_grads_batched": {
+        "id": "B2", "source": L1_SOURCE,
+        "replaces": "besskge_tpu/ops/pallas_distance.py:394",
+        "wrapper": l1_kernels.l1_distance_grads_batched,
+    },
+    "l1_distance_grads": {
+        "id": "B6", "source": L1_SOURCE,
+        "replaces": "besskge_tpu/ops/pallas_distance.py:310",
+        "wrapper": l1_kernels.l1_distance_grads,
+    },
+    "scatter_rows": {
+        "id": "B3", "source": ROW_SOURCE,
+        "replaces": "besskge_tpu/ops/pallas_scatter.py:428",
+        "wrapper": row_kernels.scatter_rows,
+    },
+    "fused_pair_sgdm": {
+        "id": "B4", "source": ROW_SOURCE,
+        "replaces": "besskge_tpu/ops/pallas_row_sgdm.py:149",
+        "wrapper": row_kernels.fused_pair_sgdm,
     },
 }
 
@@ -101,12 +168,40 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_ms(fn, reps: int) -> float:
+    """Mean device time of ``fn``: the summed durations of the kernels it
+    launches over ``reps`` calls (``torch.profiler``), after one warm-up.
+    Unlike :func:`cuda_ms` it leaves out the idle gaps in which the device
+    waits for the host to launch the next kernel, which are most of the
+    time of a kernel of a few microseconds."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA)
+    if us <= 0:
+        raise RuntimeError("the profiler recorded no device time")
+    return us / reps / 1e3
+
+
 def bound_ms(B: int, N: int, d: int, in_bytes: int, out_bytes: int) -> tuple:
     """Least time for a (B, N, d) L1 problem: 2 fp32 instructions (subtract,
     add of |.|) per (i, j, k) at the instruction rate, or every input read
     and every output written once at the HBM rate, whichever is larger."""
-    ops_ms = 2.0 * B * N * d / FP32_INSTR_PER_S * 1e3
-    bytes_ms = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
+    return bound_of(2.0 * B * N * d, in_bytes + out_bytes)
+
+
+def bound_of(fp32_instructions: float, n_bytes: float) -> tuple:
+    """(ms, "operations" or "bytes"): the larger of the instructions at the
+    fp32 instruction rate and the bytes at the HBM rate."""
+    ops_ms = fp32_instructions / FP32_INSTR_PER_S * 1e3
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
@@ -115,13 +210,36 @@ def sync(device: str) -> None:
         torch.cuda.synchronize()
 
 
+def reset_counts() -> None:
+    l1_kernels.reset_launch_counts()
+    row_kernels.reset_launch_counts()
+
+
+def read_counts() -> Dict[str, int]:
+    return {name: spec["wrapper"].launches for name, spec in KERNELS.items()}
+
+
+def expect_counts(path: str, counts: Dict[str, int], want: Dict[str, int]) -> None:
+    """Launch counts of one run of a path: the named kernels exactly, every
+    other kernel 0."""
+    full = {name: want.get(name, 0) for name in KERNELS}
+    if counts != full:
+        raise AssertionError(f"{path}: launches {counts}, expected {full}")
+
+
+def sum_tol(w: torch.Tensor, dim: int) -> torch.Tensor:
+    """Two fp32 sums of the n terms ±w along ``dim`` in different orders
+    differ by at most 2·n·2^-24·Σ|w| (recursive summation bound)."""
+    return 2 * w.shape[dim] * U32 * w.abs().sum(dim).unsqueeze(-1) + 1e-30
+
+
 def uniform(shape, gen, d):
     return (torch.rand(shape, device="cuda", generator=gen) * 2 - 1) / d
 
 
 def check_kernels(gen: torch.Generator) -> dict:
-    """Each kernel against its plain version; times at the serving shape."""
-    results = {name: {"max_abs_err": 0.0} for name in KERNELS}
+    """B7 and B5 against their plain versions; times at the serving shape."""
+    results = {name: {"max_abs_err": 0.0} for name in ("l1_scores_chunkmax", "l1_distance_matrix")}
     serving = (SHARD_BS, 131072, DIM)
     for B, N, d in [serving, (3, 256, 100), (64, 1024, 128)]:
         for dtype in (torch.float32, torch.bfloat16):
@@ -242,16 +360,18 @@ def serving(gen: torch.Generator, device: str = "cuda") -> dict:
             return_scores=True, merge_mode=merge,
         )
         fwd = build_topk_forward(topk, device=device)
-        l1_kernels.reset_launch_counts()
+        reset_counts()
         fwd(params, batches[0])  # warm-up
         sync(device)
         t = time.perf_counter()
         outs = [fwd(params, b) for b in batches]
         sync(device)
         ms = (time.perf_counter() - t) / len(batches) * 1e3
-        launches = {name: spec["wrapper"].launches for name, spec in KERNELS.items()}
-        if launches[kernel] == 0:
-            raise AssertionError(f"merge={merge} never launched {kernel}")
+        launches = read_counts()
+        if device == "cuda":
+            n_windows = -(-sharding.max_entity_per_shard // topk.window_size)
+            expect_counts(f"serving merge={merge}", launches,
+                          {kernel: n_windows * (len(batches) + 1)})
 
         sums = torch.stack([o["metrics"] for o in outs]).sum(0).reshape(-1) / N_QUERY
         metrics = dict(zip(evaluation.metrics, sums.tolist()))
@@ -273,6 +393,359 @@ def serving(gen: torch.Generator, device: str = "cuda") -> dict:
     return out
 
 
+def check_training_kernels(gen: torch.Generator, table_rows: int) -> dict:
+    """B1, B2, B6, B3 and B4 against their plain versions on the card, and
+    their times at the training step's shapes."""
+    results = {name: {"max_abs_err": 0.0} for name in (
+        "l1_distance_matrix_batched", "l1_distance_grads_batched", "l1_distance_grads",
+        "scatter_rows", "fused_pair_sgdm")}
+    G, B, N, d = BPS, SHARD_BS_TRAIN // 2, SHARD_BS_TRAIN // 2 + N_NEGATIVE, DIM
+    for shape in [(G, B, N, d), (3, 37, 211, 100)]:
+        for dtype in (torch.float32, torch.bfloat16):
+            g_, b_, n_, d_ = shape
+            a = uniform((g_, b_, d_), gen, d_).to(dtype)
+            b = uniform((g_, n_, d_), gen, d_).to(dtype)
+            k = min(b_, n_) // 2
+            b[:, :k, : d_ // 2] = a[:, :k, : d_ // 2]  # planted exact ties
+            w = torch.randn(g_, b_, n_, device="cuda", generator=gen)
+            dist = l1_kernels.l1_distance_matrix_batched(a, b)
+            da, db = l1_kernels.l1_distance_grads_batched(a, b, w)
+            da6, db6 = l1_kernels.l1_distance_grads(a[0], b[0], w[0])
+            torch.cuda.synchronize()
+            ref = l1_kernels.l1_distance_matrix_batched_plain(a, b).float()
+            err1 = (dist.float() - ref).abs()
+            tol = ATOL + (RTOL + (BF16_ULP if dtype == torch.bfloat16 else 0.0)) * ref.abs()
+            if not (err1 <= tol).all():
+                raise AssertionError(f"B1 off its plain version by {err1.max().item()}")
+            rda, rdb = l1_kernels.l1_distance_grads_batched_plain(a, b, w)
+            errs = {}
+            for name, got, want, tol in (
+                ("l1_distance_grads_batched", da, rda, sum_tol(w, 2)),
+                ("l1_distance_grads_batched", db, rdb, sum_tol(w.transpose(1, 2), 2)),
+                ("l1_distance_grads", da6, rda[0], sum_tol(w[0], 1)),
+                ("l1_distance_grads", db6, rdb[0], sum_tol(w[0].T, 1)),
+            ):
+                err = (got - want).abs()
+                if not (err <= tol).all():
+                    raise AssertionError(f"{name} off its plain version by {err.max().item()}")
+                errs[name] = max(errs.get(name, 0.0), err.max().item())
+            errs["l1_distance_matrix_batched"] = err1.max().item()
+            for name, e in errs.items():
+                results[name]["max_abs_err"] = max(results[name]["max_abs_err"], e)
+            say("kernels", f"G={g_} B={b_} N={n_} d={d_} {str(dtype)[6:]}: B1 max|err|"
+                f" {errs['l1_distance_matrix_batched']:.3g}, B2 {errs['l1_distance_grads_batched']:.3g},"
+                f" B6 {errs['l1_distance_grads']:.3g} (ties planted)")
+            if shape == (G, B, N, d) and dtype == torch.bfloat16:
+                a32, b32 = a.float(), b.float()
+                a_req, b_req = a32.clone().requires_grad_(), b32.clone().requires_grad_()
+                lib_out = torch.cdist(a_req, b_req, p=1)
+                a0, b0 = a32[0].clone().requires_grad_(), b32[0].clone().requires_grad_()
+                lib_out0 = torch.cdist(a0, b0, p=1)
+                terms = G * B * N * d
+                in_bytes = (G * B + G * N) * d * 2
+                results["l1_distance_matrix_batched"].update(
+                    ms=device_ms(lambda: l1_kernels.l1_distance_matrix_batched(a, b), 100),
+                    event_ms=cuda_ms(lambda: l1_kernels.l1_distance_matrix_batched(a, b), 100),
+                    plain_ms=device_ms(lambda: l1_kernels.l1_distance_matrix_batched_plain(a, b), 10),
+                    library_ms=device_ms(lambda: torch.cdist(a32, b32, p=1), 20),
+                    # subtract and |.|-add per term; bf16 in, bf16 out
+                    bound=bound_of(2.0 * terms, in_bytes + G * B * N * 2),
+                )
+                # per term: subtract, sign, and a multiply-add into each of da
+                # and db; a, b in bf16 and w in fp32 read, da and db written
+                grad_bytes = in_bytes + G * B * N * 4 + (G * B + G * N) * d * 4
+                results["l1_distance_grads_batched"].update(
+                    ms=device_ms(lambda: l1_kernels.l1_distance_grads_batched(a, b, w), 100),
+                    event_ms=cuda_ms(lambda: l1_kernels.l1_distance_grads_batched(a, b, w), 100),
+                    plain_ms=device_ms(lambda: l1_kernels.l1_distance_grads_batched_plain(a, b, w), 10),
+                    library_ms=device_ms(lambda: torch.autograd.grad(
+                        lib_out, (a_req, b_req), w, retain_graph=True), 10),
+                    bound=bound_of(4.0 * terms, grad_bytes),
+                )
+                results["l1_distance_grads"].update(
+                    ms=device_ms(lambda: l1_kernels.l1_distance_grads(a[0], b[0], w[0]), 100),
+                    event_ms=cuda_ms(lambda: l1_kernels.l1_distance_grads(a[0], b[0], w[0]), 100),
+                    plain_ms=device_ms(lambda: l1_kernels.l1_distance_grads_batched_plain(
+                        a[:1], b[:1], w[:1]), 10),
+                    library_ms=device_ms(lambda: torch.autograd.grad(
+                        lib_out0, (a0, b0), w[0], retain_graph=True), 10),
+                    bound=bound_of(4.0 * terms / G, grad_bytes / G),
+                )
+                del lib_out, lib_out0
+
+    # B3 / B4 over the training step's (2 x 2,500,604, 128) pair-major table.
+    table = torch.rand((table_rows, DIM), device="cuda", generator=gen)
+    table_plain = table.clone()
+    for R in (BPS * (2 * SHARD_BS_TRAIN + 2 * N_NEGATIVE), 1001):
+        table_plain.copy_(table)  # the timing runs below move the two apart
+        logical = torch.randint(0, table_rows // 2, (R,), device="cuda", generator=gen)
+        logical[1::5] = logical[0::5][: logical[1::5].shape[0]]  # duplicate runs
+        phys = (2 * torch.sort(logical).values).to(torch.int32)
+        first = torch.ones(R, dtype=torch.bool, device="cuda")
+        first[1:] = phys[1:] != phys[:-1]
+        rows = torch.randn(2 * R, DIM, device="cuda", generator=gen)
+        rows.view(R, 2, DIM)[~first] = float("nan")  # garbage in duplicate slots
+        grads = torch.randn(R, DIM, device="cuda", generator=gen)
+        grads[~first] = float("nan")
+        lr = torch.tensor(LR, device="cuda")
+        for name, kernel, plain, args in (
+            ("scatter_rows", row_kernels.scatter_rows, row_kernels.scatter_rows_plain,
+             (phys, rows, 2, True)),
+            ("fused_pair_sgdm", row_kernels.fused_pair_sgdm, row_kernels.fused_pair_sgdm_plain,
+             (phys, grads, lr, MOMENTUM, 0.0)),
+        ):
+            kernel(table, *args)
+            plain(table_plain, *args)
+            torch.cuda.synchronize()
+            if not torch.equal(table, table_plain):  # copies and unfused fp32 math: equal bits
+                diff = (table - table_plain).abs().max().item()
+                raise AssertionError(f"{name} off its plain version by {diff}")
+        unique = int(first.sum())
+        say("kernels", f"R={R} ({unique} unique pairs) over a {table_rows} x {DIM} table: B3 and"
+            f" B4 equal to their plain versions, duplicate slots untouched")
+        if R != 1001:
+            flat_first = (phys[first].long()[:, None] + torch.arange(2, device="cuda")).reshape(-1)
+            rows_first = rows.view(R, 2, DIM)[first].reshape(-1, DIM)
+            results["scatter_rows"].update(
+                ms=device_ms(lambda: row_kernels.scatter_rows(table, phys, rows, 2, True), 100),
+                event_ms=cuda_ms(lambda: row_kernels.scatter_rows(table, phys, rows, 2, True), 100),
+                plain_ms=device_ms(lambda: row_kernels.scatter_rows_plain(
+                    table_plain, phys, rows, 2, True), 10),
+                library_ms=device_ms(lambda: table.index_copy_(0, flat_first, rows_first), 100),
+                # idx read; each unique pair's rows read and written once
+                bound=bound_of(0.0, 4 * R + unique * 2 * (2 * DIM * 4)),
+            )
+            results["fused_pair_sgdm"].update(
+                ms=device_ms(lambda: row_kernels.fused_pair_sgdm(table, phys, grads, lr, MOMENTUM), 100),
+                event_ms=cuda_ms(lambda: row_kernels.fused_pair_sgdm(
+                    table, phys, grads, lr, MOMENTUM), 100),
+                plain_ms=device_ms(lambda: row_kernels.fused_pair_sgdm_plain(
+                    table_plain, phys, grads, lr, MOMENTUM), 10),
+                library_ms=None,
+                # idx read; per unique pair: [p | m] read and written, g read
+                bound=bound_of(0.0, 4 * R + unique * (2 * 2 * DIM * 4 + DIM * 4)),
+            )
+    del table, table_plain
+    for name, r in results.items():
+        lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
+        say("kernels", f"{KERNELS[name]['id']} {name} at the training shape: kernel {r['ms']:.4f} ms"
+            f" on the device ({r['event_ms']:.4f} ms per call between CUDA events),"
+            f" plain {r['plain_ms']:.4f} ms, library {lib}, bound {r['bound'][0]:.4f} ms"
+            f" ({r['bound'][1]})")
+    return results
+
+
+def autograd(gen: torch.Generator) -> dict:
+    """The p=1 distance carries a gradient on the card: B5 forward, B6
+    backward, against the sign-subgradient formula."""
+    B, N, d = SHARD_BS_TRAIN // 2, SHARD_BS_TRAIN // 2 + N_NEGATIVE, DIM
+    a = uniform((B, d), gen, d)
+    b = uniform((N, d), gen, d)
+    b[:16, :64] = a[:16, :64]  # exact ties: sign(0) = 0
+    w = torch.randn(B, N, device="cuda", generator=gen)
+    a.requires_grad_()
+    b.requires_grad_()
+    reset_counts()
+    out = distance.p_distance_matrix(a, b, 1)
+    da, db = torch.autograd.grad(out, (a, b), w)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    expect_counts("autograd", counts, {"l1_distance_matrix": 1, "l1_distance_grads": 1})
+    if not isinstance(out.grad_fn, distance._L1._backward_cls):
+        raise AssertionError(f"p_distance_matrix(p=1) has grad_fn {out.grad_fn}")
+    s = torch.sign(a.detach()[:, None] - b.detach()[None])
+    for got, want, tol in ((da, (w[..., None] * s).sum(1), sum_tol(w, 1)),
+                           (db, -(w[..., None] * s).sum(0), sum_tol(w.T, 1))):
+        if not ((got - want).abs() <= tol).all():
+            raise AssertionError(f"p=1 gradient off the formula by {(got - want).abs().max().item()}")
+    say("autograd", f"p_distance_matrix(p=1) at {B}x{N}x{d}: grad_fn {type(out.grad_fn).__name__},"
+        f" gradients equal the sign-subgradient formula, launches {counts}")
+    return {"l1_distance_grads": {"launches": counts["l1_distance_grads"]}}
+
+
+def _training_setup(triples: np.ndarray, sharding: Sharding, score_fn: TransE):
+    dataset = KGDataset(n_entity=N_ENTITY, n_relation_type=N_RELATION, triples={"train": triples},
+                        original_triple_ids={"train": np.arange(len(triples))})
+    pts = PartitionedTripleSet.create_from_dataset(dataset, "train", sharding)
+    ns = RandomShardedNegativeSampler(N_NEGATIVE, sharding, SEED, "ht", local_sampling=False,
+                                      flat_negative_format=True)
+    module = EmbeddingMovingBessKGE(ns, score_fn, SampledSoftmaxCrossEntropyLoss(N_ENTITY),
+                                    augment_negative=True)
+    sampler = RandomShardedBatchSampler(pts, ns, shard_bs=SHARD_BS_TRAIN, batches_per_step=BPS,
+                                        seed=SEED)
+    return module, sampler
+
+
+def _clone_state(state):
+    if isinstance(state, dict):
+        return {k: _clone_state(v) for k, v in state.items()}
+    return state.clone()
+
+
+def _to(state, device):
+    if isinstance(state, dict):
+        return {k: _to(v, device) for k, v in state.items()}
+    return state.to(device, copy=True)
+
+
+def training(gen: torch.Generator, profile: bool = False, device: str = "cuda") -> dict:
+    """The sparse training step at ogbl-wikikg2 width on the card (``device``
+    "cpu" rehearses the phase with the plain versions)."""
+    on_card = device == "cuda"
+    t = time.perf_counter()
+    rng = np.random.default_rng(SEED)
+    triples = np.stack([rng.integers(N_ENTITY, size=N_TRIPLE), rng.integers(N_RELATION, size=N_TRIPLE),
+                        rng.integers(N_ENTITY, size=N_TRIPLE)], 1).astype(np.int32)
+    sharding = Sharding.create(N_ENTITY, 1, seed=SEED)
+    score_fn = TransE(True, 1, sharding, N_RELATION, DIM, seed=SEED)
+    score_fn.compute_dtype = torch.bfloat16
+    module, sampler = _training_setup(triples, sharding, score_fn)
+    batches = [sampler.sample_batch(b) for b, _ in zip(sampler.epoch_index_blocks(), range(2 + 2 * TIMED_STEPS))]
+    sgd = optim.SGD(LR, momentum=MOMENTUM)
+    rows = {v: optim.RowSGDM(LR, momentum=MOMENTUM, interleaved=True, fused_variant=v)
+            for v in ("xla", "fused")}
+    params = score_fn.initial_params_device(device=device, generator=gen)
+    params["entity_embedding"] = optim.interleave_momentum(params["entity_embedding"])
+    n_logical = sharding.max_entity_per_shard
+    state0 = trainer.init_optimizer_state(sgd, params, None, rows["xla"], n_logical=n_logical)
+    steps = {v: trainer.build_train_step(module, sgd, None, rows[v], device=device) for v in rows}
+    cpu_step = trainer.build_train_step(module, sgd, None, rows["xla"], device="cpu")
+    initial = {k: v.clone() for k, v in params.items()}
+    say("training", f"{N_ENTITY} x {DIM} table interleaved to {tuple(params['entity_embedding'].shape)}"
+        f" fp32, {N_TRIPLE} triples, {SHARD_BS_TRAIN * BPS} positives per step"
+        f" ({time.perf_counter() - t:.1f}s set-up)")
+
+    # One step on the card, and the same step on the CPU from copies.
+    batch = batches[0]
+    cpu_params = {k: v.to("cpu", copy=True) for k, v in params.items()}
+    cpu_state = _to(state0, "cpu")
+    touched = torch.unique(torch.from_numpy(np.concatenate([
+        batch["head"].reshape(-1), batch["tail"].reshape(-1), batch["negative"].reshape(-1)])).long())
+    pool = torch.from_numpy(rng.choice(n_logical, size=4 * N_UNTOUCHED, replace=False))
+    untouched = pool[~torch.isin(pool, touched)][:N_UNTOUCHED]
+    reset_counts()
+    card_params, card_state, card_out = steps["xla"](params, _clone_state(state0), batch)
+    sync(device)
+    counts_default = read_counts()
+    if on_card:
+        expect_counts("training step (B3 variant)", counts_default, {
+            "l1_distance_matrix_batched": 2, "l1_distance_grads_batched": 2, "scatter_rows": 1})
+    t = time.perf_counter()
+    cpu_params, cpu_state, cpu_out = cpu_step(cpu_params, cpu_state, batch)
+    cpu_s = time.perf_counter() - t
+    loss, cpu_loss = float(card_out["loss"]), float(cpu_out["loss"])
+    if not np.isfinite(loss) or abs(loss - cpu_loss) > 2.0**-8 * abs(cpu_loss):
+        raise AssertionError(f"training loss {loss} on the card, {cpu_loss} on the CPU")
+    pairs = 2 * touched[:, None] + torch.arange(2)
+    card_table = card_params["entity_embedding"]
+    errs = {}
+    for name, got, want in (
+        ("params", card_table[pairs[:, 0].to(device)].cpu(), cpu_params["entity_embedding"][pairs[:, 0]]),
+        ("momentum", card_table[pairs[:, 1].to(device)].cpu(), cpu_params["entity_embedding"][pairs[:, 1]]),
+        ("relation", card_params["relation_embedding"].cpu(), cpu_params["relation_embedding"]),
+        ("relation momentum", card_state["other"]["trace"]["relation_embedding"].cpu(),
+         cpu_state["other"]["trace"]["relation_embedding"]),
+    ):
+        err = (got - want).abs()
+        tol = BF16_STEP_RTOL * (want.abs() + want.abs().max())
+        if not (err <= tol).all() or not torch.isfinite(got).all():
+            raise AssertionError(f"training step: {name} off the CPU step by {err.max().item()}")
+        errs[name] = err.max().item()
+    untouched = untouched.to(device)
+    if not torch.equal(card_table[2 * untouched], initial["entity_embedding"][2 * untouched]):
+        raise AssertionError("training step moved untouched rows")
+    say("training", f"one step on the card vs the CPU ({cpu_s:.1f}s): loss {loss:.6f} vs {cpu_loss:.6f},"
+        f" max|err| {', '.join(f'{k} {v:.3g}' for k, v in errs.items())} over {len(touched)} touched"
+        f" rows (tolerance {BF16_STEP_RTOL} x (|want| + max|want|)); {len(untouched)} untouched rows"
+        f" bit-identical; launches {counts_default}")
+    del cpu_params, cpu_state
+
+    # The fused variant from the same state.
+    fused_params = {k: v.clone() for k, v in initial.items()}
+    reset_counts()
+    fused_params, _, fused_out = steps["fused"](fused_params, _clone_state(state0), batch)
+    sync(device)
+    counts_fused = read_counts()
+    if on_card:
+        expect_counts("training step (B4 variant)", counts_fused, {
+            "l1_distance_matrix_batched": 2, "l1_distance_grads_batched": 2, "fused_pair_sgdm": 1})
+    flat = pairs.reshape(-1).to(device)
+    # The same gradients and the same unfused fp32 update: equal bits.
+    fused_err = (fused_params["entity_embedding"][flat] - card_table[flat]).abs().max().item()
+    if fused_err > 0.0 or not torch.equal(fused_params["entity_embedding"][2 * untouched],
+                                          card_table[2 * untouched]):
+        raise AssertionError(f"the B4 step differs from the B3 step by {fused_err}")
+    say("training", f"the B4 variant's step equals the B3 variant's at every touched pair"
+        f" (max|err| {fused_err}); launches {counts_fused}")
+    del fused_params, initial
+
+    # Trainer.fit, the entry a user calls, over a few steps.
+    fit_module, fit_sampler = _training_setup(triples[:FIT_TRIPLES], sharding, score_fn)
+    fit = trainer.Trainer(fit_module, fit_sampler, sgd, params=card_params,
+                          entity_optimizer=rows["xla"], device=device)
+    summary = fit.fit(n_epochs=1, log_every=1)
+    losses = [r["loss"] for r in fit.history]
+    if summary["steps"] != FIT_TRIPLES // (SHARD_BS_TRAIN * BPS) or not np.isfinite(losses).all():
+        raise AssertionError(f"Trainer.fit: {summary}")
+    say("training", f"Trainer.fit: {summary['steps']} steps, loss {losses[0]:.3f} -> {losses[-1]:.3f},"
+        f" {summary['triples_per_s']:.0f} positive triples/s including host sampling")
+
+    # 20 warm steps of each variant, in turns, host clock around synchronised runs.
+    timed = {}
+    state = fit.opt_state
+    for variant in ("xla", "fused", "fused", "xla"):
+        run = batches[2:2 + TIMED_STEPS] if variant not in timed else batches[2 + TIMED_STEPS:]
+        card_params, state, _ = steps[variant](card_params, state, batches[1])  # warm-up
+        sync(device)
+        t = time.perf_counter()
+        for b in run:
+            card_params, state, out = steps[variant](card_params, state, b)
+        sync(device)
+        ms = (time.perf_counter() - t) / len(run) * 1e3
+        timed.setdefault(variant, []).append(ms)
+    for variant, ms in timed.items():
+        say("training", f"{variant} variant ({'B3' if variant == 'xla' else 'B4'} update):"
+            f" {ms[0]:.3f} / {ms[1]:.3f} ms per step over {TIMED_STEPS} warm steps,"
+            f" {SHARD_BS_TRAIN * BPS / ms[0] * 1e3:.0f} / {SHARD_BS_TRAIN * BPS / ms[1] * 1e3:.0f}"
+            f" positive triples/s; final loss {float(out['loss']):.3f}")
+    if profile:
+        profile_steps(steps["xla"], card_params, state, batches[2:12])
+    return {
+        "l1_distance_matrix_batched": {"launches": counts_default["l1_distance_matrix_batched"]},
+        "l1_distance_grads_batched": {"launches": counts_default["l1_distance_grads_batched"]},
+        "scatter_rows": {"launches": counts_default["scatter_rows"]},
+        "fused_pair_sgdm": {"launches": counts_fused["fused_pair_sgdm"]},
+        "step_ms": timed,
+    }
+
+
+def profile_steps(step, params, state, batches) -> None:
+    """Device time by kernel and the device's busy share over a few steps
+    (``torch.profiler``); the trace goes to chiprun_out/."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for b in batches:
+            params, state, _ = step(params, state, b)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    # Kernels only: an op's device time is its kernels' time again.
+    device_us = {e.key: e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA}
+    busy_ms = sum(device_us.values()) / 1e3
+    say("profile", f"{len(batches)} steps: wall {wall_ms:.3f} ms, device kernels {busy_ms:.3f} ms"
+        f" ({100 * busy_ms / wall_ms:.1f} % busy)")
+    for key, us in sorted(device_us.items(), key=lambda kv: -kv[1])[:15]:
+        if us > 0:
+            say("profile", f"{us / 1e3 / len(batches):9.4f} ms per step  {key[:90]}")
+    out = Path("chiprun_out")
+    out.mkdir(exist_ok=True)
+    prof.export_chrome_trace(str(out / "train_step_trace.json"))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device; nothing was run", file=sys.stderr)
@@ -288,24 +761,38 @@ def main() -> int:
 
     t = time.perf_counter()
     paths = _build.build()
-    say("build", f"{len(paths)} libraries with nvcc in {time.perf_counter() - t:.1f}s")
+    say("build", f"{len(paths)} libraries (nvcc, host C++) in {time.perf_counter() - t:.1f}s")
 
     gen = torch.Generator("cuda").manual_seed(SEED)
     results = check_kernels(gen)
+    results.update(check_training_kernels(gen, 2 * N_ENTITY))
     for name, run in serving(gen).items():
+        results[name].update(run)
+    for name, run in autograd(gen).items():
+        results[name].update(run)
+    train = training(gen, profile="--profile" in sys.argv[1:])
+    step_ms = train.pop("step_ms")
+    for name, run in train.items():
         results[name].update(run)
 
     kernels = []
     for name, spec in KERNELS.items():
         r = results[name]
-        kernels.append({
-            "name": name, "route": "cuda", "source": B7_SOURCE,
+        entry = {
+            "name": name, "id": spec["id"], "route": "cuda", "source": spec["source"],
             "replaces": spec["replaces"], "tpu_counterpart": f"{spec['id']} {spec['replaces']}",
             "launches": r["launches"], "max_abs_err": r["max_abs_err"],
             "max_err": r["max_abs_err"], "ms": r["ms"], "kernel_ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
-            "library_ms": r["library_ms"], "serving_ms_per_batch": r["serving_ms"],
-        })
+            "library_ms": r["library_ms"],
+        }
+        if "serving_ms" in r:
+            entry["serving_ms_per_batch"] = r["serving_ms"]
+        if "event_ms" in r:
+            entry["event_ms"] = r["event_ms"]
+        kernels.append(entry)
+    print(json.dumps({"training_ms_per_step": step_ms,
+                      "positives_per_step": SHARD_BS_TRAIN * BPS}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

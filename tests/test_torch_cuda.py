@@ -1,24 +1,39 @@
 """The port's CUDA kernels against their plain versions, on the card.
 
 Marked ``cuda``: without a card every test here skips. On a machine with one
-(and nvcc), run them with ``python -m pytest tests/test_torch_cuda.py -q``;
-``chip_smoke.py`` makes the same checks at the serving shapes.
+(and nvcc), run them with
+``python -m pytest --noconftest tests/test_torch_cuda.py -q``;
+``chip_smoke.py`` makes the same checks at the serving and training shapes.
+
+Tolerances: distances as in ``test_torch_l1_kernels.py``. Gradients (B2/B6)
+are fp32 sums of n = N (da) or B (db) terms ``±w`` in another order on each
+side: recursive summation errs by at most ``(n − 1)·2^-24·Σ|w|`` on each, so
+the two differ by at most ``2·n·2^-24·Σ|w|`` per output. The row kernels
+(B3, B4) copy, or round after each multiply and add exactly as their plain
+versions do: equal bits.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from besskge_tpu_torch import bess, loss, optim, trainer
+from besskge_tpu_torch.batch_sampler import RandomShardedBatchSampler
 from besskge_tpu_torch.bess import TopKQueryBessKGE, build_topk_forward
-from besskge_tpu_torch.negative_sampler import PlaceholderNegativeSampler
-from besskge_tpu_torch.ops import l1_kernels
+from besskge_tpu_torch.dataset import KGDataset
+from besskge_tpu_torch.negative_sampler import (
+    PlaceholderNegativeSampler,
+    RandomShardedNegativeSampler,
+)
+from besskge_tpu_torch.ops import distance, l1_kernels, row_kernels
 from besskge_tpu_torch.scoring import TransE
-from besskge_tpu_torch.sharding import Sharding
+from besskge_tpu_torch.sharding import PartitionedTripleSet, Sharding
 
 pytestmark = pytest.mark.cuda
 
 RTOL, ATOL = 1e-5, 1e-4
 BF16_ULP = 2.0**-7
+U32 = 2.0**-24
 
 
 @pytest.fixture
@@ -72,3 +87,170 @@ def test_topk_on_the_card_matches_the_cpu(cuda, merge):
     kernel = l1_kernels.l1_scores_chunkmax if merge == "chunk" else l1_kernels.l1_distance_matrix
     assert kernel.launches == 3  # one per window
     torch.testing.assert_close(got["topk_scores"].cpu(), want["topk_scores"], rtol=RTOL, atol=ATOL)
+
+
+def _sum_tol(w, dim):
+    """2·n·2^-24·Σ|w| over the summed dimension, kept for broadcasting."""
+    n = w.shape[dim]
+    return 2 * n * U32 * w.abs().sum(dim).unsqueeze(-1) + 1e-30
+
+
+def _grad_inputs(cuda, G, B, N, d, dtype, seed):
+    gen = torch.Generator(cuda).manual_seed(seed)
+    a = ((torch.rand(G, B, d, device=cuda, generator=gen) * 2 - 1) / d).to(dtype)
+    b = ((torch.rand(G, N, d, device=cuda, generator=gen) * 2 - 1) / d).to(dtype)
+    # Planted exact ties: a few rows of b copy coordinates of rows of a.
+    b[:, : min(N, B) // 2, : d // 2] = a[:, : min(N, B) // 2, : d // 2]
+    w = torch.randn(G, B, N, device=cuda, generator=gen)
+    return a, b, w
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(8, 256, 288, 128), (3, 37, 211, 100), (2, 5, 9, 130)])
+def test_batched_kernels_match_plain(cuda, shape, dtype):
+    G, B, N, d = shape
+    a, b, w = _grad_inputs(cuda, G, B, N, d, dtype, seed=G + B + N)
+    l1_kernels.reset_launch_counts()
+    dist = l1_kernels.l1_distance_matrix_batched(a, b)
+    da, db = l1_kernels.l1_distance_grads_batched(a, b, w)
+    da6, db6 = l1_kernels.l1_distance_grads(a[0], b[0], w[0])
+    torch.cuda.synchronize()
+    assert l1_kernels.l1_distance_matrix_batched.launches == 1
+    assert l1_kernels.l1_distance_grads_batched.launches == 1
+    assert l1_kernels.l1_distance_grads.launches == 1
+    ref = l1_kernels.l1_distance_matrix_batched_plain(a, b).float()
+    tol = ATOL + (RTOL + (BF16_ULP if dtype == torch.bfloat16 else 0.0)) * ref.abs()
+    assert dist.dtype == dtype and ((dist.float() - ref).abs() <= tol).all()
+    rda, rdb = l1_kernels.l1_distance_grads_batched_plain(a, b, w)
+    assert da.dtype == db.dtype == torch.float32
+    assert ((da - rda).abs() <= _sum_tol(w, 2)).all()
+    assert ((db - rdb).abs() <= _sum_tol(w.transpose(1, 2), 2)).all()
+    assert ((da6 - rda[0]).abs() <= _sum_tol(w[0], 1)).all()
+    assert ((db6 - rdb[0]).abs() <= _sum_tol(w[0].T, 1)).all()
+
+
+def _runs(cuda, R, n, seed):
+    """Sorted indices in [0, n) with duplicate runs."""
+    gen = torch.Generator(cuda).manual_seed(seed)
+    idx = torch.randint(0, n, (R,), device=cuda, generator=gen)
+    idx[1::3] = idx[0::3][: idx[1::3].shape[0]]  # runs of two and three
+    return torch.sort(idx).values.to(torch.int32), gen
+
+
+@pytest.mark.parametrize("h", [1, 2])
+@pytest.mark.parametrize("skip_dups", [False, True])
+@pytest.mark.parametrize("block", [False, True])
+def test_scatter_rows_matches_plain(cuda, h, skip_dups, block):
+    n, D, R = 1000, 128, 301
+    idx, gen = _runs(cuda, R, n - h, seed=h)
+    if h == 2:
+        idx = idx - idx % 2
+    table = torch.randn(n, D, device=cuda, generator=gen)
+    rows = torch.randn(h * R, D, device=cuda, generator=gen)
+    first = torch.ones(R, dtype=torch.bool, device=cuda)
+    first[1:] = idx[1:] != idx[:-1]
+    if skip_dups:
+        rows.view(R, h, D)[~first] = float("nan")  # garbage in duplicate slots
+    else:  # duplicates carry identical rows
+        run_start = torch.cummax(torch.where(first, torch.arange(R, device=cuda), 0), 0).values
+        rows = rows.view(R, h, D)[run_start].reshape(h * R, D)
+    want = table.clone()
+    row_kernels.scatter_rows_plain(want, idx, rows, h, skip_dups)
+    got = table.clone()
+    row_kernels.reset_launch_counts()
+    out = row_kernels.scatter_rows(got[None] if block else got, idx, rows, h, skip_dups)
+    torch.cuda.synchronize()
+    assert row_kernels.scatter_rows.launches == 1
+    assert out.data_ptr() == got.data_ptr()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("lr_tensor", [False, True])
+@pytest.mark.parametrize("weight_decay", [0.0, 0.01])
+def test_fused_pair_sgdm_matches_plain(cuda, lr_tensor, weight_decay):
+    n, D, R = 500, 128, 257
+    idx, gen = _runs(cuda, R, n, seed=5)
+    phys = 2 * idx
+    table = torch.randn(2 * n, D, device=cuda, generator=gen)
+    grads = torch.randn(R, D, device=cuda, generator=gen)
+    first = torch.ones(R, dtype=torch.bool, device=cuda)
+    first[1:] = phys[1:] != phys[:-1]
+    grads[~first] = float("nan")  # only the first slot of a run is read
+    lr = torch.tensor(0.05, device=cuda) if lr_tensor else 0.05
+    want = table.clone()
+    row_kernels.fused_pair_sgdm_plain(want, phys, grads, lr, 0.9, weight_decay)
+    got = table.clone()
+    row_kernels.reset_launch_counts()
+    row_kernels.fused_pair_sgdm(got, phys, grads, lr, 0.9, weight_decay)
+    torch.cuda.synchronize()
+    assert row_kernels.fused_pair_sgdm.launches == 1
+    assert torch.equal(got, want)
+
+
+def test_p1_distance_has_a_gradient_on_the_card(cuda):
+    """The autograd repair: p_distance_matrix(·, ·, 1) on the card carries
+    the sign-subgradient VJP, through B5 forward and B6 backward."""
+    gen = torch.Generator(cuda).manual_seed(3)
+    a = torch.randn(37, 128, device=cuda, generator=gen)
+    b = torch.randn(211, 128, device=cuda, generator=gen)
+    b[:5, :40] = a[:5, :40]  # exact ties: sign(0) = 0
+    w = torch.randn(37, 211, device=cuda, generator=gen)
+    a.requires_grad_()
+    b.requires_grad_()
+    l1_kernels.reset_launch_counts()
+    out = distance.p_distance_matrix(a, b, 1)
+    assert isinstance(out.grad_fn, distance._L1._backward_cls)
+    da, db = torch.autograd.grad(out, (a, b), w)
+    torch.cuda.synchronize()
+    assert l1_kernels.l1_distance_matrix.launches == 1
+    assert l1_kernels.l1_distance_grads.launches == 1
+    s = torch.sign(a.detach()[:, None] - b.detach()[None])
+    assert ((da - (w[..., None] * s).sum(1)).abs() <= _sum_tol(w, 1)).all()
+    assert ((db + (w[..., None] * s).sum(0)).abs() <= _sum_tol(w.T, 1)).all()
+
+
+def _small_training(device, variant):
+    n_entity, n_rel = 3000, 13
+    rng = np.random.default_rng(0)
+    triples = np.stack([rng.integers(n_entity, size=4000), rng.integers(n_rel, size=4000),
+                        rng.integers(n_entity, size=4000)], 1).astype(np.int32)
+    ds = KGDataset(n_entity=n_entity, n_relation_type=n_rel, triples={"train": triples},
+                   original_triple_ids={"train": np.arange(4000)})
+    sharding = Sharding.create(n_entity, 1, seed=0)
+    pts = PartitionedTripleSet.create_from_dataset(ds, "train", sharding)
+    score_fn = TransE(True, 1, sharding, n_rel, 128, seed=0)
+    score_fn.compute_dtype = torch.bfloat16
+    ns = RandomShardedNegativeSampler(32, sharding, 0, "ht", False, flat_negative_format=True)
+    module = bess.EmbeddingMovingBessKGE(ns, score_fn, loss.SampledSoftmaxCrossEntropyLoss(n_entity),
+                                         augment_negative=True)
+    sampler = RandomShardedBatchSampler(pts, ns, shard_bs=128, batches_per_step=4, seed=0)
+    row = optim.RowSGDM(0.05, momentum=0.9, interleaved=True, fused_variant=variant)
+    sgd = optim.SGD(0.05, momentum=0.9)
+    params = score_fn.initial_params(device="cpu")
+    params["entity_embedding"] = optim.interleave_momentum(params["entity_embedding"])
+    params = {k: v.to(device) for k, v in params.items()}
+    state = trainer.init_optimizer_state(sgd, params, None, row, n_logical=n_entity)
+    step = trainer.build_train_step(module, sgd, None, row, device=device)
+    batch = sampler.sample_batch(next(iter(sampler.epoch_index_blocks())))
+    return step(params, state, batch)
+
+
+@pytest.mark.parametrize("variant", ["xla", "fused"])
+def test_training_step_on_the_card_matches_the_cpu(cuda, variant):
+    l1_kernels.reset_launch_counts()
+    row_kernels.reset_launch_counts()
+    got_p, got_s, got_o = _small_training(cuda, variant)
+    torch.cuda.synchronize()
+    assert l1_kernels.l1_distance_matrix_batched.launches == 2
+    assert l1_kernels.l1_distance_grads_batched.launches == 2
+    assert row_kernels.scatter_rows.launches == (1 if variant == "xla" else 0)
+    assert row_kernels.fused_pair_sgdm.launches == (1 if variant == "fused" else 0)
+    want_p, want_s, want_o = _small_training("cpu", variant)
+    # bf16 scores: the fp32 sums of the two sides may round to neighbouring
+    # bf16 values, which moves the loss by a bf16 ulp of a score at most per
+    # score, and the gradients (cast to bf16 by the distance VJP) by one
+    # bf16 ulp each.
+    torch.testing.assert_close(got_o["loss"].cpu(), want_o["loss"], rtol=2.0**-8, atol=0.0)
+    for key in want_p:
+        m = want_p[key].abs().max()
+        torch.testing.assert_close(got_p[key].cpu(), want_p[key], rtol=2.0**-7, atol=2.0**-7 * m)

@@ -166,5 +166,10 @@ def test_take_rows_plain_and_unported_layouts():
         port_packed.take_contiguous_rows(table, 4, 3, 6)
     with pytest.raises(NotImplementedError, match="A9"):
         port_packed.take_rows(table.to(torch.int32), idx, 6)
+    # (2N, D): pair-major interleaved, param row i at physical row 2i.
+    pair_idx = torch.tensor([[2, 0], [1, 1]])
+    assert torch.equal(port_packed.take_rows(table, pair_idx, 3), table[2 * pair_idx])
+    with pytest.raises(NotImplementedError):
+        port_packed.take_contiguous_rows(table, 0, 2, 3)
     with pytest.raises(NotImplementedError, match="A9"):
-        port_packed.take_rows(table, idx, 3)  # (2N, D): pair-major interleaved
+        port_packed.take_rows(table, idx, 2)  # (3N, D): trebled/tripled

@@ -23,7 +23,8 @@ def _port_modules():
 
 def test_port_imports_without_jax():
     modules = ["besskge_tpu_torch", *_port_modules()]
-    assert "besskge_tpu_torch.bess" in modules and "besskge_tpu_torch.ops.l1_kernels" in modules
+    for name in ("bess", "native", "trainer", "optim", "loss", "ops.l1_kernels", "ops.row_kernels"):
+        assert f"besskge_tpu_torch.{name}" in modules, name
     code = (
         "import importlib, sys\n"
         f"for name in {modules!r}:\n"
