@@ -10,8 +10,10 @@ it needs are copied. Entry points run on ``cuda`` unless the caller passes
 ``device="cpu"``, and raise when no card is there.
 
 Ported so far, on one device: TopK serving of TransE
-(``bess.TopKQueryBessKGE`` with ``build_topk_forward``) and sparse training
-of TransE (``trainer.build_train_step``, ``trainer.Trainer``).
+(``bess.TopKQueryBessKGE`` with ``build_topk_forward``), sparse training of
+TransE with every fp32 row optimizer (``RowSGDM``, ``RowAdamW``) and dense
+training of RotatE (``AdamW``, ``FusedDenseAdamW``), through
+``trainer.build_train_step`` and ``trainer.Trainer``.
 """
 
 __version__ = "0.1.0"

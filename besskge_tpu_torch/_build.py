@@ -40,6 +40,7 @@ NVCC_FLAGS = (
 HOST_FLAGS = ("-std=c++17", "-O3", "-shared", "-fPIC")
 #: Every CUDA source of the port, by library name.
 CUDA_SOURCES = {
+    "dense_adamw": _CSRC / "dense_adamw.cu",
     "l1_distance": _CSRC / "l1_distance.cu",
     "row_update": _CSRC / "row_update.cu",
 }

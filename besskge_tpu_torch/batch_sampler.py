@@ -44,6 +44,11 @@ class ShardedBatchSampler(ABC):
     :param shard_bs: positive triples scored per shard per micro-batch.
     :param batches_per_step: micro-batches sampled per call (device loop).
     :param seed: RNG seed.
+    :param hrt_freq_weighting: frequency-based triple weights; only
+        ``False`` is ported (ROADMAP A8).
+    :param weight_smoothing: smoothing of those weights; only ``0.0``.
+    :param duplicate_batch: micro-batches of two identical halves; only
+        ``False`` (ROADMAP A8).
     :param return_triple_idx: also return positions (into
         ``partitioned_triple_set.triples``) of the sampled triples.
     :param use_native: assemble batches with the C++ host loops (the same
@@ -57,9 +62,17 @@ class ShardedBatchSampler(ABC):
         shard_bs: int,
         batches_per_step: int,
         seed: int,
+        hrt_freq_weighting: bool = False,
+        weight_smoothing: float = 0.0,
+        duplicate_batch: bool = False,
         return_triple_idx: bool = False,
         use_native: bool = True,
     ) -> None:
+        if hrt_freq_weighting or weight_smoothing != 0.0 or duplicate_batch:
+            raise NotImplementedError(
+                "hrt_freq_weighting, weight_smoothing and duplicate_batch are not ported"
+                " yet (ROADMAP A8)"
+            )
         self.n_shard = partitioned_triple_set.sharding.n_shard
         self.triples = partitioned_triple_set.triples
         self.dummy = partitioned_triple_set.dummy

@@ -130,6 +130,8 @@ class BessKGE(ABC):
         triple_mask: Optional[torch.Tensor] = None,
         triple_weight: Optional[torch.Tensor] = None,
         negative_mask: Optional[torch.Tensor] = None,
+        train: bool = False,
+        rng: Any = None,
         gathered_emb: Optional[torch.Tensor] = None,
     ) -> Dict[str, torch.Tensor]:
         """One micro-batch: gather → score → loss (reference
@@ -137,9 +139,12 @@ class BessKGE(ABC):
         runs under ``torch.func.vmap`` over micro-batches.
 
         ``params["entity_embedding"]`` is the local table (plain or
-        pair-major); ``gathered_emb`` optionally supplies the gathered entity
-        rows (see :meth:`gather_plan`). ``triple_mask`` is taken for the
-        batch layout's sake and not used: it only masks metrics.
+        interleaved); ``gathered_emb`` optionally supplies the gathered
+        entity rows (see :meth:`gather_plan`). ``triple_mask`` is taken for
+        the batch layout's sake and not used: it only masks metrics.
+        ``train`` and ``rng`` (a dropout stream) change nothing for the
+        scorers ported so far, as in the JAX package; the one scorer with
+        dropout, ConvE, waits on ROADMAP A11.
         """
         if triple_weight is None:
             triple_weight = torch.ones((), dtype=torch.float32, device=relation.device)
@@ -209,6 +214,8 @@ class BessKGE(ABC):
         relation: torch.Tensor,
         tail: torch.Tensor,
         negative: torch.Tensor,
+        train: bool = False,
+        rng: Any = None,
         gathered_emb: Optional[torch.Tensor] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Positive (bs,) and negative (bs, n_neg_total) scores for the
@@ -228,7 +235,8 @@ class EmbeddingMovingBessKGE(BessKGE):
     On one device the AllToAll that moves tail and negative embeddings is the
     identity."""
 
-    def score_batch(self, params, head, relation, tail, negative, gathered_emb=None):
+    def score_batch(self, params, head, relation, tail, negative, train=False, rng=None,
+                    gathered_emb=None):
         n_shard, ppp = relation.shape
         bs = n_shard * ppp
         d = self.entity_embedding_size
@@ -382,15 +390,24 @@ class TopKQueryBessKGE:
         relation: torch.Tensor,
         head: Optional[torch.Tensor] = None,
         tail: Optional[torch.Tensor] = None,
+        negative: Optional[torch.Tensor] = None,
         triple_mask: Optional[torch.Tensor] = None,
+        negative_mask: Optional[torch.Tensor] = None,
+        train: bool = False,
+        rng: Any = None,
     ) -> Dict[str, torch.Tensor]:
         """Top-k of one micro-batch of queries.
 
         :param relation: (shard_bs,) relation IDs.
         :param head/tail: (shard_bs,) local ID of the known entity; the other
             is the ground truth (global IDs) or absent.
+        :param negative: must be ``None`` (all entities): candidate sets,
+            with their ``negative_mask``, wait on ROADMAP A14.
         :param triple_mask: (shard_bs,) real (non-padding) queries.
+        :param train: unused by the scorers ported so far, as ``rng``.
         """
+        if negative is not None or negative_mask is not None:
+            raise NotImplementedError("candidate-set queries are not ported yet (ROADMAP A14)")
         sharding = self.sharding
         n_rows = sharding.max_entity_per_shard
         table = check_plain_table(params["entity_embedding"], n_rows)

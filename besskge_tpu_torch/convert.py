@@ -36,26 +36,54 @@ def params_from_jax(params: Dict[str, Any], device: Device = None) -> Dict[str, 
     return {key: _tensor(value, device) for key, value in params.items()}
 
 
-def opt_state_from_jax(state: Dict[str, Any], device: Device = None) -> Dict[str, Any]:
-    """The port's optimizer state from the JAX package's
-    ``init_optimizer_state(optax.sgd(lr, momentum), params, None, row_opt)``
-    state, ``{"entity": {"count"}, "other": (TraceState(trace={...}), ...)}``,
-    on ``device`` (default ``cuda``): ``{"entity": {"count"}, "other":
-    {"count", "trace"}}`` for :class:`~besskge_tpu_torch.optim.RowSGDM` and
-    :class:`~besskge_tpu_torch.optim.SGD`. The dense step count is the
-    schedule's count when the optax chain keeps one, else the entity
-    optimizer's."""
-    device = resolve_device(device)
-    entity = {k: _tensor(v, device) for k, v in state["entity"].items()}
-    other: Dict[str, Any] = {"count": entity["count"].clone()}
-    parts = state["other"]
+def _dense_state(parts: Any, device: torch.device, count: Optional[torch.Tensor]) -> Dict[str, Any]:
+    """The port's dense-optimizer state from an optax state: the momentum
+    ``trace`` of ``optax.sgd``, the ``mu``/``nu`` of ``optax.adamw``, and the
+    step count of the chain (``count`` when the chain keeps none)."""
+    out: Dict[str, Any] = {}
     for part in parts if isinstance(parts, (tuple, list)) else (parts,):
         fields = getattr(part, "_fields", ())
         if "trace" in fields:
-            other["trace"] = {k: _tensor(v, device) for k, v in part.trace.items()}
+            out["trace"] = {k: _tensor(v, device) for k, v in part.trace.items()}
+        if "mu" in fields:
+            out["mu"] = {k: _tensor(v, device) for k, v in part.mu.items()}
+            out["nu"] = {k: _tensor(v, device) for k, v in part.nu.items()}
         if "count" in fields:
-            other["count"] = _tensor(part.count, device).to(torch.int32)
-    return {"entity": entity, "other": other}
+            out["count"] = _tensor(part.count, device).to(torch.int32)
+    if "count" not in out:
+        out["count"] = (
+            count.clone() if count is not None
+            else torch.zeros((), dtype=torch.int32, device=device)
+        )
+    return out
+
+
+def opt_state_from_jax(state: Any, device: Device = None) -> Dict[str, Any]:
+    """The port's optimizer state from the JAX package's
+    ``init_optimizer_state`` state, on ``device`` (default ``cuda``).
+
+    * With an entity optimizer, ``{"entity": {...}, "other": optax state}``
+      becomes ``{"entity": {...}, "other": {...}}``. The entity part is a
+      dict of arrays in either package: ``{"count"}`` for an interleaved
+      ``RowSGDM`` or ``RowAdamW`` (their moments live in the widened table,
+      which :func:`params_from_jax` carries), ``{"m", "count"}`` for a
+      separate-buffer ``RowSGDM``, ``{"mu", "nu", "count"}`` for a
+      separate-buffer ``RowAdamW`` and for ``FusedDenseAdamW``.
+    * Without one, the optax state of every param becomes the port's dense
+      state alone.
+
+    A dense state is ``{"count", "trace"}`` for
+    :class:`~besskge_tpu_torch.optim.SGD` (from ``optax.sgd``) and
+    ``{"count", "mu", "nu"}`` for :class:`~besskge_tpu_torch.optim.AdamW`
+    (from ``optax.adamw``'s ``ScaleByAdamState``). The dense step count is
+    the chain's count when it keeps one, else the entity optimizer's (0
+    without one).
+    """
+    device = resolve_device(device)
+    if isinstance(state, dict) and set(state) == {"entity", "other"}:
+        entity = {k: _tensor(v, device) for k, v in state["entity"].items()}
+        return {"entity": entity, "other": _dense_state(state["other"], device, entity["count"])}
+    return _dense_state(state, device, None)
 
 
 def _numpy(value: Any) -> Any:

@@ -8,16 +8,18 @@ bits. :func:`device_table_init` draws a table directly on the device with a
 
 from __future__ import annotations
 
-from typing import Callable, List, Optional, Sequence, Union
+from typing import Any, Callable, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
 from numpy.typing import NDArray
 
 from besskge_tpu_torch.sharding import Sharding
+from besskge_tpu_torch.utils import resolve_device
 
 __all__ = [
     "init_KGE_uniform",
+    "init_uniform_rotation",
     "initialize_entity_embedding",
     "initialize_relation_embedding",
     "device_table_init",
@@ -37,6 +39,14 @@ def init_KGE_uniform(
         b = b / shape[-1]
     x = rng.random(size=tuple(shape), dtype=np.float32)
     return (2.0 * x - 1.0) * np.float32(b)
+
+
+def init_uniform_rotation(
+    shape: Sequence[int], rng: np.random.Generator
+) -> NDArray[np.float32]:
+    """Uniform rotation phases in [0, 2π)
+    (reference ``besskge/embedding.py:50-62``)."""
+    return rng.random(size=tuple(shape), dtype=np.float32) * np.float32(2.0 * np.pi)
 
 
 def _build_sliced(
@@ -131,17 +141,26 @@ def device_table_init(
     initializer: Union[NDArray[np.float32], List[Initializer]],
     row_sizes: List[int],
     shape: Sequence[int],
+    seed: int,
     dtype: torch.dtype,
-    device: torch.device,
+    sharding: Any = None,
+    device: Optional[Union[str, torch.device]] = None,
     generator: Optional[torch.Generator] = None,
 ) -> torch.Tensor:
-    """Draw a table of ``shape`` directly on ``device``: no host-side copy of
-    a multi-GB table and no host-to-device transfer.
+    """Draw a table of ``shape`` directly on ``device`` (default ``cuda``): no
+    host-side copy of a multi-GB table and no host-to-device transfer.
 
     Each slice of ``row_sizes`` is drawn with the torch counterpart of its
-    numpy initializer from ``generator`` (a generator on ``device``). Array
-    initializers must already have the target shape.
+    numpy initializer from ``generator`` (a generator on ``device``; default
+    one seeded with ``seed``). Array initializers must already have the target
+    shape. ``sharding`` (a device layout) must be ``None``: one device only
+    (ROADMAP A15).
     """
+    if sharding is not None:
+        raise NotImplementedError("sharded device tables are not ported yet (ROADMAP A15)")
+    device = resolve_device(device)
+    if generator is None:
+        generator = torch.Generator(device).manual_seed(seed)
     if isinstance(initializer, np.ndarray):
         if tuple(initializer.shape) != tuple(shape):
             raise ValueError(
@@ -158,6 +177,8 @@ def device_table_init(
         part = out[..., start : start + size]
         if fn is init_KGE_uniform:
             part.uniform_(-1.0 / size, 1.0 / size, generator=generator)
+        elif fn is init_uniform_rotation:
+            part.uniform_(0.0, 2.0 * np.pi, generator=generator)
         else:
             raise ValueError(f"No device counterpart for initializer {fn}")
         start += size

@@ -2,9 +2,10 @@
 
 Counterpart of ``besskge_tpu/loss.py``. Losses are always computed in fp32 —
 the inputs are upcast here — with an optional ``loss_scale`` for
-low-precision training. Ported so far: the base class and
-:class:`SampledSoftmaxCrossEntropyLoss`, the loss of the training path;
-``LogSigmoidLoss`` and ``MarginRankingLoss`` are not ported yet (ROADMAP A3).
+low-precision training. Ported so far: the base classes,
+:class:`SampledSoftmaxCrossEntropyLoss` (the sparse TransE recipe) and
+:class:`LogSigmoidLoss` (the dense RotatE recipe); ``MarginRankingLoss`` is
+not ported yet (ROADMAP A11).
 """
 
 from __future__ import annotations
@@ -14,7 +15,12 @@ from abc import ABC, abstractmethod
 import numpy as np
 import torch
 
-__all__ = ["BaseLossFunction", "SampledSoftmaxCrossEntropyLoss"]
+__all__ = [
+    "BaseLossFunction",
+    "LogSigmoidLoss",
+    "MarginBasedLossFunction",
+    "SampledSoftmaxCrossEntropyLoss",
+]
 
 
 class BaseLossFunction(ABC):
@@ -53,6 +59,40 @@ class BaseLossFunction(ABC):
         :return: () the batch loss.
         """
         raise NotImplementedError
+
+
+class MarginBasedLossFunction(BaseLossFunction, ABC):
+    """Base for margin losses (reference ``besskge/loss.py:77-106``)."""
+
+    def __init__(
+        self,
+        margin: float,
+        negative_adversarial_sampling: bool,
+        negative_adversarial_scale: float = 1.0,
+        loss_scale: float = 1.0,
+    ) -> None:
+        self.margin = float(margin)
+        self.negative_adversarial_sampling = negative_adversarial_sampling
+        self.negative_adversarial_scale = float(negative_adversarial_scale)
+        self.loss_scale = float(loss_scale)
+
+
+class LogSigmoidLoss(MarginBasedLossFunction):
+    """RotatE-style log-sigmoid loss (reference ``besskge/loss.py:109-134``):
+    ``−½·Σ w·(log σ(pos + margin) + Σ_neg weight·log σ(−neg − margin))``,
+    the negative weights taken without a gradient."""
+
+    def __call__(self, positive_score, negative_score, triple_weight):
+        pos = positive_score.float()
+        neg = negative_score.float()
+        w = triple_weight.float()
+        neg_w = self.get_negative_weights(neg)
+        # log σ(x) = −softplus(−x), as jax.nn.log_sigmoid computes it (and
+        # without logsigmoid's buffer, which vmap of its backward resizes).
+        pos_logs = -torch.nn.functional.softplus(-(pos + self.margin))
+        neg_logs = -torch.nn.functional.softplus(neg + self.margin)
+        neg_reduced = torch.sum(neg_w * neg_logs, dim=-1)
+        return self.loss_scale * (-0.5) * torch.sum(w * (pos_logs + neg_reduced))
 
 
 class SampledSoftmaxCrossEntropyLoss(BaseLossFunction):

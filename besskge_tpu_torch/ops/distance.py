@@ -2,7 +2,10 @@
 
 Counterpart of ``besskge_tpu/ops/distance.py``. p=2 is the
 ``|a|² + |b|² − 2ab`` decomposition through ``torch.matmul``, as the JAX
-package leaves it to XLA. p=1 is a ``torch.autograd.Function`` whose forward
+package leaves it to XLA, in full fp32 in the forward and the backward
+whatever the caller set for TF32 (:class:`_Fp32MatMul`): the decomposition
+cancels badly when the distance is small against ``|a|² + |b|²``, and TF32's
+10-bit mantissa would move such distances by a large relative amount. p=1 is a ``torch.autograd.Function`` whose forward
 and backward are each another kernel, on every device: on a CUDA tensor they
 launch the hand-written kernels of :mod:`.l1_kernels` (the JAX package's size
 gate was measured on a TPU and does not carry over), on a CPU tensor they
@@ -20,7 +23,8 @@ backward (``_L1Grads``) B6           B2
 
 from __future__ import annotations
 
-from typing import Any, Optional, Sequence, Tuple
+import contextlib
+from typing import Any, Iterator, Optional, Sequence, Tuple
 
 import torch
 
@@ -94,6 +98,43 @@ class _L1(torch.autograd.Function):
         return l1_kernels.l1_distance_matrix_batched(a, b), 0
 
 
+@contextlib.contextmanager
+def _full_fp32() -> Iterator[None]:
+    """fp32 matrix products in full precision (no TF32) inside the block; the
+    caller's setting is restored after it."""
+    prev = torch.get_float32_matmul_precision()
+    if prev == "highest":
+        yield
+        return
+    torch.set_float32_matmul_precision("highest")
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(prev)
+
+
+class _Fp32MatMul(torch.autograd.Function):
+    """``a @ b.T`` of fp32 operands with full-fp32 products in the forward
+    and in the backward (which autograd runs outside the forward's scope)."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        with _full_fp32():
+            return torch.matmul(a, b.T)
+
+    @staticmethod
+    def setup_context(ctx: Any, inputs: Tuple, output: torch.Tensor) -> None:
+        ctx.save_for_backward(*inputs)
+
+    @staticmethod
+    def backward(ctx: Any, g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        a, b = ctx.saved_tensors
+        with _full_fp32():
+            return torch.matmul(g, b), torch.matmul(g.T, a)
+
+
 def p_distance_matrix(a: torch.Tensor, b: torch.Tensor, p: int) -> torch.Tensor:
     """All-pairs p-distance ``out[i, j] = ||a[i] - b[j]||_p``.
 
@@ -103,7 +144,7 @@ def p_distance_matrix(a: torch.Tensor, b: torch.Tensor, p: int) -> torch.Tensor:
     :return: (B, N) distances, in the dtype of ``a``.
     """
     if p == 2:
-        ab = torch.matmul(a.float(), b.float().T)
+        ab = _Fp32MatMul.apply(a.float(), b.float())
         a2 = torch.sum(a.float() ** 2, dim=-1, keepdim=True)
         b2 = torch.sum(b.float() ** 2, dim=-1)[None, :]
         sq = torch.clamp(a2 + b2 - 2.0 * ab, min=_EPS)

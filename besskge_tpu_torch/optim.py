@@ -1,8 +1,8 @@
-"""Sparse row-wise optimizers for the entity table, and the dense SGD of the
-replicated params (torch).
+"""Sparse row-wise optimizers for the entity table, and the dense optimizers
+(torch).
 
 Counterpart of ``besskge_tpu/optim.py``. A BESS step only uses the gathered
-rows (heads, tails, negatives), so the entity table is updated sparsely:
+rows (heads, tails, negatives), so the entity table may be updated sparsely:
 
 1. the trainer differentiates the loss w.r.t. the gathered rows;
 2. :func:`_dedup_row_grads` sorts the touched rows and sums duplicate-row
@@ -10,34 +10,46 @@ rows (heads, tails, negatives), so the entity table is updated sparsely:
 3. the optimizer updates parameters and fp32 moments only at touched rows,
    in place, writing each row once.
 
-Ported so far: :class:`RowSGDM` in its interleaved form, the momentum stored
-pair-major in one ``(2N, D)`` fp32 table (:func:`interleave_momentum`), whose
-write on a card is the hand-written ``scatter_rows`` kernel (B3) or, with
-``fused_variant="fused"``, the fused ``fused_pair_sgdm`` kernel (B4). The
-separate-buffer form waits on the multi-table scatter (ROADMAP B8), the
-``"pallas_gather"`` variant on the row-gather kernel (B9), 16-bit tables on
-ROADMAP A9 and ``RowAdamW``/``RowAdagrad`` on A13.
+Row optimizers on fp32 tables, and the kernels that write them on a card:
 
-:class:`SGD` is the dense SGD with momentum of the replicated params (the
-relation table): the update rule of ``optax.sgd(lr, momentum)`` and of
-``torch.optim.SGD`` with ``dampening=0``, applied in place.
+=====================================  =======================================
+:class:`RowSGDM` ``interleaved=True``  B3 (h = 2), or B4 (``"fused"``), or B9
+                                       reads and B3 writes (``"pallas_gather"``)
+:class:`RowSGDM` separate buffer       B8 (table and momentum), B3 (h = 1) at
+                                       momentum 0
+:class:`RowAdamW` separate buffers     B8 (table, mu, nu)
+:class:`RowAdamW` ``interleaved=True``  B3 (h = 3) on the treble-major table
+=====================================  =======================================
+
+16-bit and row-pair-packed tables, and so stochastic rounding, wait on
+ROADMAP A9; ``RowAdagrad`` on A13.
+
+Dense optimizers, in place: :class:`SGD` (``optax.sgd(lr, momentum)``) and
+:class:`AdamW` (``optax.adamw``) for the replicated params, or for every
+param in the dense step; :class:`FusedDenseAdamW`, the entity table's dense
+AdamW through the fused kernel B10.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Optional, Tuple, Union
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple, Union
 
 import torch
 
-from besskge_tpu_torch.ops import row_kernels
+from besskge_tpu_torch.ops import adamw_kernels, row_kernels
 
 __all__ = [
+    "AdamW",
     "EntityRowOptimizer",
+    "FusedDenseAdamW",
+    "RowAdamW",
     "RowSGDM",
     "SGD",
+    "interleave_adamw",
     "interleave_momentum",
     "split_interleaved",
+    "split_interleaved_adamw",
 ]
 
 #: A learning rate: a float, or a schedule called with the step count.
@@ -53,6 +65,17 @@ def _lr_at(lr: LearningRate, count: torch.Tensor):
     """The learning rate at step ``count`` (the pre-increment count: the
     first step sees ``schedule(0)``), as ``optax.scale_by_schedule`` does."""
     return lr(count) if callable(lr) else lr
+
+
+def _check_fp32_table(table: torch.Tensor, what: str) -> None:
+    """Row optimizers take plain fp32 tables; 16-bit and packed ones (and with
+    them stochastic rounding) wait on ROADMAP A9."""
+    t = _flat(table)
+    if t.dtype != torch.float32:
+        raise NotImplementedError(
+            f"{what} needs an fp32 table, got {t.dtype}"
+            " (16-bit and packed tables, stochastic rounding: ROADMAP A9)"
+        )
 
 
 def interleave_momentum(
@@ -72,6 +95,28 @@ def interleave_momentum(
     return paired[None] if table.dim() == 3 else paired
 
 
+def interleave_adamw(
+    table: torch.Tensor,
+    mu: Optional[torch.Tensor] = None,
+    nu: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Interleave a plain fp32 ``(N, D)`` table with its Adam moments into one
+    treble-major ``(3N, D)`` table — param row ``i`` at physical row ``3i``,
+    first moment at ``3i+1``, second at ``3i+2`` — the storage of
+    :class:`RowAdamW` ``interleaved=True``. A leading unit axis is kept."""
+    t = _flat(table)
+    if not t.is_floating_point():
+        raise ValueError(
+            "interleaved Adam moments require a plain fp32 table (packed tables:"
+            " ROADMAP A9)"
+        )
+    m = torch.zeros_like(t) if mu is None else mu.reshape(t.shape).to(t.dtype)
+    v = torch.zeros_like(t) if nu is None else nu.reshape(t.shape).to(t.dtype)
+    n, d = t.shape
+    treb = torch.stack([t, m, v], dim=1).reshape(3 * n, d)
+    return treb[None] if table.dim() == 3 else treb
+
+
 def split_interleaved(table: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Inverse of :func:`interleave_momentum`: ``(2N, D) -> ((N, D) params,
     (N, D) momentum)``, as views."""
@@ -81,6 +126,22 @@ def split_interleaved(table: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     if table.dim() == 3:
         return p[None], m[None]
     return p, m
+
+
+def split_interleaved_adamw(
+    table: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Inverse of :func:`interleave_adamw`: ``(3N, D) -> ((N, D) params,
+    (N, D) mu, (N, D) nu)``, as views. As in the JAX package, a leading unit
+    axis is kept on the params only."""
+    t = _flat(table)
+    if t.shape[0] % 3:
+        raise ValueError(f"expected a treble-major (3N, D) table; got {tuple(t.shape)}")
+    trio = t.reshape(t.shape[0] // 3, 3, t.shape[-1])
+    p, m, v = trio[:, 0], trio[:, 1], trio[:, 2]
+    if table.dim() == 3:
+        return p[None], m, v
+    return p, m, v
 
 
 def _dedup_row_grads(
@@ -116,6 +177,8 @@ def _dedup_row_grads(
     return si, cs[seg_end] - before
 
 
+
+
 class EntityRowOptimizer:
     """Interface: sparse per-row optimizer for the local entity table."""
 
@@ -145,6 +208,43 @@ class EntityRowOptimizer:
         raise NotImplementedError
 
 
+def _check_interleaved(table: torch.Tensor, n_logical: Optional[int], h: int, widen: str) -> None:
+    """An interleaved table must be fp32 and ``h``-major: ``(h·n_logical, D)``."""
+    t = _flat(table)
+    _check_fp32_table(table, "an interleaved row optimizer")
+    if n_logical is not None and t.shape[0] != h * n_logical:
+        raise ValueError(
+            f"interleaved table must be ({h}*{n_logical}, D) — got {tuple(t.shape)};"
+            f" widen it with {widen}()"
+        )
+    if t.shape[0] % h:
+        raise ValueError(f"interleaved table must be ({h}N, D) — widen it with {widen}()")
+
+
+def _apply_rows(
+    table: torch.Tensor, idx: torch.Tensor, rows: torch.Tensor, sorted_dedup: bool = False
+) -> torch.Tensor:
+    """In-place row writes ``table[idx[i]] = rows[i]``: B3 (h = 1) on a card,
+    its plain version on the CPU. ``sorted_dedup``: ``idx`` is sorted and
+    only the first slot of each run is written."""
+    if not _flat(table).is_floating_point():
+        raise NotImplementedError("row-pair-packed tables are not ported yet (ROADMAP A9)")
+    return row_kernels.scatter_rows(table, idx, rows, slice_rows=1, skip_dups=sorted_dedup)
+
+
+def _apply_rows_multi(
+    writes: Sequence[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]], sorted_dedup: bool = False
+) -> Tuple[torch.Tensor, ...]:
+    """Several in-place ``(table, idx, rows)`` row writes in one launch of the
+    multi-table scatter (B8; one write: B3); returns the tables in order."""
+    if any(not _flat(t).is_floating_point() for t, _, _ in writes):
+        raise NotImplementedError("row-pair-packed tables are not ported yet (ROADMAP A9)")
+    if len(writes) == 1:
+        return (_apply_rows(*writes[0], sorted_dedup),)
+    tables, idxs, rows = zip(*writes)
+    return row_kernels.scatter_rows_multi(tables, idxs, rows, skip_dups=sorted_dedup)
+
+
 def _apply_row_slices(
     table: torch.Tensor, phys: torch.Tensor, rows: torch.Tensor, h: int,
     sorted_dedup: bool = False,
@@ -156,101 +256,201 @@ def _apply_row_slices(
     return row_kernels.scatter_rows(table, phys, rows, slice_rows=h, skip_dups=sorted_dedup)
 
 
-#: RowSGDM update variants: "xla" gathers the pairs with PyTorch indexing,
-#: updates them and writes them with B3; "fused" runs B4.
-_VARIANTS = ("xla", "fused")
+def _read_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """fp32 values of the touched rows of a plain table."""
+    return _flat(table)[idx.long()].float()
+
+
+def _read_slices(table: torch.Tensor, phys: torch.Tensor, h: int) -> torch.Tensor:
+    """The ``(R, h, D)`` blocks at physical rows ``phys`` of an h-major table,
+    by PyTorch indexing."""
+    t = _flat(table)
+    flat_idx = (phys.long()[:, None] + torch.arange(h, device=phys.device)).reshape(-1)
+    return t[flat_idx].reshape(-1, h, t.shape[-1])
+
+
+def _adam_moments(b1: float, b2: float, mu_prev, nu_prev, g, count):
+    """The reference's row-AdamW moments and their bias-corrected values
+    (division by ``1 − b^t`` in fp32, ``t`` the post-increment count)."""
+    mu_rows = b1 * mu_prev + (1 - b1) * g
+    nu_rows = b2 * nu_prev + (1 - b2) * (g * g)
+    tf = count.to(torch.float32)
+    mu_hat = mu_rows / (1 - torch.pow(b1, tf))
+    nu_hat = nu_rows / (1 - torch.pow(b2, tf))
+    return mu_rows, nu_rows, mu_hat, nu_hat
+
+
+@dataclasses.dataclass
+class RowAdamW(EntityRowOptimizer):
+    """Lazy AdamW on touched rows, fp32 moments (``besskge_tpu.optim.RowAdamW``).
+    The learning rate is read at the pre-increment step count, the bias
+    correction at the post-increment one, as in the reference.
+
+    :param learning_rate: a float, or a schedule called with the step count.
+    :param stochastic_rounding: a no-op on the fp32 tables ported so far
+        (16-bit tables raise, naming ROADMAP A9).
+    :param interleaved: keep both moments in one treble-major ``(3N, D)``
+        table with the params (:func:`interleave_adamw`), written back as one
+        3-row block per touched row (B3, h = 3); otherwise separate ``mu`` and
+        ``nu`` buffers written with the table in one launch (B8, k = 3).
+    """
+
+    learning_rate: LearningRate
+    b1: float = 0.9
+    b2: float = 0.999
+    eps: float = 1e-8
+    weight_decay: float = 0.0
+    stochastic_rounding: bool = True
+    interleaved: bool = False
+
+    def init(self, table: torch.Tensor, n_logical: Optional[int] = None) -> Dict[str, Any]:
+        count = torch.zeros((), dtype=torch.int32, device=table.device)
+        if self.interleaved:
+            _check_interleaved(table, n_logical, 3, "interleave_adamw")
+            return {"count": count}
+        _check_fp32_table(table, "RowAdamW")
+        return {
+            "mu": torch.zeros(table.shape, dtype=torch.float32, device=table.device),
+            "nu": torch.zeros(table.shape, dtype=torch.float32, device=table.device),
+            "count": count,
+        }
+
+    def widen_table(self, table: torch.Tensor) -> torch.Tensor:
+        return interleave_adamw(table) if self.interleaved else table
+
+    def _step(self, p_rows, mu_prev, nu_prev, g, state):
+        count = state["count"] + 1
+        mu_rows, nu_rows, mu_hat, nu_hat = _adam_moments(
+            self.b1, self.b2, mu_prev, nu_prev, g, count)
+        upd = _lr_at(self.learning_rate, state["count"]) * (
+            mu_hat / (torch.sqrt(nu_hat) + self.eps) + self.weight_decay * p_rows
+        )
+        return p_rows - upd, mu_rows, nu_rows, count
+
+    def update_rows(self, table, state, idx, grad_rows):
+        idx, g = _dedup_row_grads(idx, grad_rows)
+        if self.interleaved:
+            phys = 3 * idx
+            trios = _read_slices(table, phys, 3)
+            new_p, mu_rows, nu_rows, count = self._step(
+                trios[:, 0], trios[:, 1], trios[:, 2], g, state)
+            new_trios = torch.stack([new_p, mu_rows, nu_rows], dim=1).reshape(-1, g.shape[-1])
+            _apply_row_slices(table, phys, new_trios, 3, sorted_dedup=True)
+            return table, {"count": count}
+        new_p, mu_rows, nu_rows, count = self._step(
+            _read_rows(table, idx), _read_rows(state["mu"], idx), _read_rows(state["nu"], idx),
+            g, state)
+        _apply_rows_multi([
+            (table, idx, new_p), (state["mu"], idx, mu_rows), (state["nu"], idx, nu_rows),
+        ], sorted_dedup=True)
+        return table, {"mu": state["mu"], "nu": state["nu"], "count": count}
+
+
+#: RowSGDM update variants of the interleaved table: "xla" gathers the pairs
+#: with PyTorch indexing, updates them and writes them with B3;
+#: "pallas_gather" reads them with B9 instead; "fused" runs B4.
+_VARIANTS = ("xla", "pallas_gather", "fused")
 
 
 @dataclasses.dataclass
 class RowSGDM(EntityRowOptimizer):
     """Lazy SGD with momentum on touched rows (the reference wikikg2 recipe,
-    notebook 3 cell 14), the fp32 momentum interleaved pair-major with the
-    params.
+    notebook 3 cell 14), fp32 momentum (``besskge_tpu.optim.RowSGDM``).
 
     :param learning_rate: a float, or a schedule called with the step count
         (a 0-dim tensor on the table's device).
-    :param momentum: momentum coefficient (not 0: the momentum is stored).
+    :param momentum: momentum coefficient; 0 keeps no momentum buffer.
     :param weight_decay: L2 term added to the gradient.
-    :param interleaved: must be True: the separate momentum buffer waits on
-        ROADMAP B8.
-    :param fused_variant: ``"xla"`` (the default): PyTorch gathers and
-        updates the pairs and B3 writes them; ``"fused"``: B4 does all three.
-        ``"pallas_gather"`` waits on ROADMAP B9.
+    :param stochastic_rounding: a no-op on the fp32 tables ported so far
+        (16-bit tables raise, naming ROADMAP A9).
+    :param interleaved: keep the momentum pair-major in one ``(2N, D)`` table
+        with the params (:func:`interleave_momentum`); otherwise a separate
+        ``m`` buffer, written with the table in one launch (B8, k = 2).
+    :param fused_variant: the interleaved update: ``"xla"`` (the default):
+        PyTorch gathers and updates the pairs and B3 writes them;
+        ``"pallas_gather"``: B9 reads them instead; ``"fused"``: B4 does all
+        three.
     """
 
     learning_rate: LearningRate
     momentum: float = 0.9
     weight_decay: float = 0.0
+    stochastic_rounding: bool = True
     interleaved: bool = False
     fused_variant: Optional[str] = None
 
     def __post_init__(self) -> None:
-        if not self.interleaved:
-            raise NotImplementedError(
-                "RowSGDM with a separate momentum buffer is not ported yet: its"
-                " write is the multi-table scatter (ROADMAP B8); use interleaved=True"
-            )
-        if self.fused_variant == "pallas_gather":
-            raise NotImplementedError(
-                "the 'pallas_gather' variant needs the row-gather kernel, not ported"
-                " yet (ROADMAP B9)"
-            )
         if self.fused_variant not in (None, *_VARIANTS):
             raise ValueError(f"unknown fused_variant {self.fused_variant!r}")
-        if self.momentum == 0.0:
-            raise ValueError("interleaved=True requires momentum != 0")
+        if self.fused_variant is not None and not self.interleaved:
+            raise ValueError("fused_variant selects an update of the interleaved table only")
 
     def widen_table(self, table: torch.Tensor) -> torch.Tensor:
-        return interleave_momentum(table)
+        return interleave_momentum(table) if self.interleaved else table
 
     def init(self, table: torch.Tensor, n_logical: Optional[int] = None) -> Dict[str, Any]:
-        t = _flat(table)
-        if t.dtype != torch.float32:
-            raise NotImplementedError(
-                f"interleaved momentum needs an fp32 table, got {t.dtype}"
-                " (16-bit tables: ROADMAP A9)"
-            )
-        if n_logical is not None and t.shape[0] != 2 * n_logical:
-            raise ValueError(
-                f"interleaved table must be (2*{n_logical}, D) — got {tuple(t.shape)};"
-                " widen it with interleave_momentum()"
-            )
-        if t.shape[0] % 2:
-            raise ValueError(
-                "interleaved table must be pair-major (2N, D) — widen it with"
-                " interleave_momentum()"
-            )
-        return {"count": torch.zeros((), dtype=torch.int32, device=t.device)}
+        count = torch.zeros((), dtype=torch.int32, device=table.device)
+        if self.interleaved:
+            if self.momentum == 0.0:
+                raise ValueError("interleaved=True requires momentum != 0")
+            _check_interleaved(table, n_logical, 2, "interleave_momentum")
+            return {"count": count}
+        _check_fp32_table(table, "RowSGDM")
+        if self.momentum == 0.0:
+            return {"count": count}
+        return {
+            "m": torch.zeros(table.shape, dtype=torch.float32, device=table.device),
+            "count": count,
+        }
 
-    def update_rows(self, table, state, idx, grad_rows):
-        idx, g = _dedup_row_grads(idx, grad_rows)
-        phys = 2 * idx
-        lr = _lr_at(self.learning_rate, state["count"])
-        new_state = {"count": state["count"] + 1}
-        if (self.fused_variant or "xla") == "fused":
-            row_kernels.fused_pair_sgdm(
-                table, phys, g, lr, momentum=self.momentum, weight_decay=self.weight_decay
-            )
-            return table, new_state
-        t = _flat(table)
-        d = g.shape[-1]
-        flat_idx = (phys[:, None] + torch.arange(2, device=phys.device)).reshape(-1)
-        pairs = t[flat_idx].reshape(-1, 2, d)
-        p_rows, m_prev = pairs[:, 0], pairs[:, 1]
+    def _step(self, p_rows, m_prev, g, lr):
         if self.weight_decay:
             g = g + self.weight_decay * p_rows
         m_rows = self.momentum * m_prev + g
-        new_p = p_rows - lr * m_rows
+        return p_rows - lr * m_rows, m_rows
+
+    def _update_rows_interleaved(self, table, state, idx, g):
+        phys = 2 * idx
+        lr = _lr_at(self.learning_rate, state["count"])
+        variant = self.fused_variant or "xla"
+        if variant == "fused":
+            row_kernels.fused_pair_sgdm(
+                table, phys, g, lr, momentum=self.momentum, weight_decay=self.weight_decay
+            )
+            return table
+        d = g.shape[-1]
+        if variant == "pallas_gather":
+            # Duplicate slots are left unread (garbage): their updates are
+            # never written, as B3 below skips them too.
+            pairs = row_kernels.gather_rows(_flat(table), phys, slice_rows=2, skip_dups=True)
+            pairs = pairs.reshape(-1, 2, d)
+        else:
+            pairs = _read_slices(table, phys, 2)
+        new_p, m_rows = self._step(pairs[:, 0], pairs[:, 1], g, lr)
         new_pairs = torch.stack([new_p, m_rows], dim=1).reshape(-1, d)
-        _apply_row_slices(table, phys, new_pairs, 2, sorted_dedup=True)
+        return _apply_row_slices(table, phys, new_pairs, 2, sorted_dedup=True)
+
+    def update_rows(self, table, state, idx, grad_rows):
+        idx, g = _dedup_row_grads(idx, grad_rows)
+        new_state = dict(state, count=state["count"] + 1)
+        if self.interleaved:
+            return self._update_rows_interleaved(table, state, idx, g), new_state
+        lr = _lr_at(self.learning_rate, state["count"])
+        p_rows = _read_rows(table, idx)
+        if self.momentum == 0.0:
+            if self.weight_decay:
+                g = g + self.weight_decay * p_rows
+            return _apply_rows(table, idx, p_rows - lr * g, sorted_dedup=True), new_state
+        new_p, m_rows = self._step(p_rows, _read_rows(state["m"], idx), g, lr)
+        _apply_rows_multi([(table, idx, new_p), (state["m"], idx, m_rows)], sorted_dedup=True)
         return table, new_state
 
 
 @dataclasses.dataclass
 class SGD:
-    """Dense SGD with momentum for the replicated params, in place:
-    ``m ← momentum·m + g``, ``p ← p − lr·m`` (``optax.sgd(lr, momentum)``;
-    ``torch.optim.SGD`` with ``dampening=0``, no Nesterov).
+    """Dense SGD with momentum, in place: ``m ← momentum·m + g``,
+    ``p ← p − lr·m`` (``optax.sgd(lr, momentum)``; ``torch.optim.SGD`` with
+    ``dampening=0``, no Nesterov).
 
     :param learning_rate: a float, or a schedule called with the step count.
     :param momentum: 0 for plain SGD.
@@ -282,3 +482,96 @@ class SGD:
                 g = m
             params[key].sub_(lr * g)
         return {**state, "count": state["count"] + 1}
+
+
+@dataclasses.dataclass
+class AdamW:
+    """Dense AdamW, in place, with the update rule and defaults of
+    ``optax.adamw`` (not ``torch.optim.AdamW``, whose weight decay defaults
+    to 1e-2): ``mu ← (1−b1)·g + b1·mu``, ``nu ← (1−b2)·g² + b2·nu``,
+    ``p ← p − lr·(mu/(1−b1^t) / (√(nu/(1−b2^t)) + eps) + weight_decay·p)``
+    with ``t`` the post-increment step count and ``lr`` read at the
+    pre-increment one.
+
+    :param learning_rate: a float, or a schedule called with the step count.
+    :param weight_decay: decoupled weight decay (``optax.adamw``'s 1e-4).
+    """
+
+    learning_rate: LearningRate
+    b1: float = 0.9
+    b2: float = 0.999
+    eps: float = 1e-8
+    weight_decay: float = 1e-4
+
+    def init(self, params: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+        device = next(iter(params.values())).device
+        return {
+            "count": torch.zeros((), dtype=torch.int32, device=device),
+            "mu": {k: torch.zeros_like(v) for k, v in params.items()},
+            "nu": {k: torch.zeros_like(v) for k, v in params.items()},
+        }
+
+    def update_(
+        self,
+        grads: Dict[str, torch.Tensor],
+        state: Dict[str, Any],
+        params: Dict[str, torch.Tensor],
+    ) -> Dict[str, Any]:
+        """Update ``params`` and the moments in ``state`` in place; returns
+        the new state."""
+        lr = _lr_at(self.learning_rate, state["count"])
+        count = state["count"] + 1
+        t = count.to(torch.float32)
+        bc1 = 1 - torch.pow(self.b1, t)
+        bc2 = 1 - torch.pow(self.b2, t)
+        for key, g in grads.items():
+            mu, nu = state["mu"][key], state["nu"][key]
+            mu.copy_((1 - self.b1) * g + self.b1 * mu)
+            nu.copy_((1 - self.b2) * (g * g) + self.b2 * nu)
+            u = (mu / bc1) / (torch.sqrt(nu / bc2) + self.eps) + self.weight_decay * params[key]
+            params[key].sub_(lr * u)
+        return {**state, "count": count}
+
+
+@dataclasses.dataclass
+class FusedDenseAdamW:
+    """Dense AdamW over the whole entity table through the fused in-place
+    kernel (B10, :func:`~besskge_tpu_torch.ops.adamw_kernels.dense_adamw_update`):
+    one pass reads grad, param, mu and nu and writes param, mu and nu
+    (``besskge_tpu.optim.FusedDenseAdamW``). The gradient is dense; the
+    trainer's dense step gives it. Unlike the JAX package, which leaves the
+    kernel for a schedule, a schedule's learning rate runs the kernel too: it
+    reads the value from device memory. The bias corrections multiply by
+    reciprocals, as the Pallas kernel does, where the JAX package's
+    non-kernel path divides.
+
+    :param learning_rate: a float, or a schedule called with the step count.
+    """
+
+    learning_rate: LearningRate
+    b1: float = 0.9
+    b2: float = 0.999
+    eps: float = 1e-8
+    weight_decay: float = 0.0
+
+    def init(self, table: torch.Tensor, n_logical: Optional[int] = None) -> Dict[str, Any]:
+        return {
+            "mu": torch.zeros(table.shape, dtype=torch.float32, device=table.device),
+            "nu": torch.zeros(table.shape, dtype=torch.float32, device=table.device),
+            "count": torch.zeros((), dtype=torch.int32, device=table.device),
+        }
+
+    def apply_dense(
+        self, table: torch.Tensor, state: Dict[str, Any], grad: torch.Tensor
+    ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+        """One step from a dense table gradient, in place; returns
+        ``(table, state)``."""
+        count = state["count"] + 1
+        lr = _lr_at(self.learning_rate, state["count"])
+        if torch.is_tensor(lr):
+            lr = lr.to(device=table.device, dtype=torch.float32)
+        adamw_kernels.dense_adamw_update(
+            table, state["mu"], state["nu"], grad, count, lr,
+            b1=self.b1, b2=self.b2, eps=self.eps, wd=self.weight_decay,
+        )
+        return table, {"mu": state["mu"], "nu": state["nu"], "count": count}

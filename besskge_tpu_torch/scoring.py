@@ -4,7 +4,7 @@ Counterpart of ``besskge_tpu/scoring.py``: a score function object holds the
 static configuration and builds the tables; the learnable state is an
 explicit ``params`` dict (``{"entity_embedding": (n_shard *
 max_entity_per_shard, row), "relation_embedding": (n_relation, row)}``)
-passed to every method. Only :class:`TransE` is ported so far.
+passed to every method. Ported so far: :class:`TransE` and :class:`RotatE`.
 
 Score-method shape contract (as in the JAX package):
 
@@ -17,7 +17,7 @@ Score-method shape contract (as in the JAX package):
 from __future__ import annotations
 
 from abc import ABC, abstractmethod
-from typing import Dict, List, Optional, Union
+from typing import Any, Dict, List, Optional, Union
 
 import numpy as np
 import torch
@@ -26,14 +26,15 @@ from besskge_tpu_torch.embedding import (
     Initializer,
     device_table_init,
     init_KGE_uniform,
+    init_uniform_rotation,
     initialize_entity_embedding,
     initialize_relation_embedding,
 )
 from besskge_tpu_torch.ops.distance import p_distance_matrix
 from besskge_tpu_torch.sharding import Sharding
-from besskge_tpu_torch.utils import resolve_device
+from besskge_tpu_torch.utils import complex_rotation, resolve_device
 
-__all__ = ["BaseScoreFunction", "DistanceBasedScoreFunction", "TransE"]
+__all__ = ["BaseScoreFunction", "DistanceBasedScoreFunction", "RotatE", "TransE"]
 
 Params = Dict[str, torch.Tensor]
 TableOrInit = Union[np.ndarray, List[Initializer]]
@@ -107,12 +108,16 @@ class BaseScoreFunction(ABC):
 
     def initial_params_device(
         self,
+        mesh: Any = None,
         device: Optional[Union[str, torch.device]] = None,
         generator: Optional[torch.Generator] = None,
     ) -> Params:
         """The initial tables drawn directly on ``device`` (default ``cuda``)
         from ``generator`` (default: a generator on ``device`` seeded with
-        :attr:`seed`). Values differ from :meth:`initial_params`."""
+        :attr:`seed`). Values differ from :meth:`initial_params`. ``mesh``
+        must be ``None``: one device only (ROADMAP A15)."""
+        if mesh is not None:
+            raise NotImplementedError("tables sharded over a mesh are not ported yet (ROADMAP A15)")
         device = resolve_device(device)
         if generator is None:
             generator = torch.Generator(device).manual_seed(self.seed)
@@ -123,11 +128,11 @@ class BaseScoreFunction(ABC):
         )
         return {
             "entity_embedding": device_table_init(
-                *self._entity_spec, ent_shape, self.dtype, device, generator
+                *self._entity_spec, ent_shape, self.seed, self.dtype, None, device, generator
             ),
             "relation_embedding": device_table_init(
-                *self._relation_spec, (n_rel, self.relation_row_size),
-                self.dtype, device, generator,
+                *self._relation_spec, (n_rel, self.relation_row_size), self.seed + 1,
+                self.dtype, None, device, generator,
             ),
         }
 
@@ -246,3 +251,55 @@ class TransE(DistanceBasedScoreFunction):
     def distance_query_vector(self, params, known_emb, relation_id, scheme):
         r = self.relation_embedding(params, relation_id)
         return known_emb - r if scheme == "h" else known_emb + r
+
+
+class RotatE(DistanceBasedScoreFunction):
+    """RotatE: ``-||h ∘ e^{i r} − t||_p`` on blocked complex rows
+    (reference ``besskge/scoring.py:357-462``): entity rows hold
+    ``[re | im]`` of ``embedding_size`` complex values, relation rows the
+    ``embedding_size`` rotation phases."""
+
+    def __init__(
+        self,
+        negative_sample_sharing: bool,
+        scoring_norm: int,
+        sharding: Sharding,
+        n_relation_type: int,
+        embedding_size: int,
+        entity_initializer: Optional[TableOrInit] = None,
+        relation_initializer: Optional[TableOrInit] = None,
+        inverse_relations: bool = False,
+        seed: int = 0,
+        dtype: torch.dtype = torch.float32,
+    ) -> None:
+        super().__init__(negative_sample_sharing, scoring_norm)
+        self.embedding_size = embedding_size
+        self._build_tables(
+            sharding,
+            n_relation_type,
+            inverse_relations,
+            entity_initializer if entity_initializer is not None else [init_KGE_uniform],
+            [2 * embedding_size],
+            relation_initializer
+            if relation_initializer is not None
+            else [init_uniform_rotation],
+            [embedding_size],
+            seed,
+            dtype,
+        )
+
+    def score_triple(self, params, head_emb, relation_id, tail_emb):
+        r = self.relation_embedding(params, relation_id)
+        return -self.reduce_embedding(complex_rotation(head_emb, r) - tail_emb)
+
+    def score_heads(self, params, head_emb, relation_id, tail_emb):
+        r = self.relation_embedding(params, relation_id)
+        return -self.broadcasted_distance(complex_rotation(tail_emb, -r), head_emb)
+
+    def score_tails(self, params, head_emb, relation_id, tail_emb):
+        r = self.relation_embedding(params, relation_id)
+        return -self.broadcasted_distance(complex_rotation(head_emb, r), tail_emb)
+
+    def distance_query_vector(self, params, known_emb, relation_id, scheme):
+        r = self.relation_embedding(params, relation_id)
+        return complex_rotation(known_emb, -r if scheme == "h" else r)

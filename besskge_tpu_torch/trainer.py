@@ -1,23 +1,31 @@
 """Training step and loop for BESS-KGE on one device (torch).
 
-Counterpart of ``besskge_tpu/trainer.py`` for the sparse training path:
+Counterpart of ``besskge_tpu/trainer.py``:
 
 * :func:`build_train_step` builds ``fn(params, opt_state, batch) ->
-  (params, opt_state, outputs)``. The ``bps`` micro-batches of a step are
-  fused with ``torch.func.vmap`` over ``torch.func.vjp`` with respect to the
-  gathered entity rows and the replicated params, as the JAX package fuses
-  them with ``jax.vmap``; the p=1 distances then reach the batched L1
-  kernels (B1 forward, B2 backward). The entity table takes a sparse,
-  in-place row update (:class:`~besskge_tpu_torch.optim.RowSGDM`), the
-  replicated params a dense in-place one (:class:`~besskge_tpu_torch.optim.SGD`).
+  (params, opt_state, outputs)``, in one of two forms, as the JAX package's:
+
+  - **sparse** (an :class:`~besskge_tpu_torch.optim.EntityRowOptimizer`):
+    the ``bps`` micro-batches of a step are fused with ``torch.func.vmap``
+    over ``torch.func.vjp`` with respect to the gathered entity rows and the
+    replicated params, as the JAX package fuses them with ``jax.vmap``; the
+    p=1 distances then reach the batched L1 kernels (B1 forward, B2
+    backward). The entity table takes a sparse, in-place row update, the
+    replicated params a dense in-place one (``optimizer``);
+  - **dense** (no entity optimizer, or
+    :class:`~besskge_tpu_torch.optim.FusedDenseAdamW`): one gradient of the
+    loss summed over the ``torch.func.vmap``-fused micro-batches, over the
+    whole params dict; ``optimizer`` updates every param, or every param but
+    the entity table, which B10 updates.
+
 * :class:`Trainer` widens the table for an interleaved optimizer, builds the
   optimizer state and runs epochs over a host batch sampler.
 
-Params and optimizer state are updated in place (the JAX package donates
-them to the step). Only one device is ported: a mesh raises (ROADMAP A15),
-the dense entity-table step waits on ROADMAP A12, on-device sampling
-(``DeviceBatchSampler``, ``build_device_train_step``) on A8 and checkpoints
-on A10.
+Params and optimizer state are updated in place, as the JAX package donates
+them to the step; ``donate=False`` updates copies instead. Only one device
+is ported: a mesh raises (ROADMAP A15), on-device sampling
+(``DeviceBatchSampler``, ``build_device_train_step``) waits on A8 and
+checkpoints on A10.
 """
 
 from __future__ import annotations
@@ -31,7 +39,7 @@ import torch
 
 from besskge_tpu_torch.batch_sampler import ShardedBatchSampler
 from besskge_tpu_torch.bess import _FORWARD_KEYS, BessKGE, _format_outputs
-from besskge_tpu_torch.optim import SGD, EntityRowOptimizer
+from besskge_tpu_torch.optim import AdamW, SGD, EntityRowOptimizer, FusedDenseAdamW
 from besskge_tpu_torch.packed import take_rows
 from besskge_tpu_torch.utils import resolve_device
 
@@ -39,6 +47,9 @@ __all__ = ["build_train_step", "init_optimizer_state", "Trainer"]
 
 Params = Dict[str, torch.Tensor]
 Device = Optional[Union[str, torch.device]]
+#: A dense optimizer of the port: ``init(params)``, ``update_(grads, state, params)``.
+DenseOptimizer = Union[SGD, AdamW]
+EntityOptimizer = Union[EntityRowOptimizer, FusedDenseAdamW]
 
 
 def _no_mesh(mesh: Any) -> None:
@@ -49,14 +60,15 @@ def _no_mesh(mesh: Any) -> None:
 
 
 def init_optimizer_state(
-    optimizer: SGD,
+    optimizer: DenseOptimizer,
     params: Params,
     mesh: Any = None,
-    entity_optimizer: Optional[EntityRowOptimizer] = None,
+    entity_optimizer: Optional[EntityOptimizer] = None,
     n_logical: Optional[int] = None,
 ) -> Dict[str, Any]:
-    """Optimizer state on the params' device: ``{"entity": row-optimizer
-    state, "other": dense state of the replicated params}``.
+    """Optimizer state on the params' device: ``optimizer``'s state of every
+    param without an ``entity_optimizer``; with one, ``{"entity": its state
+    of the entity table, "other": optimizer's state of the other params}``.
 
     :param n_logical: the logical entity count
         (``sharding.n_shard * sharding.max_entity_per_shard``), with which the
@@ -64,10 +76,7 @@ def init_optimizer_state(
     """
     _no_mesh(mesh)
     if entity_optimizer is None:
-        raise NotImplementedError(
-            "the dense entity-table step is not ported yet (ROADMAP A12);"
-            " pass an entity_optimizer"
-        )
+        return optimizer.init(params)
     other = {k: v for k, v in params.items() if k != "entity_embedding"}
     return {
         "entity": entity_optimizer.init(params["entity_embedding"], n_logical=n_logical),
@@ -76,7 +85,7 @@ def init_optimizer_state(
 
 
 def _sparse_train_step(
-    bess: BessKGE, optimizer: SGD, entity_optimizer: EntityRowOptimizer
+    bess: BessKGE, optimizer: DenseOptimizer, entity_optimizer: EntityRowOptimizer
 ) -> Callable:
     """The step on tensors: differentiate w.r.t. the gathered rows only (no
     table-sized gradient), then the lazy row update of the touched rows."""
@@ -116,6 +125,52 @@ def _sparse_train_step(
     return step
 
 
+def _dense_train_step(
+    bess: BessKGE, optimizer: DenseOptimizer, fused_dense: Optional[FusedDenseAdamW]
+) -> Callable:
+    """The step on tensors with a dense table gradient: one gradient of the
+    loss summed over the vmapped micro-batches, over the whole params dict
+    (the table's gradient is table-sized), then ``optimizer`` over every
+    param, or B10 over the table and ``optimizer`` over the rest."""
+
+    def step(params: Params, opt_state: Dict[str, Any], batch: Dict[str, torch.Tensor]):
+        if not params["entity_embedding"].is_floating_point():
+            raise ValueError(
+                "a row-pair-packed table cannot take a dense gradient; train it with"
+                " a sparse EntityRowOptimizer"
+            )
+        mbs = {k: v[:, 0] for k, v in batch.items() if k in _FORWARD_KEYS}
+
+        def loss_fn(p: Params):
+            # Micro-batches fused with vmap, as the JAX package's _device_step.
+            outs = torch.func.vmap(lambda mb: bess.forward(p, train=True, **mb))(mbs)
+            return torch.sum(outs["loss"]), outs
+
+        grads, outs = torch.func.grad(loss_fn, has_aux=True)(params)
+        with torch.no_grad():
+            if fused_dense is None:
+                new_state = optimizer.update_(grads, opt_state, params)
+                return params, new_state, _format_outputs(bess, outs)
+            table, ent_state = fused_dense.apply_dense(
+                params["entity_embedding"], opt_state["entity"], grads.pop("entity_embedding")
+            )
+            other = {k: v for k, v in params.items() if k != "entity_embedding"}
+            other_state = optimizer.update_(grads, opt_state["other"], other)
+        new_params = dict(other)
+        new_params["entity_embedding"] = table
+        return new_params, {"entity": ent_state, "other": other_state}, _format_outputs(bess, outs)
+
+    return step
+
+
+def _clone(tree: Any) -> Any:
+    """A copy of a dict of tensors (nested), for a step that must not write
+    the caller's."""
+    if isinstance(tree, dict):
+        return {k: _clone(v) for k, v in tree.items()}
+    return tree.clone()
+
+
 def _to_device(batch: Dict[str, Any], device: torch.device) -> Dict[str, torch.Tensor]:
     """The batch keys the forward takes, as tensors on ``device``."""
     return {
@@ -127,35 +182,42 @@ def _to_device(batch: Dict[str, Any], device: torch.device) -> Dict[str, torch.T
 
 def build_train_step(
     bess: BessKGE,
-    optimizer: SGD,
+    optimizer: DenseOptimizer,
     mesh: Any = None,
-    entity_optimizer: Optional[EntityRowOptimizer] = None,
+    entity_optimizer: Optional[EntityOptimizer] = None,
+    donate: bool = True,
     device: Device = None,
 ) -> Callable:
     """Build ``fn(params, opt_state, batch) -> (params, opt_state, outputs)``,
     the BESS training step on one device (default ``cuda``). ``params`` and
-    ``opt_state`` must live on that device and are updated in place;
-    ``batch`` is a batch-sampler dict of ``(bps, 1, ...)`` numpy arrays or
-    tensors. ``outputs`` holds the step's ``loss`` (summed over
-    micro-batches) plus the scores when the module returns them.
+    ``opt_state`` must live on that device; ``batch`` is a batch-sampler dict
+    of ``(bps, 1, ...)`` numpy arrays or tensors. ``outputs`` holds the
+    step's ``loss`` (summed over micro-batches) plus the scores when the
+    module returns them.
 
-    :param optimizer: dense optimizer of the replicated params.
-    :param entity_optimizer: sparse row optimizer of the entity table.
+    :param optimizer: dense optimizer (:class:`~besskge_tpu_torch.optim.SGD`,
+        :class:`~besskge_tpu_torch.optim.AdamW`) of the replicated params, or
+        of every param when there is no ``entity_optimizer``.
+    :param entity_optimizer: sparse row optimizer of the entity table, or
+        :class:`~besskge_tpu_torch.optim.FusedDenseAdamW` for a dense one.
+    :param donate: ``True``: ``params`` and ``opt_state`` are updated in
+        place (the JAX package donates them); ``False``: the step updates
+        copies and leaves the caller's tensors as they were.
     """
     _no_mesh(mesh)
-    if entity_optimizer is None:
-        raise NotImplementedError(
-            "the dense entity-table step is not ported yet (ROADMAP A12);"
-            " pass an entity_optimizer"
-        )
     device = resolve_device(device)
-    step = _sparse_train_step(bess, optimizer, entity_optimizer)
+    if entity_optimizer is None or isinstance(entity_optimizer, FusedDenseAdamW):
+        step = _dense_train_step(bess, optimizer, entity_optimizer)
+    else:
+        step = _sparse_train_step(bess, optimizer, entity_optimizer)
 
     def fn(params: Params, opt_state: Dict[str, Any], batch: Dict[str, Any]):
         if params["entity_embedding"].device.type != device.type:
             raise ValueError(
                 f"params on {params['entity_embedding'].device}, step built for {device}"
             )
+        if not donate:
+            params, opt_state = _clone(params), _clone(opt_state)
         return step(params, opt_state, _to_device(batch, device))
 
     return fn
@@ -168,13 +230,17 @@ class Trainer:
     :param batch_sampler: host-side batch stream
         (:class:`~besskge_tpu_torch.batch_sampler.ShardedBatchSampler`); a
         device sampler is not ported yet (ROADMAP A8).
-    :param optimizer: dense optimizer of the replicated params.
+    :param optimizer: dense optimizer of the replicated params (of every
+        param without an ``entity_optimizer``).
     :param mesh: must be ``None``.
     :param params: initial params on the device; default
         ``score_fn.initial_params(device)``. A plain entity table is widened
         for an interleaved ``entity_optimizer``; a widened one is taken as it
         is.
-    :param entity_optimizer: sparse row optimizer of the entity table.
+    :param seed: seed of the dropout streams, which no ported scorer has
+        (ConvE: ROADMAP A11); kept as :attr:`seed`.
+    :param entity_optimizer: sparse row optimizer of the entity table, or
+        :class:`~besskge_tpu_torch.optim.FusedDenseAdamW`.
     :param steps_per_call: must be 1 (fused steps need on-device sampling).
     :param device: default ``cuda``.
     """
@@ -183,10 +249,11 @@ class Trainer:
         self,
         bess: BessKGE,
         batch_sampler: ShardedBatchSampler,
-        optimizer: SGD,
+        optimizer: DenseOptimizer,
         mesh: Any = None,
         params: Optional[Params] = None,
-        entity_optimizer: Optional[EntityRowOptimizer] = None,
+        seed: int = 0,
+        entity_optimizer: Optional[EntityOptimizer] = None,
         steps_per_call: int = 1,
         device: Device = None,
     ) -> None:
@@ -203,17 +270,22 @@ class Trainer:
         self.batch_sampler = batch_sampler
         self.optimizer = optimizer
         self.entity_optimizer = entity_optimizer
+        self.seed = seed
         raw = dict(params) if params is not None else bess.score_fn.initial_params(self.device)
         n_global = bess.sharding.n_shard * bess.sharding.max_entity_per_shard
-        if entity_optimizer is not None and entity_optimizer.interleaved:
+        if getattr(entity_optimizer, "interleaved", False):
             tab = raw["entity_embedding"]
             height = tab.shape[-2]
+            # The optimizer owns its layout: the height of a widened table.
+            wide = entity_optimizer.widen_table(
+                torch.empty((n_global, tab.shape[-1]), dtype=tab.dtype, device="meta")
+            ).shape[-2]
             if height == n_global:
                 raw["entity_embedding"] = entity_optimizer.widen_table(tab)
-            elif height != 2 * n_global:
+            elif height != wide:
                 raise ValueError(
                     f"entity table has {height} rows; expected {n_global} (plain, to"
-                    f" be widened) or {2 * n_global} (already interleaved for"
+                    f" be widened) or {wide} (already interleaved for"
                     f" {type(entity_optimizer).__name__}) for this sharding"
                 )
         self.params = {k: v.to(self.device) for k, v in raw.items()}

@@ -6,7 +6,10 @@ from typing import Optional, Union
 
 import torch
 
-__all__ = ["gather_indices", "on_cuda", "resolve_device"]
+__all__ = [
+    "complex_multiplication", "complex_rotation", "gather_indices", "on_cuda",
+    "resolve_device",
+]
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.device:
@@ -45,3 +48,18 @@ def gather_indices(x: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
     x_b = x.expand(rows + x.shape[1:])
     idx_b = index.expand(rows + index.shape[1:])
     return torch.gather(x_b, 1, idx_b.long())
+
+
+def complex_multiplication(v1: torch.Tensor, v2: torch.Tensor) -> torch.Tensor:
+    """Complex-multiply two batches of complex vectors stored as
+    ``[re_0..re_{d/2}, im_0..im_{d/2}]`` along the last axis (reference
+    ``besskge/utils.py:72-89``)."""
+    re1, im1 = torch.chunk(v1, 2, dim=-1)
+    re2, im2 = torch.chunk(v2, 2, dim=-1)
+    return torch.cat([re1 * re2 - im1 * im2, re1 * im2 + im1 * re2], dim=-1)
+
+
+def complex_rotation(v: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+    """Rotate complex vectors ``v`` (``[re, im]``, last dim ``2k``) by the
+    phases ``r`` (radians, last dim ``k``)."""
+    return complex_multiplication(v, torch.cat([torch.cos(r), torch.sin(r)], dim=-1))

@@ -17,7 +17,11 @@ the CUDA toolkit. Phases, one line each with its elapsed seconds:
    training shape (8 x 256 x 288 x 128) and a ragged one, in fp32 and bf16,
    with planted exact ties; B3/B4 with R = 8,704 slots over the
    (5,001,208, 128) pair-major table and a ragged R, with duplicate runs
-   whose later slots hold garbage;
+   whose later slots hold garbage; B8 with k = 2 and 3 tables of
+   (2,500,604, 128) at the same slots, and with unequal lists and a
+   (1, n, D) block; B9 with h = 2 over the pair-major table; B10 over the
+   (93,773, 128) biokg table in fp32 and with a bf16 param, and over a table
+   whose size is not a multiple of 4;
 4. serving: ``build_topk_forward`` of TransE-L1 at ogbl-wikikg2 width
    (2,500,604 entities, 535 relation types, d = 128, 512 queries per batch,
    k = 10) once with the chunk merge (B7) and once with the sort merge (B5);
@@ -29,15 +33,28 @@ the CUDA toolkit. Phases, one line each with its elapsed seconds:
    (1,000,000 random triples, 32 shared "ht" negatives with augmentation,
    bf16 scoring, RowSGDM interleaved, 8 x 512 positives per step) through
    ``build_train_step``: one step held against the same step on the CPU,
-   one step of each update variant (B3 and B4) held against each other,
-   ``Trainer.fit`` over a few steps, and 20 timed steps of each variant.
+   one step of each update variant held against the B3 step (B4 and the
+   "pallas_gather" variant, B9 + B3, bit for bit; RowSGDM with a separate
+   momentum buffer, B8, bit for bit after ``split_interleaved``), one
+   RowAdamW step with separate moments (B8, k = 3) held against the CPU
+   step and against the treble-interleaved RowAdamW step (B3, h = 3, bit
+   for bit), ``Trainer.fit`` over a few steps, and 2 x 20 timed steps of
+   each of the six variants;
+7. dense training: the dense RotatE step of the biokg configuration
+   (``bench.py`` ``_setup_biokg``: 93,773 entities, 51 relation types,
+   d = 2 x 64, 4,762,678 random triples, one shared "ht" negative,
+   ``LogSigmoidLoss`` with adversarial weights, 48 x 240 positives per step)
+   with ``FusedDenseAdamW`` (B10) on the table and ``AdamW`` on the
+   relations: one step held against the same step on the CPU,
+   ``Trainer.fit`` over a few steps, and 2 x 20 timed steps beside 2 x 20 of
+   the plain dense ``AdamW`` form (``entity_optimizer=None``, no kernel).
 
 Each path is driven with every launch count set to 0 just before it and
 read just after. Then one JSON line describing each kernel, and the result
 line. Any failed check raises, so the script exits non-zero and prints no
 result; so it does when no CUDA card is available. ``--profile`` adds a
-``torch.profiler`` trace of training steps: device time by kernel, and the
-device's busy share.
+``torch.profiler`` trace of sparse and of dense training steps: device time
+by kernel, and the device's busy share.
 """
 
 from __future__ import annotations
@@ -65,14 +82,14 @@ from besskge_tpu_torch.bess import (  # noqa: E402
     build_topk_forward,
 )
 from besskge_tpu_torch.dataset import KGDataset  # noqa: E402
-from besskge_tpu_torch.loss import SampledSoftmaxCrossEntropyLoss  # noqa: E402
+from besskge_tpu_torch.loss import LogSigmoidLoss, SampledSoftmaxCrossEntropyLoss  # noqa: E402
 from besskge_tpu_torch.metric import Evaluation  # noqa: E402
 from besskge_tpu_torch.negative_sampler import (  # noqa: E402
     PlaceholderNegativeSampler,
     RandomShardedNegativeSampler,
 )
-from besskge_tpu_torch.ops import distance, l1_kernels, row_kernels  # noqa: E402
-from besskge_tpu_torch.scoring import TransE  # noqa: E402
+from besskge_tpu_torch.ops import adamw_kernels, distance, l1_kernels, row_kernels  # noqa: E402
+from besskge_tpu_torch.scoring import RotatE, TransE  # noqa: E402
 from besskge_tpu_torch.sharding import PartitionedTripleSet, Sharding  # noqa: E402
 
 # Serving configuration: ogbl-wikikg2's entity and relation counts on one
@@ -108,8 +125,23 @@ N_UNTOUCHED = 10_000
 BF16_STEP_RTOL = 2.0**-7
 U32 = 2.0**-24
 
+# Dense configuration: bench.py's biokg recipe (_setup_biokg) at full width:
+# RotatE(scoring_norm=2, embedding_size=64), so 128 fp32 values per entity row.
+DENSE_ENTITY, DENSE_RELATION, DENSE_EMB = 93_773, 51, 64
+DENSE_TRIPLE, DENSE_SHARD_BS, DENSE_BPS, DENSE_LR = 4_762_678, 240, 48, 1e-3
+DENSE_FIT_STEPS = 4
+# Card against CPU in the dense step: fp32 sums of the same terms in other
+# orders (atomics in the card's scatter-add of the table gradient), relative
+# to each array's largest value. An AdamW update is lr·m̂/(√v̂ + eps), which
+# follows g/|g| where |g| is near eps: there a gradient that differs by a
+# few ulps between the devices moves the update by much more. So a param is
+# held to the tolerance plus lr·|r_card − r_cpu|, where r = m̂/(√v̂ + eps) of
+# each device's own moments, and the moments themselves to the tolerance.
+DENSE_RTOL = 1e-5
+
 L1_SOURCE = "besskge_tpu_torch/csrc/l1_distance.cu"
 ROW_SOURCE = "besskge_tpu_torch/csrc/row_update.cu"
+ADAMW_SOURCE = "besskge_tpu_torch/csrc/dense_adamw.cu"
 KERNELS = {
     "l1_scores_chunkmax": {
         "id": "B7", "source": L1_SOURCE,
@@ -145,6 +177,21 @@ KERNELS = {
         "id": "B4", "source": ROW_SOURCE,
         "replaces": "besskge_tpu/ops/pallas_row_sgdm.py:149",
         "wrapper": row_kernels.fused_pair_sgdm,
+    },
+    "scatter_rows_multi": {
+        "id": "B8", "source": ROW_SOURCE,
+        "replaces": "besskge_tpu/ops/pallas_scatter.py:365",
+        "wrapper": row_kernels.scatter_rows_multi,
+    },
+    "gather_rows": {
+        "id": "B9", "source": ROW_SOURCE,
+        "replaces": "besskge_tpu/ops/pallas_scatter.py:303",
+        "wrapper": row_kernels.gather_rows,
+    },
+    "dense_adamw_update": {
+        "id": "B10", "source": ADAMW_SOURCE,
+        "replaces": "besskge_tpu/ops/pallas_adamw.py:50",
+        "wrapper": adamw_kernels.dense_adamw_update,
     },
 }
 
@@ -213,6 +260,7 @@ def sync(device: str) -> None:
 def reset_counts() -> None:
     l1_kernels.reset_launch_counts()
     row_kernels.reset_launch_counts()
+    adamw_kernels.reset_launch_counts()
 
 
 def read_counts() -> Dict[str, int]:
@@ -534,6 +582,163 @@ def check_training_kernels(gen: torch.Generator, table_rows: int) -> dict:
             f" ({r['bound'][1]})")
     return results
 
+def _sorted_slots(gen: torch.Generator, R: int, n: int):
+    """R sorted row indices in [0, n) with duplicate runs, and the mask of
+    each run's first slot."""
+    logical = torch.randint(0, n, (R,), device="cuda", generator=gen)
+    logical[1::5] = logical[0::5][: logical[1::5].shape[0]]  # duplicate runs
+    idx = torch.sort(logical).values.to(torch.int32)
+    first = torch.ones(R, dtype=torch.bool, device="cuda")
+    first[1:] = idx[1:] != idx[:-1]
+    return idx, first
+
+
+def check_multi_and_gather(gen: torch.Generator, n_rows: int) -> dict:
+    """B8 and B9 against their plain versions on the card, bit for bit, and
+    their times at the training step's shapes: B8 writes the rows of k = 2
+    (RowSGDM) or 3 (RowAdamW) (n_rows, 128) fp32 tables at R = 8,704 slots
+    each, B9 reads [param | momentum] pairs of the (2·n_rows, 128) table."""
+    results = {name: {"max_abs_err": 0.0} for name in ("scatter_rows_multi", "gather_rows")}
+    R = BPS * (2 * SHARD_BS_TRAIN + 2 * N_NEGATIVE)
+    tables = [torch.rand((n_rows, DIM), device="cuda", generator=gen) for _ in range(3)]
+    plain = [t.clone() for t in tables]
+    for k, lengths, block in ((2, (R, R), False), (3, (R, R, R), False),
+                              (3, (R, 5001, 1001), True)):
+        for t, q in zip(tables, plain):
+            q.copy_(t)  # the timing runs below move the two apart
+        idxs, rows, firsts = [], [], []
+        for n in lengths:
+            idx, first = _sorted_slots(gen, n, n_rows)
+            r = torch.randn(n, DIM, device="cuda", generator=gen)
+            r[~first] = float("nan")  # garbage in duplicate slots
+            idxs.append(idx)
+            rows.append(r)
+            firsts.append(first)
+        uniques = [int(f.sum()) for f in firsts]
+        got = [tables[0][None] if block else tables[0], *tables[1:k]]
+        want = [plain[0][None] if block else plain[0], *plain[1:k]]
+        row_kernels.scatter_rows_multi(got, idxs, rows, skip_dups=True)
+        row_kernels.scatter_rows_multi_plain(want, idxs, rows, skip_dups=True)
+        torch.cuda.synchronize()
+        for b in range(k):
+            if not torch.equal(tables[b], plain[b]):
+                raise AssertionError(f"B8 table {b} of {k} off its plain version")
+        say("kernels", f"B8 k={k} with {lengths} slots ({uniques} unique rows){' and a (1, n, D) block' if block else ''}"
+            f" over {n_rows} x {DIM} tables: equal to its plain version, duplicate slots untouched")
+        if block:
+            continue
+        flat = [(i[f].long(), r[f]) for i, r, f in zip(idxs, rows, firsts)]
+
+        def index_copies(ts=tuple(tables[:k]), flat=flat):
+            for t, (i, r) in zip(ts, flat):
+                t.index_copy_(0, i, r)
+
+        def b3_launches(ts=tuple(tables[:k]), idxs=idxs, rows=rows):
+            for t, i, r in zip(ts, idxs, rows):
+                row_kernels.scatter_rows(t, i, r, 1, True)
+
+        timing = dict(
+            ms=device_ms(lambda: row_kernels.scatter_rows_multi(tables[:k], idxs, rows, True), 100),
+            event_ms=cuda_ms(lambda: row_kernels.scatter_rows_multi(tables[:k], idxs, rows, True), 100),
+            plain_ms=device_ms(lambda: row_kernels.scatter_rows_multi_plain(
+                plain[:k], idxs, rows, True), 10),
+            library_ms=device_ms(index_copies, 100),
+            b3_ms=device_ms(b3_launches, 100),
+            # per table: idx read; each unique row read and written once
+            bound=bound_of(0.0, sum(4 * R + u * 2 * DIM * 4 for u in uniques)),
+        )
+        if k == 2:
+            results["scatter_rows_multi"].update({f"{key}_k2": v for key, v in timing.items()})
+        else:
+            results["scatter_rows_multi"].update(timing)
+    del tables, plain
+
+    pair_table = torch.rand((2 * n_rows, DIM), device="cuda", generator=gen)
+    for R_, block in ((R, False), (1001, True)):
+        logical, first = _sorted_slots(gen, R_, n_rows)
+        phys = 2 * logical
+        got = row_kernels.gather_rows(pair_table[None] if block else pair_table, phys, 2, True)
+        want = row_kernels.gather_rows_plain(pair_table, phys, 2, True)
+        torch.cuda.synchronize()
+        keep = first.repeat_interleave(2)
+        if not torch.equal(got[keep], want[keep]):
+            raise AssertionError("B9 off its plain version at a first-of-run slot")
+        say("kernels", f"B9 h=2 with R={R_} ({int(first.sum())} unique pairs) over a {2 * n_rows} x {DIM}"
+            f" table{' block' if block else ''}: first-of-run slots equal to its plain version")
+        if R_ == R:
+            unique = int(first.sum())
+            flat_first = (phys[first].long()[:, None] + torch.arange(2, device="cuda")).reshape(-1)
+            results["gather_rows"].update(
+                ms=device_ms(lambda: row_kernels.gather_rows(pair_table, phys, 2, True), 100),
+                event_ms=cuda_ms(lambda: row_kernels.gather_rows(pair_table, phys, 2, True), 100),
+                plain_ms=device_ms(lambda: row_kernels.gather_rows_plain(pair_table, phys, 2, True), 10),
+                library_ms=device_ms(lambda: pair_table.index_select(0, flat_first), 100),
+                # idx read; each unique pair read once and written once
+                bound=bound_of(0.0, 4 * R + unique * 2 * (2 * DIM * 4)),
+            )
+    del pair_table
+    r8, r9 = results["scatter_rows_multi"], results["gather_rows"]
+    say("kernels", f"B8 scatter_rows_multi at R={R}: k=3 kernel {r8['ms']:.4f} ms ({r8['event_ms']:.4f} ms"
+        f" between events), plain {r8['plain_ms']:.4f} ms, 3 index_copy_ {r8['library_ms']:.4f} ms,"
+        f" 3 B3 launches {r8['b3_ms']:.4f} ms, bound {r8['bound'][0]:.4f} ms; k=2 kernel"
+        f" {r8['ms_k2']:.4f} ms, 2 index_copy_ {r8['library_ms_k2']:.4f} ms, 2 B3 launches"
+        f" {r8['b3_ms_k2']:.4f} ms, bound {r8['bound_k2'][0]:.4f} ms")
+    say("kernels", f"B9 gather_rows at R={R}, h=2: kernel {r9['ms']:.4f} ms ({r9['event_ms']:.4f} ms"
+        f" between events), plain {r9['plain_ms']:.4f} ms, index_select {r9['library_ms']:.4f} ms,"
+        f" bound {r9['bound'][0]:.4f} ms")
+    return results
+
+
+def check_dense_adamw(gen: torch.Generator) -> dict:
+    """B10 against its plain version on the card: mu and nu to equal bits,
+    the param to two fp32 ulps (one bf16 ulp for a bf16 param); its time at
+    the biokg table against torch.optim.AdamW(fused=True)."""
+    result = {"max_abs_err": 0.0}
+    main = (DENSE_ENTITY, 2 * DENSE_EMB)
+    count = torch.tensor(3, dtype=torch.int32, device="cuda")
+    for shape, dtype in ((main, torch.float32), (main, torch.bfloat16), ((777, 129), torch.float32)):
+        p = (torch.rand(shape, device="cuda", generator=gen) * 2 - 1).to(dtype)
+        mu = torch.randn(shape, device="cuda", generator=gen) * 1e-3
+        nu = torch.rand(shape, device="cuda", generator=gen) * 1e-6
+        g = torch.randn(shape, device="cuda", generator=gen) * 1e-2
+        want = [t.clone() for t in (p, mu, nu)]
+        adamw_kernels.dense_adamw_update(p, mu, nu, g, count, DENSE_LR, wd=1e-4)
+        adamw_kernels.dense_adamw_update_plain(*want, g, count, DENSE_LR, wd=1e-4)
+        torch.cuda.synchronize()
+        if not (torch.equal(mu, want[1]) and torch.equal(nu, want[2])):
+            raise AssertionError("B10 moments off their plain version")
+        ulp = 2.0**-8 if dtype == torch.bfloat16 else 2.0**-22
+        err = (p.float() - want[0].float()).abs()
+        if not (err <= ulp * want[0].float().abs() + 1e-30).all():
+            raise AssertionError(f"B10 param off its plain version by {err.max().item()}")
+        result["max_abs_err"] = max(result["max_abs_err"], err.max().item())
+        say("kernels", f"B10 {shape} {str(dtype)[6:]} param: mu, nu equal to the plain version,"
+            f" param max|err| {err.max().item():.3g}")
+        if shape == main and dtype == torch.float32:
+            n = p.numel()
+            param = torch.nn.Parameter(p.clone())
+            param.grad = g.clone()
+            library = torch.optim.AdamW([param], lr=DENSE_LR, weight_decay=1e-4, fused=True)
+            result.update(
+                ms=device_ms(lambda: adamw_kernels.dense_adamw_update(
+                    p, mu, nu, g, count, DENSE_LR, wd=1e-4), 50),
+                event_ms=cuda_ms(lambda: adamw_kernels.dense_adamw_update(
+                    p, mu, nu, g, count, DENSE_LR, wd=1e-4), 50),
+                plain_ms=device_ms(lambda: adamw_kernels.dense_adamw_update_plain(
+                    p, mu, nu, g, count, DENSE_LR, wd=1e-4), 10),
+                library_ms=device_ms(library.step, 50),
+                # read g, p, mu, nu and write p, mu, nu, 4 bytes each; about
+                # 12 fp32 instructions per element (moments, corrections,
+                # square root, division, decay)
+                bound=bound_of(12.0 * n, 28.0 * n),
+            )
+            del library, param
+    say("kernels", f"B10 dense_adamw_update at {main} fp32: kernel {result['ms']:.4f} ms"
+        f" ({result['event_ms']:.4f} ms between events), plain {result['plain_ms']:.4f} ms,"
+        f" torch.optim.AdamW(fused=True) {result['library_ms']:.4f} ms, bound"
+        f" {result['bound'][0]:.4f} ms ({result['bound'][1]})")
+    return result
+
 
 def autograd(gen: torch.Generator) -> dict:
     """The p=1 distance carries a gradient on the card: B5 forward, B6
@@ -677,7 +882,10 @@ def training(gen: torch.Generator, profile: bool = False, device: str = "cuda") 
         raise AssertionError(f"the B4 step differs from the B3 step by {fused_err}")
     say("training", f"the B4 variant's step equals the B3 variant's at every touched pair"
         f" (max|err| {fused_err}); launches {counts_fused}")
-    del fused_params, initial
+    del fused_params
+    variants = row_variants(module, sgd, initial, batch, card_params, card_state, touched,
+                            untouched, n_logical, device)
+    del initial
 
     # Trainer.fit, the entry a user calls, over a few steps.
     fit_module, fit_sampler = _training_setup(triples[:FIT_TRIPLES], sharding, score_fn)
@@ -691,35 +899,292 @@ def training(gen: torch.Generator, profile: bool = False, device: str = "cuda") 
         f" {summary['triples_per_s']:.0f} positive triples/s including host sampling")
 
     # 20 warm steps of each variant, in turns, host clock around synchronised runs.
-    timed = {}
-    state = fit.opt_state
-    for variant in ("xla", "fused", "fused", "xla"):
-        run = batches[2:2 + TIMED_STEPS] if variant not in timed else batches[2 + TIMED_STEPS:]
-        card_params, state, _ = steps[variant](card_params, state, batches[1])  # warm-up
+    variants["xla"] = (steps["xla"], "pair", "B3")
+    variants["fused"] = (steps["fused"], "pair", "B4")
+    holders = variants.pop("holders")
+    holders["pair"] = [card_params, fit.opt_state]
+    order = ["xla", "fused", "pallas_gather", "separate", "adamw", "adamw_interleaved"]
+    timed: Dict[str, list] = {}
+    for name in order + order[::-1]:
+        step, key, _ = variants[name]
+        held = holders[key]
+        run = batches[2:2 + TIMED_STEPS] if name not in timed else batches[2 + TIMED_STEPS:]
+        held[0], held[1], _ = step(held[0], held[1], batches[1])  # warm-up
         sync(device)
         t = time.perf_counter()
         for b in run:
-            card_params, state, out = steps[variant](card_params, state, b)
+            held[0], held[1], out = step(held[0], held[1], b)
         sync(device)
-        ms = (time.perf_counter() - t) / len(run) * 1e3
-        timed.setdefault(variant, []).append(ms)
-    for variant, ms in timed.items():
-        say("training", f"{variant} variant ({'B3' if variant == 'xla' else 'B4'} update):"
-            f" {ms[0]:.3f} / {ms[1]:.3f} ms per step over {TIMED_STEPS} warm steps,"
-            f" {SHARD_BS_TRAIN * BPS / ms[0] * 1e3:.0f} / {SHARD_BS_TRAIN * BPS / ms[1] * 1e3:.0f}"
-            f" positive triples/s; final loss {float(out['loss']):.3f}")
+        timed.setdefault(name, []).append((time.perf_counter() - t) / len(run) * 1e3)
+    for name in order:
+        ms = timed[name]
+        say("training", f"{name} variant ({variants[name][2]}): {ms[0]:.3f} / {ms[1]:.3f} ms per"
+            f" step over {TIMED_STEPS} warm steps, {SHARD_BS_TRAIN * BPS / ms[0] * 1e3:.0f} /"
+            f" {SHARD_BS_TRAIN * BPS / ms[1] * 1e3:.0f} positive triples/s")
+    card_params, state = holders["pair"]
     if profile:
-        profile_steps(steps["xla"], card_params, state, batches[2:12])
+        profile_steps(steps["xla"], card_params, state, batches[2:12], "train_step_trace.json")
     return {
         "l1_distance_matrix_batched": {"launches": counts_default["l1_distance_matrix_batched"]},
         "l1_distance_grads_batched": {"launches": counts_default["l1_distance_grads_batched"]},
         "scatter_rows": {"launches": counts_default["scatter_rows"]},
         "fused_pair_sgdm": {"launches": counts_fused["fused_pair_sgdm"]},
+        "scatter_rows_multi": {"launches": variants["separate_counts"]["scatter_rows_multi"]},
+        "gather_rows": {"launches": variants["gather_counts"]["gather_rows"]},
         "step_ms": timed,
     }
 
 
-def profile_steps(step, params, state, batches) -> None:
+def _adam_ratio(state: dict, count: int, b1: float, b2: float, eps: float = 1e-8):
+    """m̂/(√v̂ + eps) of AdamW moments ``state["mu"]``, ``state["nu"]`` after
+    step ``count``: the factor that lr multiplies in the update."""
+    return (state["mu"] / (1 - b1**count)) / (torch.sqrt(state["nu"] / (1 - b2**count)) + eps)
+
+
+def row_variants(module, sgd, initial, batch, card_params, card_state, touched, untouched,
+                 n_logical, device) -> dict:
+    """One step of each new row-update variant from the initial state of the
+    B3 step, held against that step or the CPU; returns the steps,
+    their params and states for the timed runs, and their launch counts."""
+    on_card = device == "cuda"
+    card_table = card_params["entity_embedding"]
+    p0, _ = optim.split_interleaved(initial["entity_embedding"])
+    rel0 = initial["relation_embedding"]
+    l1 = {"l1_distance_matrix_batched": 2, "l1_distance_grads_batched": 2}
+
+    def run(opt, params, what, want_counts):
+        state = trainer.init_optimizer_state(sgd, params, None, opt, n_logical=n_logical)
+        step = trainer.build_train_step(module, sgd, None, opt, device=device)
+        reset_counts()
+        params, state, out = step(params, state, batch)
+        sync(device)
+        counts = read_counts()
+        if on_card:
+            expect_counts(f"training step ({what})", counts, {**l1, **want_counts})
+        return step, params, state, out, counts
+
+    # The "pallas_gather" variant: B9 reads the pairs, B3 writes them; the
+    # same arithmetic as the B3 step, so the same bits.
+    gather = optim.RowSGDM(LR, MOMENTUM, 0.0, True, True, "pallas_gather")
+    g_step, g_params, _, _, g_counts = run(
+        gather, {k: v.clone() for k, v in initial.items()}, "B9 + B3 variant",
+        {"gather_rows": 1, "scatter_rows": 1})
+    if not torch.equal(g_params["entity_embedding"], card_table):
+        raise AssertionError("the pallas_gather step differs from the B3 step")
+    del g_params
+    say("training", f"the pallas_gather variant's step (B9 + B3) equals the B3 step bit for bit;"
+        f" launches {g_counts}")
+
+    # RowSGDM with a separate momentum buffer (B8, k = 2): equal bits to the
+    # interleaved step after split_interleaved.
+    separate = optim.RowSGDM(LR, MOMENTUM)
+    s_step, s_params, s_state, _, s_counts = run(
+        separate, {"entity_embedding": p0.clone(), "relation_embedding": rel0.clone()},
+        "separate momentum, B8 k = 2", {"scatter_rows_multi": 1})
+    card_p, card_m = optim.split_interleaved(card_table)
+    if not (torch.equal(s_params["entity_embedding"], card_p)
+            and torch.equal(s_state["entity"]["m"], card_m)
+            and torch.equal(s_params["relation_embedding"], card_params["relation_embedding"])
+            and torch.equal(s_state["other"]["trace"]["relation_embedding"],
+                            card_state["other"]["trace"]["relation_embedding"])):
+        raise AssertionError("the separate-buffer RowSGDM step differs from the interleaved one")
+    say("training", f"RowSGDM with a separate momentum buffer (B8, k = 2): params and momentum equal"
+        f" to the interleaved B3 step's bit for bit; launches {s_counts}")
+
+    # RowAdamW with separate moments (B8, k = 3) against the CPU, and the
+    # treble-interleaved RowAdamW (B3, h = 3) against it, bit for bit.
+    adamw = optim.RowAdamW(LR)
+    a_params = {"entity_embedding": p0.clone(), "relation_embedding": rel0.clone()}
+    cpu_params = _to(a_params, "cpu")
+    a_step, a_params, a_state, a_out, a_counts = run(
+        adamw, a_params, "RowAdamW, B8 k = 3", {"scatter_rows_multi": 1})
+    cpu_state = trainer.init_optimizer_state(sgd, cpu_params, None, adamw, n_logical=n_logical)
+    t = time.perf_counter()
+    cpu_params, cpu_state, cpu_out = trainer.build_train_step(module, sgd, None, adamw, device="cpu")(
+        cpu_params, cpu_state, batch)
+    cpu_s = time.perf_counter() - t
+    loss, cpu_loss = float(a_out["loss"]), float(cpu_out["loss"])
+    if not np.isfinite(loss) or abs(loss - cpu_loss) > 2.0**-8 * abs(cpu_loss):
+        raise AssertionError(f"RowAdamW step loss {loss} on the card, {cpu_loss} on the CPU")
+    rows_t = touched.to(device)
+    card_moments = {k: a_state["entity"][k][rows_t].cpu() for k in ("mu", "nu")}
+    cpu_moments = {k: cpu_state["entity"][k][touched] for k in ("mu", "nu")}
+    # The update's own sensitivity: lr times the difference of m̂/(√v̂ + eps).
+    moved = LR * (_adam_ratio(card_moments, 1, adamw.b1, adamw.b2)
+                  - _adam_ratio(cpu_moments, 1, adamw.b1, adamw.b2)).abs()
+    errs = {}
+    for name, got, want, extra in (
+        ("params", a_params["entity_embedding"][rows_t].cpu(), cpu_params["entity_embedding"][touched],
+         moved),
+        ("mu", card_moments["mu"], cpu_moments["mu"], 0.0),
+        ("nu", card_moments["nu"], cpu_moments["nu"], 0.0),
+        ("relation", a_params["relation_embedding"].cpu(), cpu_params["relation_embedding"], 0.0),
+    ):
+        err = (got - want).abs()
+        tol = BF16_STEP_RTOL * (want.abs() + want.abs().max()) + extra
+        if not (err <= tol).all() or not torch.isfinite(got).all():
+            raise AssertionError(f"RowAdamW step: {name} off the CPU step by {err.max().item()}")
+        errs[name] = err.max().item()
+    if not torch.equal(a_params["entity_embedding"][untouched], p0[untouched]):
+        raise AssertionError("the RowAdamW step moved untouched rows")
+    say("training", f"RowAdamW with separate moments (B8, k = 3), one step on the card vs the CPU"
+        f" ({cpu_s:.1f}s): loss {loss:.6f} vs {cpu_loss:.6f}, max|err| "
+        f"{', '.join(f'{k} {v:.3g}' for k, v in errs.items())} over {len(touched)} touched rows"
+        f" (tolerance {BF16_STEP_RTOL} x (|want| + max|want|), plus for the params lr x the"
+        f" difference of m^/(v^1/2 + eps), at most {moved.max().item():.3g}); launches {a_counts}")
+    del cpu_params, cpu_state
+    interleaved = optim.RowAdamW(LR, interleaved=True)
+    i_step, i_params, i_state, _, i_counts = run(
+        interleaved, {"entity_embedding": optim.interleave_adamw(p0),
+                      "relation_embedding": rel0.clone()},
+        "interleaved RowAdamW, B3 h = 3", {"scatter_rows": 1})
+    p, mu, nu = optim.split_interleaved_adamw(i_params["entity_embedding"])
+    if not (torch.equal(p, a_params["entity_embedding"]) and torch.equal(mu, a_state["entity"]["mu"])
+            and torch.equal(nu, a_state["entity"]["nu"])):
+        raise AssertionError("the interleaved RowAdamW step differs from the separate one")
+    say("training", f"the treble-interleaved RowAdamW step (B3, h = 3) equals the separate one bit"
+        f" for bit; launches {i_counts}")
+    return {
+        "pallas_gather": (g_step, "pair", "B9 + B3"),
+        "separate": (s_step, "separate", "B8, k = 2"),
+        "adamw": (a_step, "adamw", "B8, k = 3"),
+        "adamw_interleaved": (i_step, "adamw_interleaved", "B3, h = 3"),
+        "holders": {"separate": [s_params, s_state], "adamw": [a_params, a_state],
+                    "adamw_interleaved": [i_params, i_state]},
+        "separate_counts": s_counts,
+        "gather_counts": g_counts,
+    }
+
+
+def dense_training(gen: torch.Generator, profile: bool = False, device: str = "cuda") -> dict:
+    """The dense RotatE step of the biokg configuration at full width on the
+    card (``device`` "cpu" rehearses the phase with the plain versions)."""
+    on_card = device == "cuda"
+    t = time.perf_counter()
+    rng = np.random.default_rng(SEED)  # bench.py _make_dataset's stream
+    triples = np.stack([rng.integers(DENSE_ENTITY, size=DENSE_TRIPLE),
+                        rng.integers(DENSE_RELATION, size=DENSE_TRIPLE),
+                        rng.integers(DENSE_ENTITY, size=DENSE_TRIPLE)], 1).astype(np.int32)
+    sharding = Sharding.create(DENSE_ENTITY, 1, seed=SEED)
+    dataset = KGDataset(n_entity=DENSE_ENTITY, n_relation_type=DENSE_RELATION,
+                        triples={"train": triples}, original_triple_ids={"train": np.arange(DENSE_TRIPLE)})
+    pts = PartitionedTripleSet.create_from_dataset(dataset, "train", sharding)
+    score_fn = RotatE(True, 2, sharding, DENSE_RELATION, DENSE_EMB, seed=SEED)
+    ns = RandomShardedNegativeSampler(1, sharding, SEED, "ht", local_sampling=False,
+                                      flat_negative_format=True)
+    module = EmbeddingMovingBessKGE(ns, score_fn, LogSigmoidLoss(12.0, True))
+    sampler = RandomShardedBatchSampler(pts, ns, shard_bs=DENSE_SHARD_BS,
+                                        batches_per_step=DENSE_BPS, seed=SEED)
+    positives = DENSE_SHARD_BS * DENSE_BPS
+    batches = [sampler.sample_batch(b) for b, _ in zip(sampler.epoch_index_blocks(),
+                                                        range(2 + 2 * TIMED_STEPS))]
+    adamw = optim.AdamW(DENSE_LR)  # bench.py's optax.adamw(1e-3): weight decay 1e-4
+    fused = optim.FusedDenseAdamW(DENSE_LR, weight_decay=1e-4)
+    params = score_fn.initial_params_device(device=device, generator=gen)
+    state0 = trainer.init_optimizer_state(adamw, params, None, fused)
+    step = trainer.build_train_step(module, adamw, None, fused, device=device)
+    say("dense", f"{DENSE_ENTITY} x {2 * DENSE_EMB} fp32 RotatE table, {DENSE_TRIPLE} triples,"
+        f" {positives} positives per step ({time.perf_counter() - t:.1f}s set-up)")
+
+    # One step on the card, and the same step on the CPU from copies.
+    batch = batches[0]
+    cpu_params, cpu_state = _to(params, "cpu"), _to(state0, "cpu")
+    reset_counts()
+    params, state, out = step(params, state0, batch)
+    sync(device)
+    counts = read_counts()
+    if on_card:
+        expect_counts("dense training step", counts, {"dense_adamw_update": 1})
+    t = time.perf_counter()
+    cpu_params, cpu_state, cpu_out = trainer.build_train_step(module, adamw, None, fused, device="cpu")(
+        cpu_params, cpu_state, batch)
+    cpu_s = time.perf_counter() - t
+    loss, cpu_loss = float(out["loss"]), float(cpu_out["loss"])
+    if not np.isfinite(loss) or abs(loss - cpu_loss) > DENSE_RTOL * abs(cpu_loss):
+        raise AssertionError(f"dense step loss {loss} on the card, {cpu_loss} on the CPU")
+    ent, rel = "entity_embedding", "relation_embedding"
+    card_ent = {k: state["entity"][k].cpu() for k in ("mu", "nu")}
+    card_rel = {k: state["other"][k][rel].cpu() for k in ("mu", "nu")}
+    cpu_rel = {k: cpu_state["other"][k][rel] for k in ("mu", "nu")}
+    # The update's own sensitivity: lr times the difference of m̂/(√v̂ + eps).
+    moved = {
+        ent: DENSE_LR * (_adam_ratio(card_ent, 1, fused.b1, fused.b2)
+                         - _adam_ratio(cpu_state["entity"], 1, fused.b1, fused.b2)).abs(),
+        rel: DENSE_LR * (_adam_ratio(card_rel, 1, adamw.b1, adamw.b2)
+                         - _adam_ratio(cpu_rel, 1, adamw.b1, adamw.b2)).abs(),
+    }
+    errs = {}
+    for name, got, want, extra in (
+        ("table", params[ent].cpu(), cpu_params[ent], moved[ent]),
+        ("table mu", card_ent["mu"], cpu_state["entity"]["mu"], 0.0),
+        ("table nu", card_ent["nu"], cpu_state["entity"]["nu"], 0.0),
+        ("relation", params[rel].cpu(), cpu_params[rel], moved[rel]),
+        ("relation mu", card_rel["mu"], cpu_rel["mu"], 0.0),
+        ("relation nu", card_rel["nu"], cpu_rel["nu"], 0.0),
+    ):
+        err = (got - want).abs()
+        tol = DENSE_RTOL * (want.abs() + want.abs().max()) + extra
+        if not (err <= tol).all() or not torch.isfinite(got).all():
+            raise AssertionError(f"dense step: {name} off the CPU step by {err.max().item()}")
+        errs[name] = err.max().item()
+    say("dense", f"one step (FusedDenseAdamW, B10) on the card vs the CPU ({cpu_s:.1f}s): loss"
+        f" {loss:.6f} vs {cpu_loss:.6f}, max|err| {', '.join(f'{k} {v:.3g}' for k, v in errs.items())}"
+        f" over every row (tolerance {DENSE_RTOL} x (|want| + max|want|), plus for the params lr x"
+        f" the difference of m^/(v^1/2 + eps), at most {moved[ent].max().item():.3g} (table) and"
+        f" {moved[rel].max().item():.3g} (relations)); launches {counts}")
+    del cpu_params, cpu_state
+
+    # Trainer.fit, the entry a user calls, over a few steps.
+    fit_triples = triples[: DENSE_FIT_STEPS * positives]
+    fit_data = KGDataset(n_entity=DENSE_ENTITY, n_relation_type=DENSE_RELATION,
+                         triples={"train": fit_triples},
+                         original_triple_ids={"train": np.arange(len(fit_triples))})
+    fit_sampler = RandomShardedBatchSampler(
+        PartitionedTripleSet.create_from_dataset(fit_data, "train", sharding), ns,
+        shard_bs=DENSE_SHARD_BS, batches_per_step=DENSE_BPS, seed=SEED)
+    fit = trainer.Trainer(module, fit_sampler, adamw, params=params, entity_optimizer=fused,
+                          device=device)
+    summary = fit.fit(n_epochs=1, log_every=1)
+    losses = [r["loss"] for r in fit.history]
+    if summary["steps"] != DENSE_FIT_STEPS or not np.isfinite(losses).all():
+        raise AssertionError(f"dense Trainer.fit: {summary}")
+    say("dense", f"Trainer.fit: {summary['steps']} steps, loss {losses[0]:.3f} -> {losses[-1]:.3f},"
+        f" {summary['triples_per_s']:.0f} positive triples/s including host sampling")
+
+    # 20 warm steps of each form, in turns: FusedDenseAdamW (B10) and the
+    # plain dense AdamW over every param (no kernel).
+    forms = {
+        "fused": [step, fit.params, fit.opt_state],
+        "plain": [trainer.build_train_step(module, adamw, None, None, device=device),
+                  {k: v.clone() for k, v in fit.params.items()}, None],
+    }
+    forms["plain"][2] = trainer.init_optimizer_state(adamw, forms["plain"][1])
+    timed: Dict[str, list] = {}
+    for name in ("fused", "plain", "plain", "fused"):
+        held = forms[name]
+        run = batches[2:2 + TIMED_STEPS] if name not in timed else batches[2 + TIMED_STEPS:]
+        reset_counts()
+        held[1], held[2], _ = held[0](held[1], held[2], batches[1])  # warm-up
+        sync(device)
+        if on_card:
+            expect_counts(f"dense {name} step", read_counts(),
+                          {"dense_adamw_update": 1} if name == "fused" else {})
+        t = time.perf_counter()
+        for b in run:
+            held[1], held[2], out = held[0](held[1], held[2], b)
+        sync(device)
+        timed.setdefault(name, []).append((time.perf_counter() - t) / len(run) * 1e3)
+    for name, ms in timed.items():
+        say("dense", f"{name} form ({'B10 on the table' if name == 'fused' else 'AdamW over every param'}):"
+            f" {ms[0]:.3f} / {ms[1]:.3f} ms per step over {TIMED_STEPS} warm steps,"
+            f" {positives / ms[0] * 1e3:.0f} / {positives / ms[1] * 1e3:.0f} positive triples/s;"
+            f" final loss {float(out['loss']):.3f}")
+    if profile:
+        profile_steps(step, *forms["fused"][1:], batches[2:12], "dense_step_trace.json")
+    return {"dense_adamw_update": {"launches": counts["dense_adamw_update"]}, "step_ms": timed}
+
+
+def profile_steps(step, params, state, batches, trace: str) -> None:
     """Device time by kernel and the device's busy share over a few steps
     (``torch.profiler``); the trace goes to chiprun_out/."""
     from torch.autograd import DeviceType
@@ -743,7 +1208,7 @@ def profile_steps(step, params, state, batches) -> None:
             say("profile", f"{us / 1e3 / len(batches):9.4f} ms per step  {key[:90]}")
     out = Path("chiprun_out")
     out.mkdir(exist_ok=True)
-    prof.export_chrome_trace(str(out / "train_step_trace.json"))
+    prof.export_chrome_trace(str(out / trace))
 
 
 def main() -> int:
@@ -764,15 +1229,22 @@ def main() -> int:
     say("build", f"{len(paths)} libraries (nvcc, host C++) in {time.perf_counter() - t:.1f}s")
 
     gen = torch.Generator("cuda").manual_seed(SEED)
+    profile = "--profile" in sys.argv[1:]
     results = check_kernels(gen)
     results.update(check_training_kernels(gen, 2 * N_ENTITY))
+    results.update(check_multi_and_gather(gen, N_ENTITY))
+    results["dense_adamw_update"] = check_dense_adamw(gen)
     for name, run in serving(gen).items():
         results[name].update(run)
     for name, run in autograd(gen).items():
         results[name].update(run)
-    train = training(gen, profile="--profile" in sys.argv[1:])
+    train = training(gen, profile=profile)
     step_ms = train.pop("step_ms")
     for name, run in train.items():
+        results[name].update(run)
+    dense = dense_training(gen, profile=profile)
+    dense_ms = dense.pop("step_ms")
+    for name, run in dense.items():
         results[name].update(run)
 
     kernels = []
@@ -790,9 +1262,15 @@ def main() -> int:
             entry["serving_ms_per_batch"] = r["serving_ms"]
         if "event_ms" in r:
             entry["event_ms"] = r["event_ms"]
+        if "ms_k2" in r:  # B8 at k = 2 beside the k = 3 numbers above
+            entry.update(k=3, ms_k2=r["ms_k2"], plain_ms_k2=r["plain_ms_k2"],
+                         library_ms_k2=r["library_ms_k2"], bound_ms_k2=r["bound_k2"][0],
+                         b3_launches_ms=r["b3_ms"], b3_launches_ms_k2=r["b3_ms_k2"])
         kernels.append(entry)
     print(json.dumps({"training_ms_per_step": step_ms,
                       "positives_per_step": SHARD_BS_TRAIN * BPS}), flush=True)
+    print(json.dumps({"dense_training_ms_per_step": dense_ms,
+                      "dense_positives_per_step": DENSE_SHARD_BS * DENSE_BPS}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

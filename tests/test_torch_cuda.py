@@ -9,8 +9,12 @@ Tolerances: distances as in ``test_torch_l1_kernels.py``. Gradients (B2/B6)
 are fp32 sums of n = N (da) or B (db) terms ``±w`` in another order on each
 side: recursive summation errs by at most ``(n − 1)·2^-24·Σ|w|`` on each, so
 the two differ by at most ``2·n·2^-24·Σ|w|`` per output. The row kernels
-(B3, B4) copy, or round after each multiply and add exactly as their plain
-versions do: equal bits.
+(B3, B4, B8, B9) copy, or round after each multiply and add exactly as their
+plain versions do: equal bits. B10 rounds each operation as its plain
+version does, in the same order: mu and nu to equal bits, the param to one
+fp32 ulp (two for the square root and the division on the card, whose
+library versions may differ in the last bit) and, for a bf16 param, to one
+bf16 ulp.
 """
 
 import numpy as np
@@ -25,7 +29,7 @@ from besskge_tpu_torch.negative_sampler import (
     PlaceholderNegativeSampler,
     RandomShardedNegativeSampler,
 )
-from besskge_tpu_torch.ops import distance, l1_kernels, row_kernels
+from besskge_tpu_torch.ops import adamw_kernels, distance, l1_kernels, row_kernels
 from besskge_tpu_torch.scoring import TransE
 from besskge_tpu_torch.sharding import PartitionedTripleSet, Sharding
 
@@ -137,14 +141,13 @@ def _runs(cuda, R, n, seed):
     return torch.sort(idx).values.to(torch.int32), gen
 
 
-@pytest.mark.parametrize("h", [1, 2])
+@pytest.mark.parametrize("h", [1, 2, 3, 5])
 @pytest.mark.parametrize("skip_dups", [False, True])
 @pytest.mark.parametrize("block", [False, True])
 def test_scatter_rows_matches_plain(cuda, h, skip_dups, block):
     n, D, R = 1000, 128, 301
     idx, gen = _runs(cuda, R, n - h, seed=h)
-    if h == 2:
-        idx = idx - idx % 2
+    idx = idx - idx % h  # h-major slices
     table = torch.randn(n, D, device=cuda, generator=gen)
     rows = torch.randn(h * R, D, device=cuda, generator=gen)
     first = torch.ones(R, dtype=torch.bool, device=cuda)
@@ -254,3 +257,124 @@ def test_training_step_on_the_card_matches_the_cpu(cuda, variant):
     for key in want_p:
         m = want_p[key].abs().max()
         torch.testing.assert_close(got_p[key].cpu(), want_p[key], rtol=2.0**-7, atol=2.0**-7 * m)
+
+
+def _first(idx):
+    first = torch.ones(idx.shape[0], dtype=torch.bool, device=idx.device)
+    first[1:] = idx[1:] != idx[:-1]
+    return first
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 4])
+@pytest.mark.parametrize("skip_dups", [False, True])
+def test_scatter_rows_multi_matches_plain(cuda, k, skip_dups):
+    """B8: k tables of different heights, ragged index lists with their own
+    duplicate runs, a (1, n, D) block among them."""
+    D = 128
+    tables, idxs, rows = [], [], []
+    for b in range(k):
+        n, R = 700 + 97 * b, 301 - 60 * b
+        idx, gen = _runs(cuda, R, n, seed=10 + b)
+        table = torch.randn(n, D, device=cuda, generator=gen)
+        r = torch.randn(R, D, device=cuda, generator=gen)
+        first = _first(idx)
+        if skip_dups:
+            r[~first] = float("nan")  # garbage in duplicate slots
+        else:
+            run_start = torch.cummax(torch.where(first, torch.arange(R, device=cuda), 0), 0).values
+            r = r[run_start]
+        tables.append(table[None] if b == 1 else table)
+        idxs.append(idx)
+        rows.append(r)
+    want = [t.clone() for t in tables]
+    row_kernels.scatter_rows_multi_plain(want, idxs, rows, skip_dups)
+    row_kernels.reset_launch_counts()
+    out = row_kernels.scatter_rows_multi(tables, idxs, rows, skip_dups)
+    torch.cuda.synchronize()
+    assert row_kernels.scatter_rows_multi.launches == 1
+    assert all(o is t for o, t in zip(out, tables))
+    for got, exp in zip(tables, want):
+        assert torch.equal(got, exp)
+
+
+def test_scatter_rows_multi_takes_int32_words(cuda):
+    """B8 copies 4-byte words: an int32 (packed-storage) table beside an fp32
+    one, rows 4 bytes wide that leave the 16-byte path."""
+    gen = torch.Generator(cuda).manual_seed(4)
+    packed = torch.randint(-2**31, 2**31 - 1, (50, 3), device=cuda, generator=gen,
+                           dtype=torch.int64).to(torch.int32)
+    moment = torch.randn(100, 3, device=cuda, generator=gen)
+    idxs = [torch.tensor([4, 9, 49], device=cuda), torch.tensor([0, 99], device=cuda)]
+    rows = [torch.randint(0, 2**30, (3, 3), device=cuda, generator=gen, dtype=torch.int64)
+            .to(torch.int32), torch.randn(2, 3, device=cuda, generator=gen)]
+    want = [packed.clone(), moment.clone()]
+    row_kernels.scatter_rows_multi_plain(want, idxs, rows)
+    row_kernels.scatter_rows_multi([packed, moment], idxs, rows)
+    torch.cuda.synchronize()
+    assert torch.equal(packed, want[0]) and torch.equal(moment, want[1])
+
+
+@pytest.mark.parametrize("h", [1, 2, 3])
+@pytest.mark.parametrize("skip_dups", [False, True])
+@pytest.mark.parametrize("block", [False, True])
+def test_gather_rows_matches_plain(cuda, h, skip_dups, block):
+    """B9: every slot, or the first slot of each run under skip_dups."""
+    n, D, R = 1000, 128, 333
+    idx, gen = _runs(cuda, R, n - h, seed=20 + h)
+    idx = idx - idx % h
+    table = torch.randn(n, D, device=cuda, generator=gen)
+    row_kernels.reset_launch_counts()
+    got = row_kernels.gather_rows(table[None] if block else table, idx, h, skip_dups)
+    torch.cuda.synchronize()
+    assert row_kernels.gather_rows.launches == 1
+    want = row_kernels.gather_rows_plain(table, idx, h, skip_dups)
+    keep = (_first(idx) if skip_dups else torch.ones_like(idx, dtype=torch.bool))
+    keep = keep.repeat_interleave(h)
+    assert got.shape == (h * R, D)
+    assert torch.equal(got[keep], want[keep])
+
+
+def _adamw_inputs(cuda, shape, param_dtype, grad_dtype, seed):
+    gen = torch.Generator(cuda).manual_seed(seed)
+    p = torch.randn(shape, device=cuda, generator=gen).to(param_dtype)
+    mu = torch.randn(shape, device=cuda, generator=gen) * 0.1
+    nu = (torch.randn(shape, device=cuda, generator=gen) * 0.1) ** 2
+    g = torch.randn(shape, device=cuda, generator=gen).to(grad_dtype)
+    return p, mu, nu, g
+
+
+@pytest.mark.parametrize("shape", [(512, 128), (701, 128), (93, 7)])
+@pytest.mark.parametrize("param_dtype,grad_dtype", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.float32),
+    (torch.bfloat16, torch.bfloat16), (torch.float32, torch.bfloat16),
+])
+@pytest.mark.parametrize("lr_tensor", [False, True])
+def test_dense_adamw_matches_plain(cuda, shape, param_dtype, grad_dtype, lr_tensor):
+    """B10 against its plain version: a 16-byte-aligned table, a ragged
+    one whose tail is not a multiple of four, several dtypes, and the lr
+    read from device memory."""
+    p, mu, nu, g = _adamw_inputs(cuda, shape, param_dtype, grad_dtype, seed=shape[0])
+    count = torch.tensor(3, dtype=torch.int32, device=cuda)
+    lr = torch.tensor(1e-2, device=cuda) if lr_tensor else 1e-2
+    want = [t.clone() for t in (p, mu, nu)]
+    adamw_kernels.dense_adamw_update_plain(*want, g, count, lr, 0.9, 0.999, 1e-8, 0.01)
+    adamw_kernels.reset_launch_counts()
+    adamw_kernels.dense_adamw_update(p, mu, nu, g, count, lr, 0.9, 0.999, 1e-8, 0.01)
+    torch.cuda.synchronize()
+    assert adamw_kernels.dense_adamw_update.launches == 1
+    assert torch.equal(mu, want[1]) and torch.equal(nu, want[2])
+    ulp = 2.0**-7 if param_dtype == torch.bfloat16 else 2.0**-22
+    assert ((p.float() - want[0].float()).abs() <= ulp * want[0].float().abs() + 1e-30).all()
+
+
+def test_dense_adamw_unaligned_views(cuda):
+    """Views that start off a 16-byte boundary take the one-element path."""
+    p, mu, nu, g = _adamw_inputs(cuda, (4 * 128 + 1,), torch.float32, torch.float32, seed=7)
+    views = [t[1:] for t in (p, mu, nu, g)]
+    count = torch.tensor(1, dtype=torch.int32, device=cuda)
+    want = [t.clone() for t in views[:3]]
+    adamw_kernels.dense_adamw_update_plain(*want, views[3], count, 5e-3)
+    adamw_kernels.dense_adamw_update(*views, count, 5e-3)
+    torch.cuda.synchronize()
+    for got, exp in zip(views[:3], want):
+        assert ((got - exp).abs() <= 2.0**-22 * exp.abs() + 1e-30).all()

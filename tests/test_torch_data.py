@@ -171,5 +171,8 @@ def test_take_rows_plain_and_unported_layouts():
     assert torch.equal(port_packed.take_rows(table, pair_idx, 3), table[2 * pair_idx])
     with pytest.raises(NotImplementedError):
         port_packed.take_contiguous_rows(table, 0, 2, 3)
-    with pytest.raises(NotImplementedError, match="A9"):
-        port_packed.take_rows(table, idx, 2)  # (3N, D): trebled/tripled
+    # (3N, D): treble-major interleaved AdamW, param row i at physical row 3i.
+    treb_idx = torch.tensor([[1, 0], [1, 1]])
+    assert torch.equal(port_packed.take_rows(table, treb_idx, 2), table[3 * treb_idx])
+    with pytest.raises(NotImplementedError):
+        port_packed.take_contiguous_rows(table, 0, 2, 2)

@@ -23,7 +23,9 @@ def _port_modules():
 
 def test_port_imports_without_jax():
     modules = ["besskge_tpu_torch", *_port_modules()]
-    for name in ("bess", "native", "trainer", "optim", "loss", "ops.l1_kernels", "ops.row_kernels"):
+    for name in ("bess", "native", "trainer", "optim", "loss", "scoring", "utils", "embedding",
+                 "convert", "ops.distance", "ops.l1_kernels", "ops.row_kernels",
+                 "ops.adamw_kernels"):
         assert f"besskge_tpu_torch.{name}" in modules, name
     code = (
         "import importlib, sys\n"

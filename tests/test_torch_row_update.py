@@ -199,17 +199,25 @@ def test_row_sgdm_update_rows_matches_jax(variant, schedule):
 
 
 def test_unported_row_sgdm_forms_raise():
-    with pytest.raises(NotImplementedError, match="B8"):
-        port_optim.RowSGDM(0.1, momentum=0.9)
-    with pytest.raises(NotImplementedError, match="B9"):
-        port_optim.RowSGDM(0.1, momentum=0.9, interleaved=True, fused_variant="pallas_gather")
+    # The separate-buffer form (B8) and the "pallas_gather" variant (B9) are
+    # ported; 16-bit tables (A9), unknown variants and inconsistent layouts
+    # raise.
+    row = port_optim.RowSGDM(0.1, momentum=0.9)
+    assert set(row.init(torch.zeros(10, 4))) == {"m", "count"}
+    port_optim.RowSGDM(0.1, momentum=0.9, interleaved=True, fused_variant="pallas_gather")
     with pytest.raises(ValueError):
         port_optim.RowSGDM(0.1, momentum=0.9, interleaved=True, fused_variant="other")
+    with pytest.raises(ValueError):
+        port_optim.RowSGDM(0.1, momentum=0.9, fused_variant="fused")
+    with pytest.raises(ValueError):
+        port_optim.RowSGDM(0.1, momentum=0.0, interleaved=True).init(torch.zeros(8, 4))
     row = port_optim.RowSGDM(0.1, momentum=0.9, interleaved=True)
     with pytest.raises(ValueError):
         row.init(torch.zeros(10, 4), n_logical=4)
     with pytest.raises(NotImplementedError, match="A9"):
         row.init(torch.zeros(8, 4, dtype=torch.bfloat16), n_logical=4)
+    with pytest.raises(NotImplementedError, match="A9"):
+        port_optim.RowSGDM(0.1).init(torch.zeros(8, 4, dtype=torch.bfloat16))
 
 
 @pytest.mark.parametrize("momentum", [0.0, 0.9])

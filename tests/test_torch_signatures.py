@@ -1,0 +1,119 @@
+"""The port's public signatures keep the JAX package's parameter order.
+
+A call written for the JAX package, with positional arguments, must mean the
+same in the port: for every public class and function that a module of the
+port shares with the same module of the JAX package, the port's parameter
+list and the reference's agree on every position both have. The port may
+stop early (parameters not ported yet) or add its own at the end (``device``,
+``generator``), never in between. Dataclasses are compared by their fields,
+classes by ``__init__`` and by each public method they both define.
+"""
+
+import dataclasses
+import importlib
+import inspect
+import pkgutil
+
+import pytest
+
+import besskge_tpu_torch
+from besskge_tpu import batch_sampler as jax_bs
+from besskge_tpu import optim as jax_optim
+from besskge_tpu import trainer as jax_trainer
+from besskge_tpu_torch import batch_sampler as port_bs
+from besskge_tpu_torch import optim as port_optim
+from besskge_tpu_torch import trainer as port_trainer
+
+
+def _params(obj):
+    """Parameter names of a function, of a class's ``__init__``, or a
+    dataclass's fields; ``None`` when there is no signature."""
+    if isinstance(obj, type) and dataclasses.is_dataclass(obj):
+        return [f.name for f in dataclasses.fields(obj)]
+    try:
+        sig = inspect.signature(obj.__init__ if isinstance(obj, type) else obj)
+    except (TypeError, ValueError):
+        return None
+    return [p.name for p in sig.parameters.values()
+            if p.name != "self" and p.kind not in (p.VAR_POSITIONAL, p.VAR_KEYWORD)]
+
+
+def _shared():
+    """(name, port object, JAX object) of every public name a port module
+    shares with its JAX counterpart, and of the public methods both classes
+    define."""
+    out = []
+    for info in pkgutil.walk_packages(besskge_tpu_torch.__path__, "besskge_tpu_torch."):
+        try:
+            jax_mod = importlib.import_module(info.name.replace("besskge_tpu_torch", "besskge_tpu", 1))
+        except ModuleNotFoundError:
+            continue  # a module of the port alone (_build, convert, ops.*_kernels)
+        mod = importlib.import_module(info.name)
+        for name in getattr(mod, "__all__", []):
+            if not hasattr(jax_mod, name):
+                continue
+            port_obj, jax_obj = getattr(mod, name), getattr(jax_mod, name)
+            if not callable(port_obj):
+                continue  # a constant
+            out.append((f"{info.name}.{name}", port_obj, jax_obj))
+            if isinstance(port_obj, type):
+                for attr, val in vars(port_obj).items():
+                    if not attr.startswith("_") and callable(val) and hasattr(jax_obj, attr):
+                        out.append((f"{info.name}.{name}.{attr}", val, getattr(jax_obj, attr)))
+    return out
+
+
+SHARED = _shared()
+
+
+def test_the_scan_sees_the_ported_modules():
+    names = {name for name, _, _ in SHARED}
+    for must in ("besskge_tpu_torch.optim.RowSGDM", "besskge_tpu_torch.optim.RowAdamW",
+                 "besskge_tpu_torch.optim.FusedDenseAdamW", "besskge_tpu_torch.scoring.RotatE",
+                 "besskge_tpu_torch.loss.LogSigmoidLoss", "besskge_tpu_torch.trainer.Trainer",
+                 "besskge_tpu_torch.trainer.build_train_step",
+                 "besskge_tpu_torch.batch_sampler.ShardedBatchSampler",
+                 "besskge_tpu_torch.bess.BessKGE.forward"):
+        assert must in names, must
+    assert len(SHARED) > 60
+
+
+@pytest.mark.parametrize("name,port_obj,jax_obj", SHARED, ids=[n for n, _, _ in SHARED])
+def test_shared_signatures_are_prefix_compatible(name, port_obj, jax_obj):
+    port, ref = _params(port_obj), _params(jax_obj)
+    assert port is not None and ref is not None, name
+    n = min(len(port), len(ref))
+    assert port[:n] == ref[:n], f"{name}: port {port}, reference {ref}"
+
+
+def test_the_four_repaired_signatures():
+    """C1: the positions that had shifted keep the reference's names."""
+    assert _params(port_optim.RowSGDM)[:6] == _params(jax_optim.RowSGDM) == [
+        "learning_rate", "momentum", "weight_decay", "stochastic_rounding", "interleaved",
+        "fused_variant"]
+    sampler = _params(port_bs.ShardedBatchSampler)
+    assert sampler[5:8] == ["hrt_freq_weighting", "weight_smoothing", "duplicate_batch"]
+    assert sampler == _params(jax_bs.ShardedBatchSampler)
+    assert _params(port_trainer.Trainer)[5] == "seed" == _params(jax_trainer.Trainer)[5]
+    step = _params(port_trainer.build_train_step)
+    assert step[4] == "donate" and step[:5] == _params(jax_trainer.build_train_step)
+    assert step[5:] == ["device"]
+
+
+def test_unported_sampler_options_raise():
+    fields = dict(partitioned_triple_set=None, negative_sampler=None, shard_bs=2,
+                  batches_per_step=1, seed=0)
+    for key, value in (("hrt_freq_weighting", True), ("weight_smoothing", 0.5),
+                       ("duplicate_batch", True)):
+        with pytest.raises(NotImplementedError, match="A8"):
+            port_bs.RandomShardedBatchSampler(**fields, **{key: value})
+
+
+def test_sixteen_bit_tables_raise_for_row_optimizers():
+    import torch
+
+    table = torch.zeros(8, 4, dtype=torch.bfloat16)
+    for opt in (port_optim.RowSGDM(0.1, 0.9, 0.0, False), port_optim.RowAdamW(0.1),
+                port_optim.RowAdamW(0.1, interleaved=True)):
+        with pytest.raises(NotImplementedError, match="A9"):
+            opt.init(table)

@@ -376,8 +376,13 @@ def test_unported_training_paths_raise():
     row = port_optim.RowSGDM(LR, momentum=0.9, interleaved=True)
     with pytest.raises(NotImplementedError, match="A15"):
         port_trainer.build_train_step(module, sgd, "mesh", row, device="cpu")
-    with pytest.raises(NotImplementedError, match="A12"):
-        port_trainer.build_train_step(module, sgd, None, None, device="cpu")
+    # The dense step is ported (tests/test_torch_dense_train.py); a packed
+    # table cannot take its dense gradient.
+    dense = port_trainer.build_train_step(module, sgd, None, None, device="cpu")
+    plain = fn.initial_params(device="cpu")
+    packed = dict(plain, entity_embedding=plain["entity_embedding"].view(torch.int32))
+    with pytest.raises(ValueError, match="packed"):
+        dense(packed, port_trainer.init_optimizer_state(sgd, plain), _batches(sampler, 1)[0])
     trainer = port_trainer.Trainer(module, sampler, sgd, entity_optimizer=row, device="cpu")
     with pytest.raises(NotImplementedError, match="A10"):
         trainer.fit(checkpoint_path="ckpt.npz")
