@@ -7,7 +7,9 @@ plain C interface under ``build/besskge_tpu_torch/`` at the root of the
 checkout (``.gitignore`` lists ``build/``). A library's name carries a hash of
 its source and of the flags, so an edited source is rebuilt and an unchanged
 one is loaded as it is. Sources that need building are compiled in parallel,
-one compiler process each, all started together.
+one compiler process each, all started together. The compiler's output is
+kept beside each library (``build_log``): for a CUDA source it holds
+``ptxas``'s registers, shared memory and spills of every kernel.
 """
 
 from __future__ import annotations
@@ -23,18 +25,19 @@ from pathlib import Path
 from typing import Dict, Iterable, Optional
 
 __all__ = [
-    "BUILD_DIR", "CUDA_SOURCES", "HOST_FLAGS", "NVCC_FLAGS", "SOURCES", "build", "check_launch",
-    "find_nvcc", "load_library",
+    "BUILD_DIR", "CUDA_SOURCES", "HOST_FLAGS", "NVCC_FLAGS", "SOURCES", "build", "build_log",
+    "check_launch", "find_nvcc", "load_library",
 ]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _REPO_CSRC = Path(__file__).resolve().parent.parent / "csrc"
 #: Where the shared libraries go: ``build/besskge_tpu_torch/`` beside the package.
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "besskge_tpu_torch"
-#: Hopper only: ``sm_90a`` keeps wgmma/setmaxnreg available to later kernels.
+#: Hopper only: ``sm_90a`` keeps wgmma/setmaxnreg available to later kernels;
+#: ``-Xptxas -v`` reports each kernel's registers, shared memory and spills.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 #: Host C++ flags: position-independent, optimised, no CPU-specific code.
 HOST_FLAGS = ("-std=c++17", "-O3", "-shared", "-fPIC")
@@ -121,6 +124,7 @@ def build(names: Iterable[str] = tuple(SOURCES), nvcc: Optional[str] = None) -> 
     for name, tmp, proc in procs:
         log, _ = proc.communicate()
         if proc.returncode == 0:
+            paths[name].with_suffix(".log").write_text(log)
             os.replace(tmp, paths[name])
         else:
             tmp.unlink(missing_ok=True)
@@ -128,6 +132,13 @@ def build(names: Iterable[str] = tuple(SOURCES), nvcc: Optional[str] = None) -> 
     if failed:
         raise RuntimeError("native build failed for " + "\n".join(failed))
     return paths
+
+
+def build_log(name: str) -> str:
+    """The compiler's output from building ``SOURCES[name]`` as it is now
+    (empty when the library has not been built here)."""
+    log = library_path(name).with_suffix(".log")
+    return log.read_text() if log.is_file() else ""
 
 
 def load_library(name: str, nvcc: Optional[str] = None) -> ctypes.CDLL:

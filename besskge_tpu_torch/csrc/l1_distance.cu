@@ -28,18 +28,9 @@
 // pass and no atomics. Ragged B, N and d are masked (zero padding adds
 // |0 - 0| = 0 to a sum; padded rows and columns are never stored).
 //
-// Gradients (B2/B6): one kernel computes either output. A block owns 8 rows of
-// the output ("own" rows: rows of a for da, rows of b for db) and one 128-wide
-// slice of the depth, one thread per column k, and walks over every row of the
-// other operand ("stream" rows) in tiles of 32 staged in shared memory together
-// with the matching 8 x 32 tile of w. db needs w transposed: the tile is read
-// along j (coalesced) and stored stream-major, so both outputs read it the same
-// way. Each thread keeps its 8 own values and 8 sums in registers. Every
-// (own, stream, k) term is a subtract, a sign (two selects) and an FMA on the
-// CUDA cores, summed over stream rows in order: no atomics, so a result does
-// not depend on scheduling. Inputs are widened to fp32 on load before the
-// subtract, because a bf16 subtract can round a small difference to 0 and flip
-// the sign. da and db are two launches, like the two pallas_calls.
+// Gradients (B2/B6): one launch for both outputs, register-tiled, with the
+// stream tiles staged through a cp.async ring; see the section above
+// l1_grads_kernel below.
 //
 // Every entry point launches on the caller's stream, allocates nothing and
 // returns cudaGetLastError() so that a refused launch reaches the caller.
@@ -187,90 +178,317 @@ dim3 grid_for(int B, int N, int G = 1) {
   return dim3((N + kTileCols - 1) / kTileCols, (B + kTileRows - 1) / kTileRows, G);
 }
 
-constexpr int kGradOwn = 8;        // output rows per block
-constexpr int kGradStream = 32;    // streamed rows per shared-memory tile
-constexpr int kGradThreads = 128;  // one thread per depth column of the slice
+// ---------------------------------------------------------------------------
+// Gradients (B2/B6): one launch computes both outputs. The grid holds the da
+// blocks, then the db blocks; blockIdx.x selects the role. In either role a
+// block owns TO rows of the output ("own" rows: rows of a for da, rows of b
+// for db) and one kGradDepth-wide slice of the depth, and walks over every row
+// of the other operand ("stream" rows) in tiles of kGradStream, in order:
+//   out[o, k] = sum_s w(o, s) * sign(x[o, k] - y[s, k]),
+// with (x, y) = (a, b) and w(o, s) = w[o, s] for da, and (x, y) = (b, a) and
+// w(o, s) = w[s, o] for db (sign(b - a) = -sign(a - b) exactly in fp32).
+//
+// Bound: each (i, j, k) term needs at least 4 fp32-pipe instructions (a
+// subtract, the sign, a multiply-add into da and one into db), 0.009 ms at
+// the training shape (8 x 256 x 288 x 128). This design computes each term
+// once for da and once for db (no atomics, no reduction across threads), so
+// its own floor is about twice that.
+//
+// Design, against what held the two-launch kernel back (8 own rows x 1 column
+// per thread, synchronous staging, 8 warps per SM):
+//   * Register tiling: a thread of the 128 (8 row groups x 16 column pairs)
+//     holds RO own rows x 2 depth columns of x and of the sums. For each group
+//     of four stream rows it reads its 2 x 4 values of y (one 4-byte bf16 pair
+//     or 8-byte fp32 pair per row) and its RO x 4 weights (RO=4: four 16-byte
+//     reads) from shared memory, and each read feeds RO or 2 terms.
+//   * The sign-multiply is a copy of w's magnitude under t's sign bit (t =
+//     x - y in fp32: one lop3) added under the predicate t != 0 (setp and a
+//     predicated add): 4 instructions per term where the old kernel took 6.
+//     Multiplying by +-1 is exact and a +-0 term leaves a sum unchanged, so
+//     the value is that of w * sign(t).
+//   * Asynchronous staging: stream tiles of y (in the input dtype; widened to
+//     fp32 after the shared read and before the subtract, because a bf16
+//     subtract can round a small difference to 0 and flip the sign) and of w
+//     go through a ring of kGradStages stages in shared memory with 16-byte
+//     cp.async copies, two tiles ahead of the arithmetic. The da tile of w
+//     is own-major (rows of w are contiguous along the stream axis), the db
+//     tile stream-major (contiguous along the own axis): both copy whole
+//     16-byte runs. Shapes whose rows are not 16-byte runs (N % 4, or d *
+//     sizeof(T) % 16, or an unaligned pointer) stage with plain loads.
+//   * The grid: TO = 32 own rows (RO = 4) and 32-column depth slices give
+//     544 blocks of 4 warps at the training shape, all resident at once (4-5
+//     per SM: the kernel is compiled for 5). Where that grid would hold fewer than two blocks per SM (one
+//     group, B6), TO = 8 (RO = 1) quadruples it: 272 blocks at 256 x 288.
+// Every (own, depth) sum runs over the stream rows in one fixed order in one
+// thread: no atomics, so repeated calls give identical bits.
 
-__device__ __forceinline__ float sign_f32(float v) {
-  return v > 0.f ? 1.f : (v < 0.f ? -1.f : 0.f);
+constexpr int kGradStream = 32;   // stream rows per stage
+constexpr int kGradDepth = 32;    // depth columns per block
+constexpr int kGradThreads = 128;  // 8 row groups x 16 column pairs
+constexpr int kGradStages = 3;
+// Resident blocks per SM the kernel is compiled for (at most 102 registers a
+// thread): 544 blocks at the training shape then run in one wave on 132 SMs.
+constexpr int kGradBlocksPerSM = 5;
+
+template <typename T, int RO>
+struct GradTile {
+  static constexpr int kOwn = 8 * RO;                // own rows per block
+  static constexpr int kWPitch = kGradStream + 4;    // own-major w row, floats
+  static constexpr int kYBytes = kGradStream * kGradDepth * sizeof(T);
+  static constexpr int kWFloats = kOwn * kWPitch;    // >= kGradStream * kOwn
+  static constexpr int kStageBytes = kYBytes + kWFloats * 4;
+};
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// out[o, k] = sum_s w(o, s) * sign(x[o, k] - y[s, k]) over the n_stream rows of y,
-// for the block's kGradOwn rows o. w(o, s) = w[o * ld_own + s * ld_stream] of the
-// group's (B, N) cotangent: (ld_own, ld_stream) = (N, 1) for da (x = a, y = b) and
-// (1, N) for db (x = b, y = a; sign(b - a) = -sign(a - b) exactly in fp32).
-// blockIdx.y is the group.
-template <typename T>
-__global__ void __launch_bounds__(kGradThreads)
-    l1_grad_kernel(const T* __restrict__ x, const T* __restrict__ y,
-                   const float* __restrict__ w, float* __restrict__ out, int n_own,
-                   int n_stream, int d, int ld_own, int ld_stream) {
-  __shared__ __align__(16) float ys[kGradStream][kGradThreads];
-  __shared__ __align__(16) float ws[kGradStream][kGradOwn];
-  const long long grp = blockIdx.y;
-  x += grp * n_own * d;
-  y += grp * n_stream * d;
-  w += grp * n_own * n_stream;
-  out += grp * n_own * d;
-  const int o0 = blockIdx.x * kGradOwn;
-  const int tid = threadIdx.x;
-  const bool transposed = ld_own == 1;
+// acc + w * sign(t), sign(0) = 0.
+__device__ __forceinline__ float add_signed(float acc, float w, float t) {
+  const float c = __int_as_float(__float_as_int(w) ^ (__float_as_int(t) & 0x80000000));
+  asm("{\n .reg .pred p;\n setp.ne.f32 p, %1, 0f00000000;\n @p add.rn.f32 %0, %0, %2;\n}\n"
+      : "+f"(acc)
+      : "f"(t), "f"(c));
+  return acc;
+}
 
-  for (int k0 = 0; k0 < d; k0 += kGradThreads) {
-    const int k = k0 + tid;
-    float xo[kGradOwn], acc[kGradOwn];
-#pragma unroll
-    for (int o = 0; o < kGradOwn; ++o) {
-      xo[o] = (o0 + o < n_own && k < d) ? to_f32(x[(long long)(o0 + o) * d + k]) : 0.f;
-      acc[o] = 0.f;
+// Two consecutive values of y widened to fp32.
+__device__ __forceinline__ float2 load_pair(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 load_pair(const __nv_bfloat16* p) {
+  const unsigned u = *reinterpret_cast<const unsigned*>(p);
+  return make_float2(__uint_as_float(u << 16), __uint_as_float(u & 0xFFFF0000u));
+}
+
+// One stream tile (rows s0 ...) of y and w into stage buffers ys and ws.
+template <typename T, int RO, bool ALIGNED, bool OWN_MAJOR>
+__device__ __forceinline__ void stage_tile(const T* __restrict__ y, const float* __restrict__ w,
+                                           T* ys, float* ws, int o0, int s0, int k0, int n_own,
+                                           int n_stream, int d, int ld_w) {
+  using Tile = GradTile<T, RO>;
+  const int tid = threadIdx.x;
+  if constexpr (ALIGNED) {
+    constexpr int kPerRow = kGradDepth * sizeof(T) / 16;  // 16-byte runs per y row
+    constexpr int kVals = 16 / sizeof(T);
+    for (int c = tid; c < kGradStream * kPerRow; c += kGradThreads) {
+      const int r = c / kPerRow, k = (c % kPerRow) * kVals;
+      const bool ok = s0 + r < n_stream && k0 + k < d;
+      cp_async16(ys + r * kGradDepth + k, ok ? y + (long long)(s0 + r) * d + k0 + k : y, ok);
     }
-    for (int s0 = 0; s0 < n_stream; s0 += kGradStream) {
-      __syncthreads();  // the previous tile is consumed
-      // Fully unrolled: all 32 loads of a thread are in flight at once (with
-      // 4 warps per block, nothing else hides their latency).
-#pragma unroll
-      for (int s = 0; s < kGradStream; ++s) {
-        ys[s][tid] = (s0 + s < n_stream && k < d) ? to_f32(y[(long long)(s0 + s) * d + k]) : 0.f;
+    if constexpr (OWN_MAJOR) {  // ws[o][s]: rows of w run along the stream axis
+      constexpr int kRuns = kGradStream / 4;
+      for (int c = tid; c < Tile::kOwn * kRuns; c += kGradThreads) {
+        const int o = c / kRuns, s = (c % kRuns) * 4;
+        const bool ok = o0 + o < n_own && s0 + s < n_stream;
+        cp_async16(ws + o * Tile::kWPitch + s,
+                   ok ? w + (long long)(o0 + o) * ld_w + s0 + s : w, ok);
       }
-      for (int e = tid; e < kGradStream * kGradOwn; e += kGradThreads) {
-        // Neighbouring threads read neighbouring addresses of w in both layouts.
-        const int o = transposed ? e % kGradOwn : e / kGradStream;
-        const int s = transposed ? e / kGradOwn : e % kGradStream;
-        ws[s][o] = (o0 + o < n_own && s0 + s < n_stream)
-                       ? w[(long long)(o0 + o) * ld_own + (long long)(s0 + s) * ld_stream]
-                       : 0.f;  // padding rows weigh 0
-      }
-      __syncthreads();
-#pragma unroll 8
-      for (int s = 0; s < kGradStream; ++s) {
-        const float yv = ys[s][tid];
-        const float4 w0 = *reinterpret_cast<const float4*>(&ws[s][0]);
-        const float4 w1 = *reinterpret_cast<const float4*>(&ws[s][4]);
-        const float wv[kGradOwn] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
-#pragma unroll
-        for (int o = 0; o < kGradOwn; ++o) acc[o] = fmaf(wv[o], sign_f32(xo[o] - yv), acc[o]);
+    } else {  // ws[s][o]: rows of w run along the own axis
+      constexpr int kRuns = Tile::kOwn / 4;
+      for (int c = tid; c < kGradStream * kRuns; c += kGradThreads) {
+        const int s = c / kRuns, o = (c % kRuns) * 4;
+        const bool ok = o0 + o < n_own && s0 + s < n_stream;
+        cp_async16(ws + s * Tile::kOwn + o,
+                   ok ? w + (long long)(s0 + s) * ld_w + o0 + o : w, ok);
       }
     }
-    if (k < d) {
-#pragma unroll
-      for (int o = 0; o < kGradOwn; ++o)
-        if (o0 + o < n_own) out[(long long)(o0 + o) * d + k] = acc[o];
+  } else {
+    for (int e = tid; e < kGradStream * kGradDepth; e += kGradThreads) {
+      const int r = e / kGradDepth, k = e % kGradDepth;
+      ys[e] = (s0 + r < n_stream && k0 + k < d) ? y[(long long)(s0 + r) * d + k0 + k] : T(0.f);
+    }
+    for (int e = tid; e < kGradStream * Tile::kOwn; e += kGradThreads) {
+      // Neighbouring threads read neighbouring addresses of w in both layouts.
+      const int o = OWN_MAJOR ? e / kGradStream : e % Tile::kOwn;
+      const int s = OWN_MAJOR ? e % kGradStream : e / Tile::kOwn;
+      const bool ok = o0 + o < n_own && s0 + s < n_stream;
+      const float v = ok ? (OWN_MAJOR ? w[(long long)(o0 + o) * ld_w + s0 + s]
+                                      : w[(long long)(s0 + s) * ld_w + o0 + o])
+                         : 0.f;  // padding rows weigh 0
+      ws[OWN_MAJOR ? o * Tile::kWPitch + s : s * Tile::kOwn + o] = v;
     }
   }
 }
 
+// One block's (own tile, depth slice) of one role. ld_w: row stride of the
+// group's (B, N) cotangent, N in both roles.
+template <typename T, int RO, bool ALIGNED, bool OWN_MAJOR>
+__device__ __forceinline__ void grad_tile(const T* __restrict__ x, const T* __restrict__ y,
+                                          const float* __restrict__ w, float* __restrict__ out,
+                                          int n_own, int n_stream, int d, int o0, int k0,
+                                          unsigned char* smem) {
+  using Tile = GradTile<T, RO>;
+  const int tr = threadIdx.x >> 4;  // row group: own rows tr * RO ...
+  const int tc = threadIdx.x & 15;  // column pair: depth k0 + 2 tc, +1
+  const int ld_w = OWN_MAJOR ? n_stream : n_own;
+  float xo[RO][2], acc[RO][2];
+#pragma unroll
+  for (int r = 0; r < RO; ++r)
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const int o = o0 + tr * RO + r, k = k0 + 2 * tc + c;
+      xo[r][c] = (o < n_own && k < d) ? to_f32(x[(long long)o * d + k]) : 0.f;
+      acc[r][c] = 0.f;
+    }
+  auto ys_of = [&](int st) { return reinterpret_cast<T*>(smem + st * Tile::kStageBytes); };
+  auto ws_of = [&](int st) {
+    return reinterpret_cast<float*>(smem + st * Tile::kStageBytes + Tile::kYBytes);
+  };
+
+  const int n_tiles = (n_stream + kGradStream - 1) / kGradStream;
+#pragma unroll
+  for (int t = 0; t < kGradStages - 1; ++t) {
+    if (t < n_tiles)
+      stage_tile<T, RO, ALIGNED, OWN_MAJOR>(y, w, ys_of(t), ws_of(t), o0, t * kGradStream, k0,
+                                            n_own, n_stream, d, ld_w);
+    cp_async_commit();
+  }
+  for (int t = 0; t < n_tiles; ++t) {
+    cp_async_wait<kGradStages - 2>();  // this thread's copies of tile t have landed
+    __syncthreads();                   // everyone's have, and tile t - 1 is consumed
+    const int next = t + kGradStages - 1;
+    if (next < n_tiles)
+      stage_tile<T, RO, ALIGNED, OWN_MAJOR>(y, w, ys_of(next % kGradStages),
+                                            ws_of(next % kGradStages), o0, next * kGradStream,
+                                            k0, n_own, n_stream, d, ld_w);
+    cp_async_commit();
+    const T* ys = ys_of(t % kGradStages);
+    const float* ws = ws_of(t % kGradStages);
+#pragma unroll 2
+    for (int s = 0; s < kGradStream; s += 4) {
+      float2 yv[4];
+      float wv[RO][4];  // [own row][stream row]
+#pragma unroll
+      for (int q = 0; q < 4; ++q) yv[q] = load_pair(ys + (s + q) * kGradDepth + 2 * tc);
+      if constexpr (OWN_MAJOR) {
+#pragma unroll
+        for (int r = 0; r < RO; ++r) {
+          const float4 v =
+              *reinterpret_cast<const float4*>(ws + (tr * RO + r) * Tile::kWPitch + s);
+          wv[r][0] = v.x;
+          wv[r][1] = v.y;
+          wv[r][2] = v.z;
+          wv[r][3] = v.w;
+        }
+      } else if constexpr (RO == 4) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const float4 v = *reinterpret_cast<const float4*>(ws + (s + q) * Tile::kOwn + tr * 4);
+          wv[0][q] = v.x;
+          wv[1][q] = v.y;
+          wv[2][q] = v.z;
+          wv[3][q] = v.w;
+        }
+      } else {
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+#pragma unroll
+          for (int r = 0; r < RO; ++r) wv[r][q] = ws[(s + q) * Tile::kOwn + tr * RO + r];
+      }
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+#pragma unroll
+        for (int r = 0; r < RO; ++r) {
+          acc[r][0] = add_signed(acc[r][0], wv[r][q], __fsub_rn(xo[r][0], yv[q].x));
+          acc[r][1] = add_signed(acc[r][1], wv[r][q], __fsub_rn(xo[r][1], yv[q].y));
+        }
+    }
+  }
+  cp_async_wait<0>();
+#pragma unroll
+  for (int r = 0; r < RO; ++r)
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const int o = o0 + tr * RO + r, k = k0 + 2 * tc + c;
+      if (o < n_own && k < d) out[(long long)o * d + k] = acc[r][c];
+    }
+}
+
+// a (G, B, d), b (G, N, d), w (G, B, N); da (G, B, d), db (G, N, d). Blocks
+// [0, blocks_a) compute da, the rest db; each decodes (group, own tile, depth
+// slice) from its index, the depth slice fastest.
+template <typename T, int RO, bool ALIGNED>
+__global__ void __launch_bounds__(kGradThreads, kGradBlocksPerSM)
+    l1_grads_kernel(const T* __restrict__ a, const T* __restrict__ b,
+                    const float* __restrict__ w, float* __restrict__ da,
+                    float* __restrict__ db, int B, int N, int d, int blocks_a) {
+  using Tile = GradTile<T, RO>;
+  __shared__ __align__(16) unsigned char smem[kGradStages * Tile::kStageBytes];
+  const bool role_a = static_cast<int>(blockIdx.x) < blocks_a;
+  int idx = role_a ? blockIdx.x : blockIdx.x - blocks_a;
+  const int slices = (d + kGradDepth - 1) / kGradDepth;
+  const int n_own = role_a ? B : N;
+  const int own_tiles = (n_own + Tile::kOwn - 1) / Tile::kOwn;
+  const int k0 = (idx % slices) * kGradDepth;
+  idx /= slices;
+  const int o0 = (idx % own_tiles) * Tile::kOwn;
+  const long long grp = idx / own_tiles;
+  a += grp * B * d;
+  b += grp * N * d;
+  w += grp * B * N;
+  if (role_a)
+    grad_tile<T, RO, ALIGNED, true>(a, b, w, da + grp * B * d, B, N, d, o0, k0, smem);
+  else
+    grad_tile<T, RO, ALIGNED, false>(b, a, w, db + grp * N * d, N, B, d, o0, k0, smem);
+}
+
+int sm_count() {
+  static int sms = 0;
+  if (sms == 0) {
+    int device = 0;
+    cudaGetDevice(&device);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (sms <= 0) sms = 1;
+  }
+  return sms;
+}
+
+template <typename T, int RO>
+void launch_grads_tiled(const T* a, const T* b, const float* w, float* da, float* db, int G,
+                        int B, int N, int d, bool aligned, cudaStream_t s) {
+  constexpr int own = GradTile<T, RO>::kOwn;
+  const long long slices = (d + kGradDepth - 1) / kGradDepth;
+  const long long blocks_a = G * slices * ((B + own - 1) / own);
+  const long long blocks = blocks_a + G * slices * ((N + own - 1) / own);
+  if (aligned)
+    l1_grads_kernel<T, RO, true><<<(unsigned)blocks, kGradThreads, 0, s>>>(a, b, w, da, db, B, N,
+                                                                          d, (int)blocks_a);
+  else
+    l1_grads_kernel<T, RO, false><<<(unsigned)blocks, kGradThreads, 0, s>>>(a, b, w, da, db, B,
+                                                                           N, d, (int)blocks_a);
+}
+
 template <typename T>
-void launch_grads(const void* a, const void* b, const void* w, void* da, void* db, int G,
-                  int B, int N, int d, cudaStream_t s) {
+void launch_grads(const void* a, const void* b, const void* w, void* da, void* db, int G, int B,
+                  int N, int d, cudaStream_t s) {
   const T* ta = static_cast<const T*>(a);
   const T* tb = static_cast<const T*>(b);
   const float* tw = static_cast<const float*>(w);
-  dim3 grid_a((B + kGradOwn - 1) / kGradOwn, G);
-  l1_grad_kernel<T><<<grid_a, kGradThreads, 0, s>>>(ta, tb, tw, static_cast<float*>(da), B, N,
-                                                     d, N, 1);
-  dim3 grid_b((N + kGradOwn - 1) / kGradOwn, G);
-  l1_grad_kernel<T><<<grid_b, kGradThreads, 0, s>>>(tb, ta, tw, static_cast<float*>(db), N, B,
-                                                     d, 1, N);
+  // 16-byte runs: rows of w (N floats) and of a and b (d values), and the bases.
+  const bool aligned = N % 4 == 0 && (d * sizeof(T)) % 16 == 0 &&
+                       (reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b) |
+                        reinterpret_cast<uintptr_t>(w)) % 16 == 0;
+  // 4-row tiles unless their grid would hold fewer than two blocks per SM.
+  constexpr int own = GradTile<T, 4>::kOwn;
+  const long long slices = (d + kGradDepth - 1) / kGradDepth;
+  const long long wide = G * slices * ((B + own - 1) / own + (N + own - 1) / own);
+  if (wide >= 2LL * sm_count())
+    launch_grads_tiled<T, 4>(ta, tb, tw, static_cast<float*>(da), static_cast<float*>(db), G, B,
+                             N, d, aligned, s);
+  else
+    launch_grads_tiled<T, 1>(ta, tb, tw, static_cast<float*>(da), static_cast<float*>(db), G, B,
+                             N, d, aligned, s);
 }
 
 }  // namespace
@@ -314,7 +532,7 @@ extern "C" int bess_l1_distance_matrix_batched(const void* a, const void* b, voi
 }
 
 // a (G, B, d) and b (G, N, d) in float32 (dtype 0) or bfloat16 (dtype 1), w (G, B, N)
-// float32; writes da (G, B, d) and db (G, N, d) in float32, two launches. G = 1 is
+// float32; writes da (G, B, d) and db (G, N, d) in float32 in one launch. G = 1 is
 // the unbatched gradient (B6).
 extern "C" int bess_l1_distance_grads_batched(const void* a, const void* b, const void* w,
                                               void* da, void* db, int G, int B, int N, int d,

@@ -9,13 +9,15 @@ in ``csrc/dense_adamw.cu`` and is bound through ``ctypes``
 (:mod:`besskge_tpu_torch._build`). Given CPU tensors the wrapper computes the
 plain version; given CUDA tensors it launches the kernel or raises.
 
-The bias corrections ``1/(1 − b1^t)`` and ``1/(1 − b2^t)`` are computed from
-the step count where it lies, in fp32 as the JAX package computes them
-(:func:`bias_corrections`); the kernel reads them, and a tensor learning rate,
-from device memory, so a step makes no host synchronisation. Both versions
-multiply by these reciprocals, as the Pallas kernel does, and round each
-operation on its own in the same order, so on one device they give the same
-bits.
+The bias corrections ``1/(1 − b1^t)`` and ``1/(1 − b2^t)`` come from the step
+count where it lies, in fp32 as the JAX package computes them: the plain
+version calls :func:`bias_corrections`, and the kernel computes the same
+operations itself from the count it reads in device memory, so an update is
+one launch. It reads a tensor learning rate there too, so a step makes no
+host synchronisation. Both versions multiply by these reciprocals, as the
+Pallas kernel does, and round each operation on its own in the same order:
+the moments are equal bit for bit on one device, and the param too unless
+the card's ``powf`` and ``torch.pow`` differ in the last bit of ``b^t``.
 """
 
 from __future__ import annotations
@@ -38,13 +40,14 @@ __all__ = [
 LearningRate = Union[float, torch.Tensor]
 
 _PARAM_DTYPES = (torch.float32, torch.bfloat16)
+_COUNT_DTYPES = (torch.int32, torch.int64)
 
 
 def _library() -> ctypes.CDLL:
     lib = _build.load_library("dense_adamw")
     if not hasattr(lib, "_bess_declared"):
         p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-        lib.bess_dense_adamw.argtypes = [p, p, p, p, ll, i, i, p, p, f, f, f, f, f, f, f, i, p]
+        lib.bess_dense_adamw.argtypes = [p, p, p, p, ll, i, i, p, i, p, f, f, f, f, f, f, f, i, p]
         lib.bess_dense_adamw.restype = i
         lib._bess_declared = True
     return lib
@@ -123,8 +126,9 @@ def dense_adamw_update(
     :param mu: fp32 first moment, the param's shape, contiguous.
     :param nu: fp32 second moment, likewise.
     :param grad: fp32 or bf16 gradient of the param's shape.
-    :param count: the post-increment step number, an integer tensor on the
-        param's device (``c1 = 1/(1 − b1^count)``, ``c2`` likewise).
+    :param count: the post-increment step number, an int32 or int64
+        one-element tensor on the param's device (``c1 = 1/(1 − b1^count)``,
+        ``c2`` likewise).
     :param lr: learning rate: a Python float, or a one-element tensor on the
         param's device (an lr schedule's value), read there by the kernel.
     """
@@ -133,8 +137,11 @@ def dense_adamw_update(
     if not on_cuda("dense_adamw_update", param, mu, nu, grad, count,
                    *([lr] if lr_tensor else [])):
         return dense_adamw_update_plain(param, mu, nu, grad, count, lr, b1, b2, eps, wd)
+    if count.dtype not in _COUNT_DTYPES or count.numel() != 1:
+        raise ValueError(
+            f"count must be one int32 or int64 value, got {count.dtype} {tuple(count.shape)}"
+        )
     grad = grad.contiguous()
-    corr = bias_corrections(count, b1, b2)
     lr_ptr, lr_value = None, 0.0
     if lr_tensor:
         if lr.numel() != 1:
@@ -143,13 +150,13 @@ def dense_adamw_update(
         lr_ptr = lr.data_ptr()
     else:
         lr_value = float(lr)
-    tensors = (param, mu, nu, grad)
-    vec = 4 if all(t.data_ptr() % (4 * t.element_size()) == 0 for t in tensors) else 1
+    aligned = all(t.data_ptr() % 16 == 0 for t in (param, mu, nu, grad))
     rc = _library().bess_dense_adamw(
         param.data_ptr(), mu.data_ptr(), nu.data_ptr(), grad.data_ptr(), param.numel(),
-        int(param.dtype == torch.bfloat16), int(grad.dtype == torch.bfloat16), corr.data_ptr(),
-        lr_ptr, lr_value, float(b1), float(b2), float(eps), float(wd), float(1.0 - b1),
-        float(1.0 - b2), vec, torch.cuda.current_stream(param.device).cuda_stream,
+        int(param.dtype == torch.bfloat16), int(grad.dtype == torch.bfloat16), count.data_ptr(),
+        int(count.dtype == torch.int64), lr_ptr, lr_value, float(b1), float(b2), float(eps),
+        float(wd), float(1.0 - b1), float(1.0 - b2), int(aligned),
+        torch.cuda.current_stream(param.device).cuda_stream,
     )
     _build.check_launch("dense_adamw_update", rc)
     dense_adamw_update.launches += 1

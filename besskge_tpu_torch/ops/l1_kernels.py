@@ -228,7 +228,7 @@ def _launch_distance(name: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tenso
 def _launch_grads(
     name: str, a: torch.Tensor, b: torch.Tensor, g: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The two launches of the (batched) gradient kernel."""
+    """The one launch of the (batched) gradient kernel: da and db together."""
     a, b, g = a.contiguous(), b.contiguous(), g.contiguous()
     G, B, d = a.shape
     N = b.shape[1]

@@ -9,19 +9,23 @@ the CUDA toolkit. Phases, one line each with its elapsed seconds:
 1. device: ``nvidia-smi`` name and power limit, torch and CUDA versions;
 2. build: every native source of the port (``besskge_tpu_torch/csrc/*.cu``
    with ``nvcc``, ``csrc/bess_host.cpp`` with the host compiler), one
-   compiler process each, in parallel;
+   compiler process each, in parallel; then ``ptxas``'s registers, shared
+   memory and spills of every kernel of ``l1_distance.cu`` and
+   ``dense_adamw.cu`` (the gradient and AdamW kernels must not spill);
 3. kernels: each kernel against its plain PyTorch version on the card, with
    times of the kernel, the plain version, one PyTorch library call, and the
    card's bound. B7/B5 at the serving shape, a ragged shape and a shape with
    a wholly invalid 128-column chunk, in fp32 and bf16; B1/B2/B6 at the
    training shape (8 x 256 x 288 x 128) and a ragged one, in fp32 and bf16,
-   with planted exact ties; B3/B4 with R = 8,704 slots over the
+   with planted exact ties, B2/B6 also giving the same bits on a repeat call
+   and launching one kernel per call; B3/B4 with R = 8,704 slots over the
    (5,001,208, 128) pair-major table and a ragged R, with duplicate runs
    whose later slots hold garbage; B8 with k = 2 and 3 tables of
    (2,500,604, 128) at the same slots, and with unequal lists and a
    (1, n, D) block; B9 with h = 2 over the pair-major table; B10 over the
    (93,773, 128) biokg table in fp32 and with a bf16 param, and over a table
-   whose size is not a multiple of 4;
+   whose size is not a multiple of 4, timed as a whole call (one kernel) and
+   by kernel name beside ``torch.optim.AdamW(fused=True).step()``;
 4. serving: ``build_topk_forward`` of TransE-L1 at ogbl-wikikg2 width
    (2,500,604 entities, 535 relation types, d = 128, 512 queries per batch,
    k = 10) once with the chunk merge (B7) and once with the sort merge (B5);
@@ -89,6 +93,7 @@ from besskge_tpu_torch.negative_sampler import (  # noqa: E402
     RandomShardedNegativeSampler,
 )
 from besskge_tpu_torch.ops import adamw_kernels, distance, l1_kernels, row_kernels  # noqa: E402
+from besskge_tpu_torch.profiling import device_kernels  # noqa: E402
 from besskge_tpu_torch.scoring import RotatE, TransE  # noqa: E402
 from besskge_tpu_torch.sharding import PartitionedTripleSet, Sharding  # noqa: E402
 
@@ -217,24 +222,24 @@ def cuda_ms(fn, reps: int) -> float:
 
 def device_ms(fn, reps: int) -> float:
     """Mean device time of ``fn``: the summed durations of the kernels it
-    launches over ``reps`` calls (``torch.profiler``), after one warm-up.
-    Unlike :func:`cuda_ms` it leaves out the idle gaps in which the device
-    waits for the host to launch the next kernel, which are most of the
-    time of a kernel of a few microseconds."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    launches over ``reps`` calls (:func:`device_kernels`). Unlike
+    :func:`cuda_ms` it leaves out the idle gaps in which the device waits for
+    the host to launch the next kernel, which are most of the time of a
+    kernel of a few microseconds."""
+    return sum(ms for ms, _ in device_kernels(fn, reps).values())
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA)
-    if us <= 0:
-        raise RuntimeError("the profiler recorded no device time")
-    return us / reps / 1e3
+
+def one_kernel(what: str, kernels: Dict[str, tuple], name: str) -> float:
+    """The device ms of the one kernel that each call launched, which must be
+    named ``name``; raises when a call launched any other kernel, or more
+    than one. The tracer may drop a launch but never adds one, so the check
+    is on the kernels recorded (one name, at most one launch per call), and
+    the time is per recorded launch."""
+    launches = {key: n for key, (_, n) in kernels.items()}
+    if len(kernels) != 1 or name not in next(iter(kernels)) or not 0 < min(launches.values()) <= 1:
+        raise AssertionError(f"{what}: launches per call {launches}, expected one {name}")
+    ms, n = next(iter(kernels.values()))
+    return ms / n
 
 
 def bound_ms(B: int, N: int, d: int, in_bytes: int, out_bytes: int) -> tuple:
@@ -459,7 +464,14 @@ def check_training_kernels(gen: torch.Generator, table_rows: int) -> dict:
             dist = l1_kernels.l1_distance_matrix_batched(a, b)
             da, db = l1_kernels.l1_distance_grads_batched(a, b, w)
             da6, db6 = l1_kernels.l1_distance_grads(a[0], b[0], w[0])
+            again = (*l1_kernels.l1_distance_grads_batched(a, b, w),
+                     *l1_kernels.l1_distance_grads(a[0], b[0], w[0]))
             torch.cuda.synchronize()
+            # No atomics: every sum runs in one fixed order, so a repeat call
+            # gives the same bits (the training phase's bit-for-bit gates
+            # between step variants rest on it).
+            if not all(torch.equal(x, y) for x, y in zip((da, db, da6, db6), again)):
+                raise AssertionError("B2/B6 gave other bits on a repeat call")
             ref = l1_kernels.l1_distance_matrix_batched_plain(a, b).float()
             err1 = (dist.float() - ref).abs()
             tol = ATOL + (RTOL + (BF16_ULP if dtype == torch.bfloat16 else 0.0)) * ref.abs()
@@ -500,10 +512,14 @@ def check_training_kernels(gen: torch.Generator, table_rows: int) -> dict:
                     bound=bound_of(2.0 * terms, in_bytes + G * B * N * 2),
                 )
                 # per term: subtract, sign, and a multiply-add into each of da
-                # and db; a, b in bf16 and w in fp32 read, da and db written
+                # and db, counted once (a design that computes each term for
+                # da and again for db has its own floor at about twice this);
+                # a, b in bf16 and w in fp32 read, da and db written
                 grad_bytes = in_bytes + G * B * N * 4 + (G * B + G * N) * d * 4
                 results["l1_distance_grads_batched"].update(
-                    ms=device_ms(lambda: l1_kernels.l1_distance_grads_batched(a, b, w), 100),
+                    ms=one_kernel("B2", device_kernels(
+                        lambda: l1_kernels.l1_distance_grads_batched(a, b, w), 100),
+                        "l1_grads_kernel"),
                     event_ms=cuda_ms(lambda: l1_kernels.l1_distance_grads_batched(a, b, w), 100),
                     plain_ms=device_ms(lambda: l1_kernels.l1_distance_grads_batched_plain(a, b, w), 10),
                     library_ms=device_ms(lambda: torch.autograd.grad(
@@ -511,7 +527,9 @@ def check_training_kernels(gen: torch.Generator, table_rows: int) -> dict:
                     bound=bound_of(4.0 * terms, grad_bytes),
                 )
                 results["l1_distance_grads"].update(
-                    ms=device_ms(lambda: l1_kernels.l1_distance_grads(a[0], b[0], w[0]), 100),
+                    ms=one_kernel("B6", device_kernels(
+                        lambda: l1_kernels.l1_distance_grads(a[0], b[0], w[0]), 100),
+                        "l1_grads_kernel"),
                     event_ms=cuda_ms(lambda: l1_kernels.l1_distance_grads(a[0], b[0], w[0]), 100),
                     plain_ms=device_ms(lambda: l1_kernels.l1_distance_grads_batched_plain(
                         a[:1], b[:1], w[:1]), 10),
@@ -719,19 +737,38 @@ def check_dense_adamw(gen: torch.Generator) -> dict:
             param = torch.nn.Parameter(p.clone())
             param.grad = g.clone()
             library = torch.optim.AdamW([param], lr=DENSE_LR, weight_decay=1e-4, fused=True)
+
+            def update():
+                adamw_kernels.dense_adamw_update(p, mu, nu, g, count, DENSE_LR, wd=1e-4)
+
+            # B10's whole call is its one kernel (one_kernel raises otherwise).
+            # The library's step() also advances its step count, so B10 is
+            # timed a second time with the count increment that
+            # FusedDenseAdamW.apply_dense launches before it; and the
+            # library's AdamW kernel by name beside its whole call.
+            kernel_ms = one_kernel("B10", device_kernels(update, 50), "dense_adamw_kernel")
+            with_count_ms = device_ms(lambda: adamw_kernels.dense_adamw_update(
+                p, mu, nu, g, count + 1, DENSE_LR, wd=1e-4), 50)
+            theirs = device_kernels(library.step, 50)
+            lib_name, (lib_kernel_ms, _) = max(theirs.items(), key=lambda kv: kv[1][0])
             result.update(
-                ms=device_ms(lambda: adamw_kernels.dense_adamw_update(
-                    p, mu, nu, g, count, DENSE_LR, wd=1e-4), 50),
-                event_ms=cuda_ms(lambda: adamw_kernels.dense_adamw_update(
-                    p, mu, nu, g, count, DENSE_LR, wd=1e-4), 50),
+                ms=kernel_ms,
+                event_ms=cuda_ms(update, 50),
                 plain_ms=device_ms(lambda: adamw_kernels.dense_adamw_update_plain(
                     p, mu, nu, g, count, DENSE_LR, wd=1e-4), 10),
-                library_ms=device_ms(library.step, 50),
+                library_ms=sum(ms for ms, _ in theirs.values()),
+                library_kernel_ms=lib_kernel_ms,
+                library_launches=sum(k for _, k in theirs.values()),
                 # read g, p, mu, nu and write p, mu, nu, 4 bytes each; about
                 # 12 fp32 instructions per element (moments, corrections,
                 # square root, division, decay)
                 bound=bound_of(12.0 * n, 28.0 * n),
             )
+            say("kernels", f"B10 whole call {result['ms']:.4f} ms on the device (its one kernel),"
+                f" {with_count_ms:.4f} ms with the step's count increment;"
+                f" torch.optim.AdamW(fused=True).step() whole call {result['library_ms']:.4f} ms"
+                f" ({result['library_launches']:g} kernels per call, its count increment"
+                f" included), its AdamW kernel by name {lib_kernel_ms:.4f} ms ({lib_name[:100]})")
             del library, param
     say("kernels", f"B10 dense_adamw_update at {main} fp32: kernel {result['ms']:.4f} ms"
         f" ({result['event_ms']:.4f} ms between events), plain {result['plain_ms']:.4f} ms,"
@@ -1211,6 +1248,47 @@ def profile_steps(step, params, state, batches, trace: str) -> None:
     prof.export_chrome_trace(str(out / trace))
 
 
+# Kernels redesigned for the card's registers: they must not spill.
+NO_SPILL = ("l1_grads_kernel", "dense_adamw_kernel")
+
+
+def ptxas_report(names=("l1_distance", "dense_adamw")) -> None:
+    """Registers, shared memory and spills of every kernel of the named
+    sources, from ``ptxas -v`` in the build's log; raises when a kernel named
+    in ``NO_SPILL`` spills."""
+    for name in names:
+        kernels = []
+        for line in _build.build_log(name).splitlines():
+            if "Compiling entry function '" in line:
+                kernels.append({"name": line.split("'")[1], "spills": (0, 0)})
+            elif kernels and "bytes spill stores" in line:
+                # "N bytes stack frame, S bytes spill stores, L bytes spill loads"
+                parts = line.split(",")
+                kernels[-1]["spills"] = (int(parts[1].split()[0]), int(parts[2].split()[0]))
+            elif kernels and "Used " in line and " registers" in line:
+                # "Used R registers, used B barriers, M bytes smem, ..."
+                kernels[-1]["registers"] = int(line.split("Used ")[1].split()[0])
+                smem = [part for part in line.split(",") if part.strip().endswith("bytes smem")]
+                kernels[-1]["smem"] = int(smem[0].split()[0]) if smem else 0
+        if not kernels:
+            raise AssertionError(f"no ptxas report in the build log of {name}")
+        try:
+            readable = subprocess.run(["c++filt"], input="\n".join(k["name"] for k in kernels),
+                                      capture_output=True, text=True, check=True).stdout
+        except (OSError, subprocess.CalledProcessError):
+            readable = ""  # no demangler: keep the mangled names
+        for k, line in zip(kernels, readable.splitlines()):
+            # "void (anonymous namespace)::f<...>(args)" -> "f<...>"
+            k["name"] = line.replace("void ", "").replace("(anonymous namespace)::", "")
+            k["name"] = k["name"].split("(")[0]
+        for k in kernels:
+            say("build", f"{name}.cu {k['name']}: {k.get('registers')} registers,"
+                f" {k.get('smem')} bytes static smem, spill stores {k['spills'][0]} B,"
+                f" loads {k['spills'][1]} B")
+            if any(s in k["name"] for s in NO_SPILL) and k["spills"] != (0, 0):
+                raise AssertionError(f"{k['name']} spills {k['spills']}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device; nothing was run", file=sys.stderr)
@@ -1227,6 +1305,7 @@ def main() -> int:
     t = time.perf_counter()
     paths = _build.build()
     say("build", f"{len(paths)} libraries (nvcc, host C++) in {time.perf_counter() - t:.1f}s")
+    ptxas_report()
 
     gen = torch.Generator("cuda").manual_seed(SEED)
     profile = "--profile" in sys.argv[1:]
@@ -1262,6 +1341,8 @@ def main() -> int:
             entry["serving_ms_per_batch"] = r["serving_ms"]
         if "event_ms" in r:
             entry["event_ms"] = r["event_ms"]
+        if "library_kernel_ms" in r:
+            entry["library_kernel_ms"] = r["library_kernel_ms"]
         if "ms_k2" in r:  # B8 at k = 2 beside the k = 3 numbers above
             entry.update(k=3, ms_k2=r["ms_k2"], plain_ms_k2=r["plain_ms_k2"],
                          library_ms_k2=r["library_ms_k2"], bound_ms_k2=r["bound_k2"][0],

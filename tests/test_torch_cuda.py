@@ -30,6 +30,7 @@ from besskge_tpu_torch.negative_sampler import (
     RandomShardedNegativeSampler,
 )
 from besskge_tpu_torch.ops import adamw_kernels, distance, l1_kernels, row_kernels
+from besskge_tpu_torch.profiling import device_kernels
 from besskge_tpu_torch.scoring import TransE
 from besskge_tpu_torch.sharding import PartitionedTripleSet, Sharding
 
@@ -131,6 +132,64 @@ def test_batched_kernels_match_plain(cuda, shape, dtype):
     assert ((db - rdb).abs() <= _sum_tol(w.transpose(1, 2), 2)).all()
     assert ((da6 - rda[0]).abs() <= _sum_tol(w[0], 1)).all()
     assert ((db6 - rdb[0]).abs() <= _sum_tol(w[0].T, 1)).all()
+
+
+# One below, at and one above the gradient kernel's tiles (32 own rows, or 8
+# where the grid is small; 32 stream rows; 32 depth columns), d = 1, one
+# group, fewer stream rows than a tile; the last three give grids large
+# enough for 32-row own tiles on a 132-SM card, with ragged edges and with
+# 16-byte rows.
+EDGE_SHAPES = [
+    (2, 31, 40, 32), (2, 32, 40, 32), (2, 33, 40, 32),
+    (2, 20, 31, 33), (2, 20, 32, 31), (2, 20, 33, 32),
+    (1, 7, 9, 8), (1, 8, 8, 16), (1, 9, 7, 24),
+    (3, 5, 6, 1),
+    (64, 33, 31, 33), (64, 31, 36, 40), (64, 32, 64, 64),
+]
+
+
+def _kernels_per_call(fn, calls=10):
+    """The CUDA kernels that one call of ``fn`` launches: name -> launches
+    per call, over ``calls`` calls."""
+    return {name: n for name, (_, n) in device_kernels(fn, calls).items()}
+
+
+def _one_kernel(kernels, name):
+    return len(kernels) == 1 and name in next(iter(kernels)) and list(kernels.values()) == [1]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", EDGE_SHAPES)
+def test_grads_match_plain_at_tile_edges(cuda, shape, dtype):
+    G, B, N, d = shape
+    a, b, w = _grad_inputs(cuda, G, B, N, d, dtype, seed=3 * (G + B + N + d))
+    da, db = l1_kernels.l1_distance_grads_batched(a, b, w)
+    da6, db6 = l1_kernels.l1_distance_grads(a[0], b[0], w[0])
+    torch.cuda.synchronize()
+    rda, rdb = l1_kernels.l1_distance_grads_batched_plain(a, b, w)
+    assert ((da - rda).abs() <= _sum_tol(w, 2)).all()
+    assert ((db - rdb).abs() <= _sum_tol(w.transpose(1, 2), 2)).all()
+    assert ((da6 - rda[0]).abs() <= _sum_tol(w[0], 1)).all()
+    assert ((db6 - rdb[0]).abs() <= _sum_tol(w[0].T, 1)).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(8, 256, 288, 128), (3, 37, 211, 100)])
+def test_grads_are_one_deterministic_launch(cuda, shape, dtype):
+    """B2 and B6 launch one kernel per call for both outputs, and sum in a
+    fixed order: a repeat call gives the same bits."""
+    G, B, N, d = shape
+    a, b, w = _grad_inputs(cuda, G, B, N, d, dtype, seed=G * B)
+    assert _one_kernel(_kernels_per_call(lambda: l1_kernels.l1_distance_grads_batched(a, b, w)),
+                       "l1_grads_kernel")
+    assert _one_kernel(_kernels_per_call(lambda: l1_kernels.l1_distance_grads(a[0], b[0], w[0])),
+                       "l1_grads_kernel")
+    first = (*l1_kernels.l1_distance_grads_batched(a, b, w),
+             *l1_kernels.l1_distance_grads(a[0], b[0], w[0]))
+    second = (*l1_kernels.l1_distance_grads_batched(a, b, w),
+              *l1_kernels.l1_distance_grads(a[0], b[0], w[0]))
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(first, second))
 
 
 def _runs(cuda, R, n, seed):
@@ -378,3 +437,29 @@ def test_dense_adamw_unaligned_views(cuda):
     torch.cuda.synchronize()
     for got, exp in zip(views[:3], want):
         assert ((got - exp).abs() <= 2.0**-22 * exp.abs() + 1e-30).all()
+
+
+@pytest.mark.parametrize("lr_tensor", [False, True])
+def test_dense_adamw_is_one_kernel(cuda, lr_tensor):
+    """B10 computes its bias corrections itself: one kernel per update, with
+    a float learning rate and with one read from device memory."""
+    p, mu, nu, g = _adamw_inputs(cuda, (701, 128), torch.float32, torch.float32, seed=9)
+    count = torch.tensor(5, dtype=torch.int32, device=cuda)
+    lr = torch.tensor(1e-2, device=cuda) if lr_tensor else 1e-2
+    kernels = _kernels_per_call(lambda: adamw_kernels.dense_adamw_update(p, mu, nu, g, count, lr))
+    assert _one_kernel(kernels, "dense_adamw_kernel"), kernels
+
+
+@pytest.mark.parametrize("count_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("t", [1, 2, 3, 10, 1000, 100000])
+def test_dense_adamw_corrections_match_plain(cuda, t, count_dtype):
+    """The kernel's own bias corrections at early and late steps: moments
+    equal to the plain version's, the param within the bound above."""
+    p, mu, nu, g = _adamw_inputs(cuda, (93, 128), torch.float32, torch.float32, seed=t)
+    count = torch.tensor(t, dtype=count_dtype, device=cuda)
+    want = [x.clone() for x in (p, mu, nu)]
+    adamw_kernels.dense_adamw_update_plain(*want, g, count, 1e-2, 0.9, 0.999, 1e-8, 0.01)
+    adamw_kernels.dense_adamw_update(p, mu, nu, g, count, 1e-2, 0.9, 0.999, 1e-8, 0.01)
+    torch.cuda.synchronize()
+    assert torch.equal(mu, want[1]) and torch.equal(nu, want[2])
+    assert ((p - want[0]).abs() <= 2.0**-22 * want[0].abs() + 1e-30).all()

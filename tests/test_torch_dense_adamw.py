@@ -9,6 +9,8 @@
   a schedule.
 * ``optim.AdamW`` against ``optax.adamw``, with its default weight decay
   (1e-4, where ``torch.optim.AdamW`` has 1e-2) and with another.
+* The same at steps 1 to 100000, which hold ``bias_corrections`` (whose
+  operations the CUDA kernel repeats) against the Pallas wrapper's ``corr``.
 
 Tolerances. Both sides compute the same fp32 operations on the same inputs,
 but XLA on the CPU may contract a multiply and an add into one fused
@@ -79,6 +81,17 @@ def _close(got, want):
 def test_dense_adamw_twin_matches_pallas(m, t, wd, moments):
     p, mu, nu, g = _inputs(8 + m, m, moments=moments)
     kw = dict(lr=1e-2, b1=0.9, b2=0.999, eps=1e-8, wd=wd)
+    _close(_port(p, mu, nu, g, t, **kw), _jax(p, mu, nu, g, t, **kw))
+
+
+@pytest.mark.parametrize("t", [1, 2, 3, 10, 1000, 100000])
+def test_dense_adamw_twin_matches_pallas_at_step(t):
+    """The bias corrections from the first step to a late one, where ``b1^t``
+    is below fp32's ulp of 1 and the correction is 1: the twin, through
+    ``bias_corrections`` (whose operations the CUDA kernel repeats in each
+    thread), against the Pallas kernel, through its wrapper's ``corr``."""
+    p, mu, nu, g = _inputs(20 + t, 64)
+    kw = dict(lr=1e-2, b1=0.9, b2=0.999, eps=1e-8, wd=0.01)
     _close(_port(p, mu, nu, g, t, **kw), _jax(p, mu, nu, g, t, **kw))
 
 

@@ -4,7 +4,10 @@
   ``besskge_tpu.ops.pallas_distance`` ``l1_distance_matrix_batched``,
   ``l1_distance_grads_batched`` and ``l1_distance_grads`` in the Pallas
   interpreter, as ``tests/test_pallas_ops.py`` runs them: fp32 and bf16,
-  ragged B and N, planted exact ties.
+  ragged B and N, planted exact ties; and at the edges of the CUDA gradient
+  kernel's tiles (own rows 32, or 8 where the grid is small; stream tiles of
+  32 rows; depth slices of 32), d = 1, one group, fewer stream rows than a
+  tile.
 * ``p_distance_matrix(·, ·, 1)`` carries a gradient (the repaired fault: on
   a card the result had no ``grad_fn``) equal to the JAX package's
   ``_l1_grads_formula``, and under ``torch.func.vmap`` of
@@ -40,6 +43,16 @@ U = 2.0**-24
 
 # (G, B, N, d): the training shape cut in depth, ragged B and N, ragged d.
 SHAPES = [(2, 64, 72, 128), (3, 37, 211, 48), (1, 5, 9, 33)]
+# One below, at and one above the gradient kernel's tiles: B (da's own rows)
+# about 32; N (da's stream rows, db's own rows) about 32 with d about the
+# 32-column depth slice; one group, whose small grid takes 8-row own tiles,
+# with B about 8 and N under one stream tile; d = 1.
+EDGE_SHAPES = [
+    (2, 31, 40, 32), (2, 32, 40, 32), (2, 33, 40, 32),
+    (2, 20, 31, 33), (2, 20, 32, 31), (2, 20, 33, 32),
+    (1, 7, 9, 8), (1, 8, 8, 16), (1, 9, 7, 24),
+    (3, 5, 6, 1),
+]
 
 
 def _inputs(G, B, N, d, dtype, seed, ties=True):
@@ -113,6 +126,23 @@ def test_grads_match_pallas(shape, dtype):
     got_da, got_db = l1_kernels.l1_distance_grads(_torch(a), _torch(b), torch.from_numpy(w))
     assert got_da.shape == a.shape and got_db.shape == b.shape
     _assert_grads(got_da.numpy(), got_db.numpy(), np.asarray(want_da), np.asarray(want_db), w)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", EDGE_SHAPES)
+def test_grads_match_pallas_at_tile_edges(shape, dtype):
+    """B2 on every group and B6 on the first, planted ties included."""
+    a, b, w = _inputs(*shape, dtype, seed=5 * sum(shape))
+    want_da, want_db = jax_pd.l1_distance_grads_batched(
+        jnp.asarray(a), jnp.asarray(b), jnp.asarray(w), interpret=True
+    )
+    got_da, got_db = l1_kernels.l1_distance_grads_batched(_torch(a), _torch(b), torch.from_numpy(w))
+    _assert_grads(got_da.numpy(), got_db.numpy(), np.asarray(want_da), np.asarray(want_db), w)
+    want_da, want_db = jax_pd.l1_distance_grads(
+        jnp.asarray(a[0]), jnp.asarray(b[0]), jnp.asarray(w[0]), interpret=True
+    )
+    got_da, got_db = l1_kernels.l1_distance_grads(_torch(a[0]), _torch(b[0]), torch.from_numpy(w[0]))
+    _assert_grads(got_da.numpy(), got_db.numpy(), np.asarray(want_da), np.asarray(want_db), w[0])
 
 
 def test_plain_grads_work_in_column_blocks(monkeypatch):
