@@ -17,16 +17,29 @@
 // (512 x 131072 x 128 per window) that is about 30x the time of moving the
 // bytes, so the kernels are bound by fp32 instruction issue.
 //
-// Design: one block of 256 threads computes a 64 x 128 output tile. The
-// depth is walked in slices of 32: each slice of a (64 x 32) and b
+// B7: one block of 256 threads computes a 64 x 128 output tile (l1_tile).
+// The depth is walked in slices of 32: each slice of a (64 x 32) and b
 // (128 x 32) is converted to fp32 on load and staged in shared memory,
 // transposed so that every thread reads its 4 rows and its 8 columns as
 // float4 vectors. Each thread keeps a 4 x 8 register tile of fp32 sums, so
-// every shared-memory value it reads feeds 4 or 8 subtract/add pairs. The
-// 128 columns of a block are exactly one chunk, so the chunk maximum is a
+// every shared-memory value it reads feeds 4 or 8 subtract/add pairs. The 128
+// columns of a block are exactly one chunk, so the chunk maximum is a
 // reduction over the 16 threads of a half-warp (warp shuffles): no second
-// pass and no atomics. Ragged B, N and d are masked (zero padding adds
-// |0 - 0| = 0 to a sum; padded rows and columns are never stored).
+// pass and no atomics.
+//
+// B1 and B5 (l1_distance_small_kernel): 32 (or 16) rows x 48 columns per
+// block of 128 threads, the whole depth (up to 128) loaded at once and staged
+// in two halves, a 4 (or 2) x 3 register tile; see the section above
+// l1_distance_small_kernel below. At the sparse step's (8, 256, 288, 128)
+// its 384 blocks divide the shape exactly, where B7's 64 x 128 tile would
+// give 96 blocks on 132 SMs and 25 % padding columns. Measured on an H100 it
+// also took less time than the 64 x 128 tile at every grid size tried, the
+// serving window's included (PERF.md), so it is the one design of the
+// distance. Each sum runs over k = 0 ... d - 1 in order in one thread: no
+// atomics, and the same bits on a repeat call.
+//
+// Ragged B, N and d are masked (zero padding adds |0 - 0| = 0 to a sum;
+// padded rows and columns are never stored).
 //
 // Gradients (B2/B6): one launch for both outputs, register-tiled, with the
 // stream tiles staged through a cp.async ring; see the section above
@@ -147,35 +160,8 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// blockIdx.z is the group: a is (G, B, d), b (G, N, d), out (G, B, N), all dense.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    l1_distance_matrix_kernel(const T* __restrict__ a, const T* __restrict__ b,
-                              T* __restrict__ out, int B, int N, int d) {
-  a += (long long)blockIdx.z * B * d;
-  b += (long long)blockIdx.z * N * d;
-  out += (long long)blockIdx.z * B * N;
-  const int row0 = blockIdx.y * kTileRows;
-  const long long col0 = (long long)blockIdx.x * kTileCols;
-  float acc[kRowsPerThread][kColsPerThread];
-  l1_tile(a, b, B, N, d, row0, col0, acc);
-
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
-#pragma unroll
-  for (int i = 0; i < kRowsPerThread; ++i) {
-    const int r = row0 + ty * 4 + i;
-    if (r >= B) continue;
-#pragma unroll
-    for (int j = 0; j < kColsPerThread; ++j) {
-      const long long c = col0 + tile_col(tx, j);
-      if (c < N) store(out + (long long)r * N + c, acc[i][j]);
-    }
-  }
-}
-
-dim3 grid_for(int B, int N, int G = 1) {
-  return dim3((N + kTileCols - 1) / kTileCols, (B + kTileRows - 1) / kTileRows, G);
+dim3 grid_for(int B, int N) {
+  return dim3((N + kTileCols - 1) / kTileCols, (B + kTileRows - 1) / kTileRows);
 }
 
 // ---------------------------------------------------------------------------
@@ -491,6 +477,276 @@ void launch_grads(const void* a, const void* b, const void* w, void* da, void* d
                              N, d, aligned, s);
 }
 
+// ---------------------------------------------------------------------------
+// The distance (B1, B5). A block of 128 threads computes 8R rows x 48
+// columns of one group's output (R = 4: 32 rows, or R = 2: 16 rows where the
+// 32-row grid would leave SMs without a block). Against what starved a
+// 64 x 128 tile at the training shape:
+//   * The grid: at (8, 256, 288) the 32 x 48 tiles divide B and N exactly
+//     (no padding; the 64 x 128 grid computed 25 % padding columns) and give
+//     384 blocks of 4 warps, 2.9 per SM, all resident at once, where the
+//     64 x 128 grid gave 96 blocks on 132 SMs. One group at (256, 288)
+//     takes 16 x 48 tiles: 96 blocks where the 64 x 128 grid gave 12.
+//   * One load latency: the whole depth (up to kSmallDepth = 128) of the
+//     block's rows of a and of b is loaded with every load in flight at once
+//     (8 bytes, four bf16 values, or 16 bytes, four fp32 values, a thread)
+//     and widened to fp32 in registers. The first half of the depth is
+//     stored in shared memory and summed while the second half's loads
+//     land; then the second half is stored and summed (two barriers, one
+//     load latency, of which the second half's is hidden). Each staged value
+//     is read by 16 (a) or 32 (b) threads, so it is widened once here and
+//     not after each shared read (4 integer instructions per 4 values read
+//     against 24 fp32 ones). Rows whose length is not a multiple of 4
+//     values, or an unaligned base, stage one value at a time behind one
+//     barrier.
+//   * No bank conflicts: staged rows are 132 floats apart (33 16-byte units,
+//     odd), so the 8 rows that a quarter-warp reads with one 16-byte access
+//     lie in 8 different groups of 4 banks; a thread's rows of a are read by
+//     16 threads at once (a broadcast); staging writes consecutive units.
+//   * Register tile: a thread holds R rows x 3 columns (tc, tc + 16, tc + 32)
+//     of sums; per 4 depth steps it reads R + 3 float4 values for 4 x 3R
+//     terms of 2 fp32 instructions each (a subtract, then an add with an
+//     |.| source modifier), 24R fp32 instructions per R + 3 shared reads.
+// Each sum runs over k = 0 ... d - 1 in order in one thread, as in l1_tile:
+// a repeat call gives the same bits.
+
+constexpr int kSmallThreads = 128;      // 8 row groups x 16 column groups
+constexpr int kSmallCols = 48;          // columns per block: 16 groups x 3
+constexpr int kSmallColsPerThread = 3;  // columns tc, tc + 16, tc + 32
+constexpr int kSmallDepth = 128;        // depth staged at once
+constexpr int kSmallPitch = kSmallDepth + 4;
+constexpr int kHalfQuads = kSmallDepth / 8;  // 4-value runs per row in a depth half
+// Resident blocks per SM the kernel is compiled for (at most 168 registers a
+// thread): 384 blocks at the training shape then run in one wave on 132 SMs.
+constexpr int kSmallBlocksPerSM = 3;
+
+template <int R>
+struct SmallTile {
+  static constexpr int kRows = 8 * R;                    // rows of a per block
+  static constexpr int kStaged = kRows + kSmallCols;     // rows of a, then of b
+  // 4-value runs of one depth half that each thread stages, of a and of b
+  static constexpr int kAQuads = kRows * kHalfQuads / kSmallThreads;
+  static constexpr int kBQuads = kSmallCols * kHalfQuads / kSmallThreads;
+  static_assert(kRows * kHalfQuads % kSmallThreads == 0, "a runs split evenly");
+  static_assert(kSmallCols * kHalfQuads % kSmallThreads == 0, "b runs split evenly");
+};
+
+// Four consecutive values of a row as loaded (Raw), and widened to fp32.
+template <typename T>
+struct Quad;
+template <>
+struct Quad<float> {
+  using Raw = float4;
+  __device__ __forceinline__ static float4 widen(float4 v) { return v; }
+};
+template <>
+struct Quad<__nv_bfloat16> {
+  using Raw = uint2;
+  __device__ __forceinline__ static float4 widen(uint2 u) {
+    return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xFFFF0000u),
+                       __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xFFFF0000u));
+  }
+};
+
+// One depth half's runs of a thread, as loaded.
+template <typename T, int R>
+struct SmallRuns {
+  typename Quad<T>::Raw a[SmallTile<R>::kAQuads], b[SmallTile<R>::kBQuads];
+};
+
+// Staged rows [0, kRows) hold rows row0 ... of a, rows [kRows, kStaged) rows
+// col0 ... of b, each at depth k0 ... k0 + kSmallDepth - 1; zeros outside
+// the arrays (an |0 - 0| term adds 0, and padded rows are never stored).
+// With runs of 4 values the depth is staged in two halves: load_small_half
+// puts one half's runs of this thread in flight, store_small_half widens
+// them to fp32 and stores them.
+template <typename T, int R>
+__device__ __forceinline__ void load_small_half(const T* __restrict__ a, const T* __restrict__ b,
+                                                int B, int N, int d, int row0, int col0, int k0,
+                                                int half, SmallRuns<T, R>& v) {
+  using Tile = SmallTile<R>;
+  using Raw = typename Quad<T>::Raw;
+#pragma unroll
+  for (int i = 0; i < Tile::kAQuads; ++i) {
+    const int q = i * kSmallThreads + threadIdx.x;
+    const int r = q / kHalfQuads, k = k0 + (half * kHalfQuads + q % kHalfQuads) * 4;
+    v.a[i] = Raw{};
+    if (row0 + r < B && k < d)
+      v.a[i] = *reinterpret_cast<const Raw*>(a + (long long)(row0 + r) * d + k);
+  }
+#pragma unroll
+  for (int i = 0; i < Tile::kBQuads; ++i) {
+    const int q = i * kSmallThreads + threadIdx.x;
+    const int c = q / kHalfQuads, k = k0 + (half * kHalfQuads + q % kHalfQuads) * 4;
+    v.b[i] = Raw{};
+    if (col0 + c < N && k < d)
+      v.b[i] = *reinterpret_cast<const Raw*>(b + (long long)(col0 + c) * d + k);
+  }
+}
+
+template <typename T, int R>
+__device__ __forceinline__ void store_small_half(int half, const SmallRuns<T, R>& v, float* s) {
+  using Tile = SmallTile<R>;
+#pragma unroll
+  for (int i = 0; i < Tile::kAQuads; ++i) {
+    const int q = i * kSmallThreads + threadIdx.x;
+    *reinterpret_cast<float4*>(s + (q / kHalfQuads) * kSmallPitch +
+                               (half * kHalfQuads + q % kHalfQuads) * 4) = Quad<T>::widen(v.a[i]);
+  }
+#pragma unroll
+  for (int i = 0; i < Tile::kBQuads; ++i) {
+    const int q = i * kSmallThreads + threadIdx.x;
+    *reinterpret_cast<float4*>(s + (Tile::kRows + q / kHalfQuads) * kSmallPitch +
+                               (half * kHalfQuads + q % kHalfQuads) * 4) = Quad<T>::widen(v.b[i]);
+  }
+}
+
+// The same staging one value at a time, for rows that are not runs of 4.
+template <typename T, int R>
+__device__ __forceinline__ void stage_small_values(const T* __restrict__ a,
+                                                   const T* __restrict__ b, int B, int N, int d,
+                                                   int row0, int col0, int k0, float* s) {
+  using Tile = SmallTile<R>;
+  for (int e = threadIdx.x; e < Tile::kStaged * kSmallDepth; e += kSmallThreads) {
+    const int r = e / kSmallDepth, kk = e % kSmallDepth, k = k0 + kk;
+    float v = 0.f;
+    if (r < Tile::kRows) {
+      if (row0 + r < B && k < d) v = to_f32(a[(long long)(row0 + r) * d + k]);
+    } else if (col0 + r - Tile::kRows < N && k < d) {
+      v = to_f32(b[(long long)(col0 + r - Tile::kRows) * d + k]);
+    }
+    s[r * kSmallPitch + kk] = v;
+  }
+}
+
+// acc[i][j] += the terms of staged depth columns [k_begin, k_end), in order
+// (both multiples of 4).
+template <int R>
+__device__ __forceinline__ void accumulate_small(const float* s, int k_begin, int k_end,
+                                                 float (&acc)[R][kSmallColsPerThread]) {
+  const float* as = s + (threadIdx.x >> 4) * R * kSmallPitch;
+  const float* bs = s + (SmallTile<R>::kRows + (threadIdx.x & 15)) * kSmallPitch;
+#pragma unroll 4
+  for (int k = k_begin; k < k_end; k += 4) {
+    float4 av[R], bv[kSmallColsPerThread];
+#pragma unroll
+    for (int i = 0; i < R; ++i) av[i] = *reinterpret_cast<const float4*>(as + i * kSmallPitch + k);
+#pragma unroll
+    for (int j = 0; j < kSmallColsPerThread; ++j)
+      bv[j] = *reinterpret_cast<const float4*>(bs + 16 * j * kSmallPitch + k);
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+#pragma unroll
+      for (int j = 0; j < kSmallColsPerThread; ++j) {
+        acc[i][j] += fabsf(av[i].x - bv[j].x);
+        acc[i][j] += fabsf(av[i].y - bv[j].y);
+        acc[i][j] += fabsf(av[i].z - bv[j].z);
+        acc[i][j] += fabsf(av[i].w - bv[j].w);
+      }
+  }
+}
+
+// a (G, B, d), b (G, N, d), out (G, B, N), dense. Block index: the column
+// tile fastest, then the row tile, then the group.
+template <typename T, int R, bool ALIGNED>
+__global__ void __launch_bounds__(kSmallThreads, kSmallBlocksPerSM)
+    l1_distance_small_kernel(const T* __restrict__ a, const T* __restrict__ b,
+                             T* __restrict__ out, int B, int N, int d) {
+  using Tile = SmallTile<R>;
+  __shared__ __align__(16) float s[Tile::kStaged * kSmallPitch];
+  const int col_tiles = (N + kSmallCols - 1) / kSmallCols;
+  const int row_tiles = (B + Tile::kRows - 1) / Tile::kRows;
+  int idx = blockIdx.x;
+  const int col0 = (idx % col_tiles) * kSmallCols;
+  idx /= col_tiles;
+  const int row0 = (idx % row_tiles) * Tile::kRows;
+  const long long grp = idx / row_tiles;
+  a += grp * B * d;
+  b += grp * N * d;
+  out += grp * B * N;
+
+  float acc[R][kSmallColsPerThread];
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int j = 0; j < kSmallColsPerThread; ++j) acc[i][j] = 0.f;
+  constexpr int kHalf = kSmallDepth / 2;
+  for (int k0 = 0; k0 < d; k0 += kSmallDepth) {
+    if (k0 > 0) __syncthreads();  // the previous depth slice is consumed
+    const int n = d - k0;
+    const int n4 = (min(n, kSmallDepth) + 3) & ~3;  // staged zeros fill the last run
+    if constexpr (ALIGNED) {
+      // Both halves' loads in flight at once; the second lands while the
+      // first is summed.
+      SmallRuns<T, R> lo, hi;
+      load_small_half<T, R>(a, b, B, N, d, row0, col0, k0, 0, lo);
+      load_small_half<T, R>(a, b, B, N, d, row0, col0, k0, 1, hi);
+      store_small_half<T, R>(0, lo, s);
+      __syncthreads();
+      if (n >= kSmallDepth)
+        accumulate_small<R>(s, 0, kHalf, acc);
+      else
+        accumulate_small<R>(s, 0, min(n4, kHalf), acc);
+      store_small_half<T, R>(1, hi, s);
+      __syncthreads();
+      if (n >= kSmallDepth)
+        accumulate_small<R>(s, kHalf, kSmallDepth, acc);
+      else if (n4 > kHalf)
+        accumulate_small<R>(s, kHalf, n4, acc);
+    } else {
+      stage_small_values<T, R>(a, b, B, N, d, row0, col0, k0, s);
+      __syncthreads();
+      accumulate_small<R>(s, 0, n4, acc);
+    }
+  }
+
+  const int tr = threadIdx.x >> 4, tc = threadIdx.x & 15;
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int r = row0 + tr * R + i;
+    if (r >= B) continue;
+#pragma unroll
+    for (int j = 0; j < kSmallColsPerThread; ++j) {
+      const int c = col0 + tc + 16 * j;
+      if (c < N) store(out + (long long)r * N + c, acc[i][j]);
+    }
+  }
+}
+
+template <typename T, int R>
+void launch_small_tiled(const T* a, const T* b, T* out, int G, int B, int N, int d,
+                        cudaStream_t s) {
+  constexpr int rows = SmallTile<R>::kRows;
+  const long long blocks =
+      (long long)G * ((B + rows - 1) / rows) * ((N + kSmallCols - 1) / kSmallCols);
+  // Runs of 4 values: rows of a and b (d values) and the bases.
+  const bool aligned =
+      d % 4 == 0 &&
+      (reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b)) % (4 * sizeof(T)) == 0;
+  if (aligned)
+    l1_distance_small_kernel<T, R, true><<<(unsigned)blocks, kSmallThreads, 0, s>>>(a, b, out, B,
+                                                                                   N, d);
+  else
+    l1_distance_small_kernel<T, R, false><<<(unsigned)blocks, kSmallThreads, 0, s>>>(a, b, out, B,
+                                                                                    N, d);
+}
+
+// 32-row tiles unless their grid would leave SMs without a block.
+template <typename T>
+void launch_distance(const void* a, const void* b, void* out, int G, int B, int N, int d,
+                     cudaStream_t s) {
+  const T* ta = static_cast<const T*>(a);
+  const T* tb = static_cast<const T*>(b);
+  T* tout = static_cast<T*>(out);
+  constexpr int rows = SmallTile<4>::kRows;
+  const long long tiles =
+      (long long)G * ((B + rows - 1) / rows) * ((N + kSmallCols - 1) / kSmallCols);
+  if (tiles >= sm_count())
+    launch_small_tiled<T, 4>(ta, tb, tout, G, B, N, d, s);
+  else
+    launch_small_tiled<T, 2>(ta, tb, tout, G, B, N, d, s);
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (a and b alike). N must be a multiple of 128.
@@ -520,13 +776,9 @@ extern "C" int bess_l1_distance_matrix_batched(const void* a, const void* b, voi
   if (G > 0 && B > 0 && N > 0) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (dtype == 0)
-      l1_distance_matrix_kernel<float><<<grid_for(B, N, G), kThreads, 0, s>>>(
-          static_cast<const float*>(a), static_cast<const float*>(b),
-          static_cast<float*>(out), B, N, d);
+      launch_distance<float>(a, b, out, G, B, N, d, s);
     else
-      l1_distance_matrix_kernel<__nv_bfloat16><<<grid_for(B, N, G), kThreads, 0, s>>>(
-          static_cast<const __nv_bfloat16*>(a), static_cast<const __nv_bfloat16*>(b),
-          static_cast<__nv_bfloat16*>(out), B, N, d);
+      launch_distance<__nv_bfloat16>(a, b, out, G, B, N, d, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

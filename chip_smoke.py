@@ -11,14 +11,19 @@ the CUDA toolkit. Phases, one line each with its elapsed seconds:
    with ``nvcc``, ``csrc/bess_host.cpp`` with the host compiler), one
    compiler process each, in parallel; then ``ptxas``'s registers, shared
    memory and spills of every kernel of ``l1_distance.cu`` and
-   ``dense_adamw.cu`` (the gradient and AdamW kernels must not spill);
+   ``dense_adamw.cu`` (the gradient, distance and AdamW kernels must not
+   spill);
 3. kernels: each kernel against its plain PyTorch version on the card, with
    times of the kernel, the plain version, one PyTorch library call, and the
    card's bound. B7/B5 at the serving shape, a ragged shape and a shape with
    a wholly invalid 128-column chunk, in fp32 and bf16; B1/B2/B6 at the
    training shape (8 x 256 x 288 x 128) and a ragged one, in fp32 and bf16,
    with planted exact ties, B2/B6 also giving the same bits on a repeat call
-   and launching one kernel per call; B3/B4 with R = 8,704 slots over the
+   and launching one kernel per call; B1 (and B5 for one group) at the edges
+   of the distance kernel's tiles, with 200-byte bf16 rows, rows that are not
+   runs of 4 values and an unaligned base, each call one
+   ``l1_distance_small_kernel`` and a repeat call the same bits, and B5 timed
+   at the autograd path's shape (256, 288, 128) fp32; B3/B4 with R = 8,704 slots over the
    (5,001,208, 128) pair-major table and a ragged R, with duplicate runs
    whose later slots hold garbage; B8 with k = 2 and 3 tables of
    (2,500,604, 128) at the same slots, and with unequal lists and a
@@ -93,7 +98,7 @@ from besskge_tpu_torch.negative_sampler import (  # noqa: E402
     RandomShardedNegativeSampler,
 )
 from besskge_tpu_torch.ops import adamw_kernels, distance, l1_kernels, row_kernels  # noqa: E402
-from besskge_tpu_torch.profiling import device_kernels  # noqa: E402
+from besskge_tpu_torch.profiling import DISTANCE_EDGES, device_kernels  # noqa: E402
 from besskge_tpu_torch.scoring import RotatE, TransE  # noqa: E402
 from besskge_tpu_torch.sharding import PartitionedTripleSet, Sharding  # noqa: E402
 
@@ -504,7 +509,9 @@ def check_training_kernels(gen: torch.Generator, table_rows: int) -> dict:
                 terms = G * B * N * d
                 in_bytes = (G * B + G * N) * d * 2
                 results["l1_distance_matrix_batched"].update(
-                    ms=device_ms(lambda: l1_kernels.l1_distance_matrix_batched(a, b), 100),
+                    ms=one_kernel("B1", device_kernels(
+                        lambda: l1_kernels.l1_distance_matrix_batched(a, b), 100),
+                        "l1_distance_small_kernel"),
                     event_ms=cuda_ms(lambda: l1_kernels.l1_distance_matrix_batched(a, b), 100),
                     plain_ms=device_ms(lambda: l1_kernels.l1_distance_matrix_batched_plain(a, b), 10),
                     library_ms=device_ms(lambda: torch.cdist(a32, b32, p=1), 20),
@@ -599,6 +606,70 @@ def check_training_kernels(gen: torch.Generator, table_rows: int) -> dict:
             f" plain {r['plain_ms']:.4f} ms, library {lib}, bound {r['bound'][0]:.4f} ms"
             f" ({r['bound'][1]})")
     return results
+
+
+def check_distance_edges(gen: torch.Generator) -> dict:
+    """B1 (and B5 where G = 1) against its plain version at the edges of the
+    distance kernel's tiles (``profiling.DISTANCE_EDGES``), fp32 and bf16;
+    each call one ``l1_distance_small_kernel``, and a repeat call the same
+    bits. B5 timed at the autograd path's shape (256, 288, 128) fp32."""
+    errs = {"l1_distance_matrix_batched": 0.0, "l1_distance_matrix": 0.0}
+
+    def tensor(shape, dtype, offset):
+        n = int(np.prod(shape))
+        flat = torch.empty(n + offset, dtype=dtype, device="cuda")[offset:]
+        flat.copy_(uniform((n,), gen, shape[-1]))
+        return flat.view(shape)
+
+    for g_, b_, n_, d_, offset in DISTANCE_EDGES:
+        for dtype in (torch.float32, torch.bfloat16):
+            a, b = tensor((g_, b_, d_), dtype, offset), tensor((g_, n_, d_), dtype, offset)
+            k = min(b_, n_) // 2
+            b[:, :k, : d_ // 2] = a[:, :k, : d_ // 2]  # planted exact ties
+            ref = l1_kernels.l1_distance_matrix_batched_plain(a, b).float()
+            tol = ATOL + (RTOL + (BF16_ULP if dtype == torch.bfloat16 else 0.0)) * ref.abs()
+            calls = [("l1_distance_matrix_batched",
+                      lambda: l1_kernels.l1_distance_matrix_batched(a, b))]
+            if g_ == 1:
+                calls.append(("l1_distance_matrix",
+                              lambda: l1_kernels.l1_distance_matrix(a[0], b[0])[None]))
+            for name, fn in calls:
+                first, again = fn(), fn()
+                torch.cuda.synchronize()
+                if not torch.equal(first, again):
+                    raise AssertionError(f"{name} gave other bits on a repeat call at"
+                                         f" {a.shape}, {b.shape}")
+                err = (first.float() - ref).abs()
+                if not (err <= tol).all():
+                    raise AssertionError(f"{name} off its plain version by {err.max().item()}"
+                                         f" at {a.shape}, {b.shape} {dtype}")
+                one_kernel(f"{name} at {tuple(a.shape)}, {tuple(b.shape)}",
+                           device_kernels(fn, 3), "l1_distance_small_kernel")
+                errs[name] = max(errs[name], err.max().item())
+            say("kernels", f"G={g_} B={b_} N={n_} d={d_} {str(dtype)[6:]} base +{offset}: B1"
+                f"{' and B5' if g_ == 1 else ''} within tolerance (max|err|"
+                f" {err.max().item():.3g}), same bits on repeat, one kernel per call")
+            del ref, err
+
+    B, N, d = SHARD_BS_TRAIN // 2, SHARD_BS_TRAIN // 2 + N_NEGATIVE, DIM
+    a, b = uniform((B, d), gen, d), uniform((N, d), gen, d)
+    autograd_shape = dict(
+        ms=one_kernel("B5", device_kernels(lambda: l1_kernels.l1_distance_matrix(a, b), 100),
+                      "l1_distance_small_kernel"),
+        event_ms=cuda_ms(lambda: l1_kernels.l1_distance_matrix(a, b), 100),
+        plain_ms=device_ms(lambda: l1_kernels.l1_distance_matrix_plain(a, b), 10),
+        library_ms=device_ms(lambda: torch.cdist(a, b, p=1), 20),
+        bound=bound_ms(B, N, d, (B + N) * d * 4, B * N * 4),
+    )
+    r = autograd_shape
+    say("kernels", f"B5 l1_distance_matrix at the autograd shape {B}x{N}x{d} fp32: kernel"
+        f" {r['ms']:.4f} ms on the device ({r['event_ms']:.4f} ms between events), plain"
+        f" {r['plain_ms']:.4f} ms, cdist {r['library_ms']:.4f} ms, bound {r['bound'][0]:.4f} ms"
+        f" ({r['bound'][1]})")
+    return {"l1_distance_matrix_batched": {"max_abs_err": errs["l1_distance_matrix_batched"]},
+            "l1_distance_matrix": {"max_abs_err": errs["l1_distance_matrix"],
+                                   "autograd_shape": autograd_shape}}
+
 
 def _sorted_slots(gen: torch.Generator, R: int, n: int):
     """R sorted row indices in [0, n) with duplicate runs, and the mask of
@@ -1249,7 +1320,7 @@ def profile_steps(step, params, state, batches, trace: str) -> None:
 
 
 # Kernels redesigned for the card's registers: they must not spill.
-NO_SPILL = ("l1_grads_kernel", "dense_adamw_kernel")
+NO_SPILL = ("l1_grads_kernel", "l1_distance_small_kernel", "dense_adamw_kernel")
 
 
 def ptxas_report(names=("l1_distance", "dense_adamw")) -> None:
@@ -1311,6 +1382,9 @@ def main() -> int:
     profile = "--profile" in sys.argv[1:]
     results = check_kernels(gen)
     results.update(check_training_kernels(gen, 2 * N_ENTITY))
+    for name, edges in check_distance_edges(gen).items():
+        edges["max_abs_err"] = max(edges["max_abs_err"], results[name]["max_abs_err"])
+        results[name].update(edges)
     results.update(check_multi_and_gather(gen, N_ENTITY))
     results["dense_adamw_update"] = check_dense_adamw(gen)
     for name, run in serving(gen).items():
@@ -1341,6 +1415,13 @@ def main() -> int:
             entry["serving_ms_per_batch"] = r["serving_ms"]
         if "event_ms" in r:
             entry["event_ms"] = r["event_ms"]
+        if "autograd_shape" in r:  # B5 at the autograd path's shape too
+            t = r["autograd_shape"]
+            entry.update(autograd_shape=[SHARD_BS_TRAIN // 2, SHARD_BS_TRAIN // 2 + N_NEGATIVE, DIM],
+                         ms_autograd_shape=t["ms"], event_ms_autograd_shape=t["event_ms"],
+                         plain_ms_autograd_shape=t["plain_ms"],
+                         library_ms_autograd_shape=t["library_ms"],
+                         bound_ms_autograd_shape=t["bound"][0])
         if "library_kernel_ms" in r:
             entry["library_kernel_ms"] = r["library_kernel_ms"]
         if "ms_k2" in r:  # B8 at k = 2 beside the k = 3 numbers above

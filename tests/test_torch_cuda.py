@@ -30,7 +30,7 @@ from besskge_tpu_torch.negative_sampler import (
     RandomShardedNegativeSampler,
 )
 from besskge_tpu_torch.ops import adamw_kernels, distance, l1_kernels, row_kernels
-from besskge_tpu_torch.profiling import device_kernels
+from besskge_tpu_torch.profiling import DISTANCE_EDGES, device_kernels
 from besskge_tpu_torch.scoring import TransE
 from besskge_tpu_torch.sharding import PartitionedTripleSet, Sharding
 
@@ -190,6 +190,40 @@ def test_grads_are_one_deterministic_launch(cuda, shape, dtype):
               *l1_kernels.l1_distance_grads(a[0], b[0], w[0]))
     torch.cuda.synchronize()
     assert all(torch.equal(x, y) for x, y in zip(first, second))
+
+
+def _offset_tensor(flat, shape, offset):
+    """``flat`` viewed as ``shape`` from a storage whose first ``offset``
+    elements are skipped: contiguous, with a base off alignment."""
+    n = int(np.prod(shape))
+    out = torch.empty(n + offset, dtype=flat.dtype, device=flat.device)[offset:]
+    out.copy_(flat.reshape(-1)[:n])
+    return out.view(shape)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", DISTANCE_EDGES)
+def test_distance_at_tile_edges(cuda, shape, dtype):
+    """B1 (and B5 for one group) at the edges of the distance kernel's tiles:
+    within tolerance of the plain version, one ``l1_distance_small_kernel``
+    per call, the same bits on a repeat call."""
+    G, B, N, d, offset = shape
+    a0, b0, _ = _grad_inputs(cuda, G, B, N, d, dtype, seed=7 * (G + B + d))
+    a, b = _offset_tensor(a0, a0.shape, offset), _offset_tensor(b0, b0.shape, offset)
+    assert a.is_contiguous() and (a.data_ptr() % 16 != 0) == (offset != 0)
+    ref = l1_kernels.l1_distance_matrix_batched_plain(a, b).float()
+    tol = ATOL + (RTOL + (BF16_ULP if dtype == torch.bfloat16 else 0.0)) * ref.abs()
+    calls = [(l1_kernels.l1_distance_matrix_batched, lambda: l1_kernels.l1_distance_matrix_batched(a, b))]
+    if G == 1:
+        calls.append((l1_kernels.l1_distance_matrix, lambda: l1_kernels.l1_distance_matrix(a[0], b[0])[None]))
+    for wrapper, fn in calls:
+        l1_kernels.reset_launch_counts()
+        first, again = fn(), fn()
+        torch.cuda.synchronize()
+        assert wrapper.launches == 2
+        assert first.dtype == dtype and torch.equal(first, again)
+        assert ((first.float() - ref).abs() <= tol).all()
+        assert _one_kernel(_kernels_per_call(fn, 3), "l1_distance_small_kernel")
 
 
 def _runs(cuda, R, n, seed):

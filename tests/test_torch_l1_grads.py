@@ -7,7 +7,8 @@
   ragged B and N, planted exact ties; and at the edges of the CUDA gradient
   kernel's tiles (own rows 32, or 8 where the grid is small; stream tiles of
   32 rows; depth slices of 32), d = 1, one group, fewer stream rows than a
-  tile.
+  tile; plain B1 (and B5 for one group) at the edges of the CUDA distance
+  kernel's tiles.
 * ``p_distance_matrix(·, ·, 1)`` carries a gradient (the repaired fault: on
   a card the result had no ``grad_fn``) equal to the JAX package's
   ``_l1_grads_formula``, and under ``torch.func.vmap`` of
@@ -53,6 +54,16 @@ EDGE_SHAPES = [
     (1, 7, 9, 8), (1, 8, 8, 16), (1, 9, 7, 24),
     (3, 5, 6, 1),
 ]
+# At the edges of the CUDA distance kernel's tiles (32 rows, or 16 for one
+# group, x 48 columns; depth slices of 128): a row and a column under and
+# over whole tiles, depth one under and over a slice and two slices, d = 100
+# (200-byte bf16 rows) with B and N one past a tile, rows that are not runs
+# of 4 values, one group. (Unaligned bases and the step's full shapes are
+# card cases: profiling.DISTANCE_EDGES in tests/test_torch_cuda.py.)
+DISTANCE_EDGE_SHAPES = [
+    (2, 31, 47, 127), (2, 33, 49, 129), (2, 32, 48, 256),
+    (2, 33, 49, 100), (1, 17, 49, 100), (3, 37, 211, 33), (1, 15, 47, 3),
+]
 
 
 def _inputs(G, B, N, d, dtype, seed, ties=True):
@@ -91,8 +102,10 @@ def _assert_grads(got_da, got_db, want_da, want_db, w):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("shape", SHAPES + DISTANCE_EDGE_SHAPES)
 def test_batched_distance_matches_pallas(shape, dtype):
+    """B1 on every group, and B5 where there is one group, planted ties
+    included."""
     a, b, _ = _inputs(*shape, dtype, seed=sum(shape))
     want = np.asarray(
         jax_pd.l1_distance_matrix_batched(jnp.asarray(a), jnp.asarray(b), interpret=True)
@@ -101,6 +114,12 @@ def test_batched_distance_matches_pallas(shape, dtype):
     assert got.dtype == getattr(torch, dtype) and got.shape == shape[:2] + shape[2:3]
     tol = ATOL + (RTOL + (BF16_ULP if dtype == "bfloat16" else 0.0)) * np.abs(want)
     assert (np.abs(got.float().numpy() - want) <= tol).all()
+    if shape[0] == 1:
+        want5 = np.asarray(
+            jax_pd.l1_distance_matrix(jnp.asarray(a[0]), jnp.asarray(b[0]), interpret=True)
+        ).astype(np.float32)
+        got5 = l1_kernels.l1_distance_matrix(_torch(a[0]), _torch(b[0]))
+        assert (np.abs(got5.float().numpy() - want5) <= tol[0]).all()
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
