@@ -13,7 +13,26 @@ Ported so far, on one device: TopK serving of TransE
 (``bess.TopKQueryBessKGE`` with ``build_topk_forward``), sparse training of
 TransE with every fp32 row optimizer (``RowSGDM``, ``RowAdamW``) and dense
 training of RotatE (``AdamW``, ``FusedDenseAdamW``), through
-``trainer.build_train_step`` and ``trainer.Trainer``.
+``trainer.build_train_step`` and ``trainer.Trainer``, on host batches or on
+batches drawn on the device (``device_sampler.DeviceBatchSampler``,
+``trainer.build_device_train_step``: one CUDA graph per call of
+``steps_per_call`` steps on a card).
 """
 
 __version__ = "0.1.0"
+
+from besskge_tpu_torch.device_sampler import DeviceBatchSampler  # noqa: E402
+from besskge_tpu_torch.negative_sampler import TypeBasedShardedNegativeSampler  # noqa: E402
+from besskge_tpu_torch.trainer import (  # noqa: E402
+    Trainer,
+    build_device_train_step,
+    build_train_step,
+)
+
+__all__ = [
+    "DeviceBatchSampler",
+    "Trainer",
+    "TypeBasedShardedNegativeSampler",
+    "build_device_train_step",
+    "build_train_step",
+]

@@ -11,13 +11,14 @@ the device's tiled AllToAll over the shard axis, the tail block of partition
 
 Batches are dicts of numpy arrays — no framework tensors. Copied from
 ``besskge_tpu/batch_sampler.py`` (with the C++ host loops of
-:mod:`besskge_tpu_torch.native` and the threaded dataloader; triple weighting
-and duplicated batches are not ported yet), so that the port never imports
-the JAX package; for the same seed its batches equal the JAX package's.
+:mod:`besskge_tpu_torch.native` and the threaded dataloader), so that the
+port never imports the JAX package; for the same seed its batches, triple
+weights included, equal the JAX package's.
 """
 
 from __future__ import annotations
 
+import warnings
 from abc import ABC, abstractmethod
 from typing import Dict, Iterator, Optional, Sequence
 
@@ -44,11 +45,13 @@ class ShardedBatchSampler(ABC):
     :param shard_bs: positive triples scored per shard per micro-batch.
     :param batches_per_step: micro-batches sampled per call (device loop).
     :param seed: RNG seed.
-    :param hrt_freq_weighting: frequency-based triple weights; only
-        ``False`` is ported (ROADMAP A8).
-    :param weight_smoothing: smoothing of those weights; only ``0.0``.
-    :param duplicate_batch: micro-batches of two identical halves; only
-        ``False`` (ROADMAP A8).
+    :param hrt_freq_weighting: frequency-based triple weighting
+        ``sqrt(1/(count(h,r) + count(r,t) + smoothing))``, normalized within
+        each micro-batch (``triple_weight``).
+    :param weight_smoothing: additive smoothing for the above.
+    :param duplicate_batch: micro-batches have two identical halves along the
+        triple axis (used with "ht" corruption at inference, so each triple is
+        scored against both head and tail corruptions).
     :param return_triple_idx: also return positions (into
         ``partitioned_triple_set.triples``) of the sampled triples.
     :param use_native: assemble batches with the C++ host loops (the same
@@ -68,11 +71,6 @@ class ShardedBatchSampler(ABC):
         return_triple_idx: bool = False,
         use_native: bool = True,
     ) -> None:
-        if hrt_freq_weighting or weight_smoothing != 0.0 or duplicate_batch:
-            raise NotImplementedError(
-                "hrt_freq_weighting, weight_smoothing and duplicate_batch are not ported"
-                " yet (ROADMAP A8)"
-            )
         self.n_shard = partitioned_triple_set.sharding.n_shard
         self.triples = partitioned_triple_set.triples
         self.dummy = partitioned_triple_set.dummy
@@ -82,6 +80,7 @@ class ShardedBatchSampler(ABC):
         self.negative_sampler = negative_sampler
         self.shard_bs = shard_bs
         self.batches_per_step = batches_per_step
+        self.duplicate_batch = duplicate_batch
         self.use_native = use_native
 
         if self.triple_partition_mode == "ht_shardpair":
@@ -89,6 +88,8 @@ class ShardedBatchSampler(ABC):
             self.positive_per_partition = int(np.ceil(shard_bs / self.n_shard))
         else:
             self.positive_per_partition = shard_bs
+        if duplicate_batch:
+            self.positive_per_partition //= 2
         if negative_sampler.corruption_scheme == "ht":
             # "ht" splits each partition block in half -> must be even.
             self.positive_per_partition = 2 * (self.positive_per_partition // 2)
@@ -96,9 +97,28 @@ class ShardedBatchSampler(ABC):
         #: Triples drawn from each partition per call.
         self.partition_sample_size = self.batches_per_step * self.positive_per_partition
 
+        self.hrt_freq_weighting = hrt_freq_weighting
         self.return_triple_idx = return_triple_idx
         self.seed = seed
         self.rng = np.random.default_rng(seed)
+
+        if hrt_freq_weighting:
+            if self.dummy != "none":
+                warnings.warn("hrt frequency weights are being computed on dummy entities")
+            n_ent = partitioned_triple_set.sharding.n_entity
+            _, hr_inv, hr_count = np.unique(
+                self.triples[:, 0].astype(np.int64) + n_ent * self.triples[:, 1],
+                return_inverse=True,
+                return_counts=True,
+            )
+            _, rt_inv, rt_count = np.unique(
+                self.triples[:, 2].astype(np.int64) + n_ent * self.triples[:, 1],
+                return_inverse=True,
+                return_counts=True,
+            )
+            self.hrt_weights = np.sqrt(
+                1.0 / (hr_count[hr_inv] + rt_count[rt_inv] + weight_smoothing)
+            )
 
     # ------------------------------------------------------------------
     @abstractmethod
@@ -120,6 +140,8 @@ class ShardedBatchSampler(ABC):
         :param idx: ``partition_sample_size`` positions in ``range(len(self))``.
         """
         parts = self.sample_triples(idx)
+        if self.duplicate_batch:
+            parts = {k: np.concatenate([v, v], axis=-1) for k, v in parts.items()}
         sample_idx = parts.pop("sample_idx")
 
         if self.use_native and (
@@ -150,6 +172,11 @@ class ShardedBatchSampler(ABC):
 
         if self.dummy in ("head", "tail"):
             batch.pop(self.dummy)
+
+        if self.hrt_freq_weighting:
+            w = self.hrt_weights[sample_idx].reshape(self.batches_per_step, self.n_shard, -1)
+            w = w / w.sum(axis=-1, keepdims=True) * self.shard_bs
+            batch["triple_weight"] = w.astype(np.float32)
 
         if self.return_triple_idx:
             batch["triple_idx"] = sample_idx

@@ -40,8 +40,10 @@ class BaseLossFunction(ABC):
             return torch.softmax(
                 self.negative_adversarial_scale * negative_score, dim=-1
             ).detach()
-        return torch.tensor(
-            1.0 / negative_score.shape[-1], dtype=torch.float32, device=negative_score.device
+        # A fill, not a host value copied to the device: it runs inside a
+        # CUDA graph.
+        return torch.full(
+            (), 1.0 / negative_score.shape[-1], dtype=torch.float32, device=negative_score.device
         )
 
     @abstractmethod

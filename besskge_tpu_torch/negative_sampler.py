@@ -3,9 +3,10 @@
 Copied from ``besskge_tpu/negative_sampler.py`` so that the port never
 imports the JAX package. Ported: the base class, the uniform
 :class:`RandomShardedNegativeSampler` of the training path (native pcg32 and
-numpy streams, bit-equal to the JAX package's for the same seed) and the
-placeholder of top-k serving. The type-based and triple-based samplers are
-not ported yet (ROADMAP A14).
+numpy streams, bit-equal to the JAX package's for the same seed), the
+type-matched :class:`TypeBasedShardedNegativeSampler` on top of it, and the
+placeholder of top-k serving. The triple-based sampler is not ported yet
+(ROADMAP A14).
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ from besskge_tpu_torch.sharding import Sharding
 __all__ = [
     "ShardedNegativeSampler",
     "RandomShardedNegativeSampler",
+    "TypeBasedShardedNegativeSampler",
     "PlaceholderNegativeSampler",
 ]
 
@@ -116,6 +118,70 @@ class RandomShardedNegativeSampler(ShardedNegativeSampler):
         )
         local = draws % self.shard_counts[None, :, None, None, None]
         return dict(negative_entities=local.astype(np.int32))
+
+
+class TypeBasedShardedNegativeSampler(RandomShardedNegativeSampler):
+    """Corrupt entities only with entities of the same type.
+
+    Uses the per-shard type counts/offsets of the :class:`Sharding` (local
+    IDs stay type-clustered) to remap a uniform draw into the local range of
+    the corrupted entity's type.
+    """
+
+    def __init__(
+        self,
+        triple_types: NDArray[np.int32],
+        n_negative: int,
+        sharding: Sharding,
+        corruption_scheme: str,
+        local_sampling: bool,
+        seed: int,
+    ) -> None:
+        super().__init__(
+            n_negative,
+            sharding,
+            seed,
+            corruption_scheme,
+            local_sampling,
+            flat_negative_format=False,
+        )
+        if sharding.entity_type_counts is None or sharding.entity_type_offsets is None:
+            raise ValueError("Sharding has no entity-type information")
+        self.triple_types = triple_types
+        self.type_counts = sharding.entity_type_counts
+        self.type_offsets = sharding.entity_type_offsets
+
+    def __call__(self, sample_idx: NDArray[np.int64]) -> BatchArrays:
+        bps, n_shard, shard_bs = _batch_geometry(sample_idx)
+        ppp = sample_idx.shape[-1]
+
+        types = self.triple_types[sample_idx]  # (bps, shard, [shard,] ppp, 2)
+        head_type, tail_type = types[..., 0], types[..., 1]
+        if self.corruption_scheme == "h":
+            corrupt_type = head_type
+        elif self.corruption_scheme == "t":
+            corrupt_type = tail_type
+        elif self.corruption_scheme == "ht":
+            cut = ppp // 2
+            corrupt_type = np.concatenate([head_type[..., :cut], tail_type[..., cut:]], axis=-1)
+        else:
+            raise ValueError(f"Corruption scheme {self.corruption_scheme} not supported")
+
+        # Flatten per-device batch, then broadcast across the shard axis the
+        # negatives travel over: local sampling keeps types on the sampling
+        # shard (axis 1), otherwise each source shard sees the consumer's
+        # (axis 2) types.
+        flat = corrupt_type.reshape(bps, n_shard, shard_bs)
+        if self.local_sampling:
+            rel_type = np.broadcast_to(flat[:, :, None, :], (bps, n_shard, n_shard, shard_bs))
+        else:
+            rel_type = np.broadcast_to(flat[:, None, :, :], (bps, n_shard, n_shard, shard_bs))
+
+        draws = super().__call__(sample_idx)["negative_entities"]
+        src = np.arange(n_shard)[None, :, None, None]
+        counts = self.type_counts[src, rel_type][..., None]
+        offsets = self.type_offsets[src, rel_type][..., None]
+        return dict(negative_entities=(draws % counts + offsets).astype(np.int32))
 
 
 class PlaceholderNegativeSampler(ShardedNegativeSampler):

@@ -18,32 +18,40 @@ Counterpart of ``besskge_tpu/trainer.py``:
     whole params dict; ``optimizer`` updates every param, or every param but
     the entity table, which B10 updates.
 
+* :func:`build_device_train_step` builds ``fn(params, opt_state,
+  sampler_state, key) -> (params, opt_state, outputs)``: the same steps on
+  batches drawn on the device by a
+  :class:`~besskge_tpu_torch.device_sampler.DeviceBatchSampler`,
+  ``steps_per_call`` of them per call. On a card one call is one CUDA graph
+  (the counterpart of the JAX package's ``lax.scan`` in one jitted
+  program): captured on the first call, replayed from then on.
+
 * :class:`Trainer` widens the table for an interleaved optimizer, builds the
-  optimizer state and runs epochs over a host batch sampler.
+  optimizer state and runs epochs over a host batch sampler, or over keys of
+  a device sampler.
 
 Params and optimizer state are updated in place, as the JAX package donates
 them to the step; ``donate=False`` updates copies instead. Only one device
-is ported: a mesh raises (ROADMAP A15), on-device sampling
-(``DeviceBatchSampler``, ``build_device_train_step``) waits on A8 and
-checkpoints on A10.
+is ported: a mesh raises (ROADMAP A15); checkpoints wait on A10.
 """
 
 from __future__ import annotations
 
 import time
 from collections import deque
-from typing import Any, Callable, Dict, Iterator, Optional, Union
+from typing import Any, Callable, Dict, Iterator, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from besskge_tpu_torch.batch_sampler import ShardedBatchSampler
 from besskge_tpu_torch.bess import _FORWARD_KEYS, BessKGE, _format_outputs
+from besskge_tpu_torch.device_sampler import DeviceBatchSampler, split_key
 from besskge_tpu_torch.optim import AdamW, SGD, EntityRowOptimizer, FusedDenseAdamW
 from besskge_tpu_torch.packed import take_rows
 from besskge_tpu_torch.utils import resolve_device
 
-__all__ = ["build_train_step", "init_optimizer_state", "Trainer"]
+__all__ = ["build_train_step", "build_device_train_step", "init_optimizer_state", "Trainer"]
 
 Params = Dict[str, torch.Tensor]
 Device = Optional[Union[str, torch.device]]
@@ -223,13 +231,210 @@ def build_train_step(
     return fn
 
 
+def _leaves(tree: Dict[str, Any], prefix: str = "") -> Iterator[Tuple[str, torch.Tensor]]:
+    """(dotted path, tensor) of every leaf of a nested dict of tensors, in
+    order."""
+    for key, value in tree.items():
+        if isinstance(value, dict):
+            yield from _leaves(value, f"{prefix}{key}.")
+        else:
+            yield f"{prefix}{key}", value
+
+
+def _write_back(dst: Dict[str, Any], src: Dict[str, Any]) -> None:
+    """Make the tree ``dst`` hold ``src``'s values: a leaf that the step
+    replaced by a new tensor (a step count) is copied into ``dst``'s own, so
+    that the caller's tensors carry the whole state."""
+    for key, value in src.items():
+        if isinstance(value, dict):
+            _write_back(dst[key], value)
+        elif value is not dst[key]:
+            dst[key].copy_(value)
+
+
+def _device_steps(
+    bess: BessKGE,
+    optimizer: DenseOptimizer,
+    sampler: DeviceBatchSampler,
+    entity_optimizer: Optional[EntityOptimizer],
+    steps_per_call: int,
+) -> Callable:
+    """The eager form of one device-sampled call: ``steps_per_call`` steps
+    on batches drawn from ``key`` (split into one key per step when there
+    are several), updating ``params`` and ``opt_state`` in place."""
+    if entity_optimizer is None or isinstance(entity_optimizer, FusedDenseAdamW):
+        step = _dense_train_step(bess, optimizer, entity_optimizer)
+    else:
+        step = _sparse_train_step(bess, optimizer, entity_optimizer)
+
+    def run(params: Params, opt_state: Dict[str, Any], sampler_state: Dict[str, torch.Tensor],
+            key: torch.Tensor):
+        keys = key[None] if steps_per_call == 1 else split_key(key, steps_per_call)
+        p, o = params, opt_state
+        for k in keys:
+            p, o, outs = step(p, o, sampler.sample(sampler_state, k))
+        _write_back(params, p)
+        _write_back(opt_state, o)
+        return params, opt_state, (outs if steps_per_call == 1 else {"loss": outs["loss"]})
+
+    return run
+
+
+class _GraphedCall:
+    """One device-sampled call as a CUDA graph.
+
+    The first call (and the first after the caller's tensors change) runs
+    the steps eagerly on a side stream, which is its result and the graph's
+    warm-up, then captures the same call into a graph: every kernel of
+    sampling, forward, backward and update, reading and writing the state's
+    tensors where they lie, and the key from a static device buffer. Later
+    calls write the key there and replay the graph. ``donate=True``: the
+    caller's tensors are the graph's state, updated in place and returned;
+    ``donate=False``: the graph has its own copies, which each call fills
+    from the caller's and returns copies of.
+    """
+
+    def __init__(self, run: Callable, donate: bool, device: torch.device) -> None:
+        self.run, self.donate, self.device = run, donate, device
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.signature: Optional[tuple] = None
+        #: Capture seconds, the bytes the graph's private pool holds, and the
+        #: peak of the bytes allocated during the capture.
+        self.stats: Dict[str, float] = {}
+
+    def _signature(self, params, opt_state, sampler_state) -> tuple:
+        """Where the graph's inputs lie: it is bound to their addresses."""
+        bound = [sampler_state] + ([params, opt_state] if self.donate else [])
+        free = [] if self.donate else [params, opt_state]
+        return (
+            tuple((path, t.data_ptr(), t.shape, t.stride(), t.dtype)
+                  for tree in bound for path, t in _leaves(tree)),
+            tuple((path, t.shape, t.dtype) for tree in free for path, t in _leaves(tree)),
+        )
+
+    def _set_key(self, key: Union[torch.Tensor, int]) -> None:
+        if torch.is_tensor(key) and key.device.type == "cuda":
+            self.key.copy_(key)
+        else:
+            self.key.fill_(int(key))  # a host value: no transfer, no sync
+
+    def __call__(self, params, opt_state, sampler_state, key):
+        signature = self._signature(params, opt_state, sampler_state)
+        if self.graph is None or signature != self.signature:
+            return self._capture(params, opt_state, sampler_state, key, signature)
+        if not self.donate:
+            for tree, src in ((self.params, params), (self.opt_state, opt_state)):
+                for (_, dst), (_, value) in zip(_leaves(tree), _leaves(src)):
+                    dst.copy_(value)
+        self._set_key(key)
+        self.graph.replay()
+        return self._result(params, opt_state, self.outputs)
+
+    def _result(self, params, opt_state, outputs):
+        outputs = {k: v.clone() for k, v in outputs.items()}
+        if self.donate:
+            return params, opt_state, outputs
+        return _clone(self.params), _clone(self.opt_state), outputs
+
+    def _capture(self, params, opt_state, sampler_state, key, signature):
+        self.graph = self.signature = None  # frees an earlier graph's pool
+        if self.donate:
+            self.params, self.opt_state = params, opt_state
+        else:
+            self.params, self.opt_state = _clone(params), _clone(opt_state)
+        self.key = torch.zeros((), dtype=torch.int64, device=self.device)
+        current = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            self._set_key(key)
+            _, _, outputs = self.run(self.params, self.opt_state, sampler_state, self.key)
+        current.wait_stream(side)
+        torch.cuda.synchronize(self.device)
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(self.device)
+        allocated = torch.cuda.memory_allocated(self.device)
+        torch.cuda.reset_peak_memory_stats(self.device)
+        graph = torch.cuda.CUDAGraph()
+        t0 = time.perf_counter()
+        with torch.cuda.graph(graph):
+            _, _, self.outputs = self.run(self.params, self.opt_state, sampler_state, self.key)
+        capture_s = time.perf_counter() - t0
+        self.stats = {
+            "capture_s": capture_s,
+            "pool_bytes": torch.cuda.memory_reserved(self.device) - reserved,
+            "peak_bytes": torch.cuda.max_memory_allocated(self.device) - allocated,
+        }
+        self.graph, self.signature = graph, signature
+        return self._result(params, opt_state, outputs)
+
+
+def build_device_train_step(
+    bess: BessKGE,
+    optimizer: DenseOptimizer,
+    sampler: DeviceBatchSampler,
+    mesh: Any = None,
+    entity_optimizer: Optional[EntityOptimizer] = None,
+    donate: bool = True,
+    steps_per_call: int = 1,
+    device: Device = None,
+) -> Callable:
+    """Build ``fn(params, opt_state, sampler_state, key, rng=None) ->
+    (params, opt_state, outputs)`` with the batch drawn on the device by
+    ``sampler`` (default device ``cuda``): the host feeds nothing but a key
+    per call (:meth:`DeviceBatchSampler.next_key`), and ``sampler_state``
+    is :meth:`DeviceBatchSampler.state` on that device.
+
+    ``steps_per_call > 1`` runs that many optimizer steps per call, on the
+    keys :func:`~besskge_tpu_torch.device_sampler.split_key` derives from
+    ``key``; ``outputs`` then holds only the last step's ``loss``. Both
+    forms of :func:`build_train_step` are taken: sparse with an
+    :class:`~besskge_tpu_torch.optim.EntityRowOptimizer`, dense with or
+    without :class:`~besskge_tpu_torch.optim.FusedDenseAdamW`.
+
+    On a card one call is one CUDA graph of all its steps, captured on the
+    first call and replayed from then on (:class:`_GraphedCall`); a capture
+    that fails raises. On the CPU the same steps run eagerly.
+
+    :param donate: ``True``: ``params`` and ``opt_state`` are updated in
+        place and returned; ``False``: the caller's are left as they were.
+    :param rng: dropout streams (ConvE, ROADMAP A11): must be ``None``.
+    """
+    _no_mesh(mesh)
+    device = resolve_device(device)
+    run = _device_steps(bess, optimizer, sampler, entity_optimizer, steps_per_call)
+    graphed = _GraphedCall(run, donate, device) if device.type == "cuda" else None
+
+    def fn(params: Params, opt_state: Dict[str, Any], sampler_state: Dict[str, torch.Tensor],
+           key: torch.Tensor, rng: Any = None):
+        if rng is not None:
+            raise NotImplementedError(
+                "dropout streams (ConvE) are not ported yet (ROADMAP A11); pass rng=None"
+            )
+        for what, t in (("params", params["entity_embedding"]),
+                        ("sampler_state", sampler_state["hrt"])):
+            if t.device.type != device.type:
+                raise ValueError(f"{what} on {t.device}, step built for {device}")
+        if graphed is not None:
+            return graphed(params, opt_state, sampler_state, key)
+        if not donate:
+            params, opt_state = _clone(params), _clone(opt_state)
+        return run(params, opt_state, sampler_state, torch.as_tensor(key, dtype=torch.int64))
+
+    fn._eager = run  # type: ignore[attr-defined]
+    fn._graph = graphed  # type: ignore[attr-defined]
+    return fn
+
+
 class Trainer:
     """End-to-end training driver on one device.
 
     :param bess: the BESS module (must have a ``loss_fn``).
     :param batch_sampler: host-side batch stream
-        (:class:`~besskge_tpu_torch.batch_sampler.ShardedBatchSampler`); a
-        device sampler is not ported yet (ROADMAP A8).
+        (:class:`~besskge_tpu_torch.batch_sampler.ShardedBatchSampler`) or a
+        :class:`~besskge_tpu_torch.device_sampler.DeviceBatchSampler`: with
+        the latter, batches are drawn on the device and the host feeds only
+        keys (:func:`build_device_train_step`).
     :param optimizer: dense optimizer of the replicated params (of every
         param without an ``entity_optimizer``).
     :param mesh: must be ``None``.
@@ -241,14 +446,15 @@ class Trainer:
         (ConvE: ROADMAP A11); kept as :attr:`seed`.
     :param entity_optimizer: sparse row optimizer of the entity table, or
         :class:`~besskge_tpu_torch.optim.FusedDenseAdamW`.
-    :param steps_per_call: must be 1 (fused steps need on-device sampling).
+    :param steps_per_call: with a device sampler, optimizer steps per call
+        (one CUDA graph on a card).
     :param device: default ``cuda``.
     """
 
     def __init__(
         self,
         bess: BessKGE,
-        batch_sampler: ShardedBatchSampler,
+        batch_sampler: Union[ShardedBatchSampler, DeviceBatchSampler],
         optimizer: DenseOptimizer,
         mesh: Any = None,
         params: Optional[Params] = None,
@@ -260,11 +466,15 @@ class Trainer:
         if bess.loss_fn is None:
             raise ValueError("Training requires a loss_fn on the BESS module")
         _no_mesh(mesh)
-        if not isinstance(batch_sampler, ShardedBatchSampler) or steps_per_call != 1:
-            raise NotImplementedError(
-                "on-device sampling (DeviceBatchSampler, steps_per_call) is not"
-                " ported yet (ROADMAP A8); use a host ShardedBatchSampler"
+        self.device_sampling = isinstance(batch_sampler, DeviceBatchSampler)
+        if not (self.device_sampling or isinstance(batch_sampler, ShardedBatchSampler)):
+            raise TypeError(
+                "batch_sampler must be a ShardedBatchSampler or a DeviceBatchSampler, got"
+                f" {type(batch_sampler).__name__}"
             )
+        if steps_per_call != 1 and not self.device_sampling:
+            raise ValueError("steps_per_call requires a DeviceBatchSampler")
+        self.steps_per_call = steps_per_call
         self.device = resolve_device(device)
         self.bess = bess
         self.batch_sampler = batch_sampler
@@ -292,9 +502,16 @@ class Trainer:
         self.opt_state = init_optimizer_state(
             optimizer, self.params, None, entity_optimizer, n_logical=n_global
         )
-        self.train_step = build_train_step(
-            bess, optimizer, None, entity_optimizer, device=self.device
-        )
+        if self.device_sampling:
+            self.sampler_state = batch_sampler.state(self.device)
+            self.train_step = build_device_train_step(
+                bess, optimizer, batch_sampler, None, entity_optimizer,
+                steps_per_call=steps_per_call, device=self.device,
+            )
+        else:
+            self.train_step = build_train_step(
+                bess, optimizer, None, entity_optimizer, device=self.device
+            )
         self.history: list = []
 
     def fit(
@@ -310,9 +527,10 @@ class Trainer:
     ) -> Dict[str, Any]:
         """Run ``n_epochs`` over the sampler; returns summary stats.
 
-        The numpy batch assembly runs in a background thread
-        (:meth:`ShardedBatchSampler.get_dataloader`), and each batch is moved
-        to the device one step ahead of its use.
+        With a host sampler the numpy batch assembly runs in a background
+        thread (:meth:`ShardedBatchSampler.get_dataloader`), and each batch
+        is moved to the device one step ahead of its use; with a device
+        sampler each call takes one key. A step of the history is a call.
 
         :param valid_fn: optional validation hook ``fn(params) -> {metric:
             value}``, called every ``valid_every`` epochs; results land in
@@ -327,7 +545,7 @@ class Trainer:
             self.batch_sampler.batches_per_step
             * self.batch_sampler.n_shard
             * self.batch_sampler.shard_bs
-        )
+        ) * (self.steps_per_call if self.device_sampling else 1)
         out: Optional[Dict[str, Any]] = None
         t0 = time.perf_counter()
         for epoch in range(n_epochs):
@@ -352,7 +570,20 @@ class Trainer:
         }
 
     def _step_stream(self, epoch: int, shuffle: bool) -> Iterator[Dict[str, Any]]:
-        """Run one epoch of train steps, yielding each step's outputs."""
+        """Run one epoch of train steps, yielding each step's outputs.
+
+        Host-sampler path: iterate the background-prefetched dataloader and
+        ship each batch. Device-sampler path: feed only a deterministic
+        per-call key (``steps_per_call`` steps per call)."""
+        if self.device_sampling:
+            n_calls = max(1, -(-len(self.batch_sampler) // self.steps_per_call))
+            for i in range(n_calls):
+                key = self.batch_sampler.next_key(epoch * n_calls + i)
+                self.params, self.opt_state, out = self.train_step(
+                    self.params, self.opt_state, self.sampler_state, key
+                )
+                yield out
+            return
 
         def put_ahead(it, depth=2):
             q: deque = deque()

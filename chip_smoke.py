@@ -58,6 +58,21 @@ the CUDA toolkit. Phases, one line each with its elapsed seconds:
    ``Trainer.fit`` over a few steps, and 2 x 20 timed steps beside 2 x 20 of
    the plain dense ``AdamW`` form (``entity_optimizer=None``, no kernel).
 
+8. device training: ``bench.py``'s headline steps as it runs them, with the
+   batch drawn on the card by ``DeviceBatchSampler`` ("runs" positives) and
+   ``build_device_train_step`` making one CUDA graph of each call: the
+   wikikg2 step at ``steps_per_call`` 8 and the biokg step, with plain
+   ``AdamW`` and with ``FusedDenseAdamW``, at 10. Gates: a call's batches
+   drawn on the card equal the CPU's bit for bit; one ``steps_per_call=1``
+   call on the card is held against the same call on the CPU; the first
+   call (eager, then captured) and two replays are each held against the
+   eager card steps from the same state with the same key, the replays
+   under ``torch.cuda.set_sync_debug_mode("error")``, with their launches
+   counted (B1 and B2 2 x spc and B3 spc per wikikg2 call, B10 spc per
+   fused biokg call) and a replay's kernels counted by name by the
+   profiler; ``Trainer.fit`` over three calls of each; then 2 x 5 timed
+   calls of each form, in turns.
+
 Each path is driven with every launch count set to 0 just before it and
 read just after. Then one JSON line describing each kernel, and the result
 line. Any failed check raises, so the script exits non-zero and prints no
@@ -91,6 +106,7 @@ from besskge_tpu_torch.bess import (  # noqa: E402
     build_topk_forward,
 )
 from besskge_tpu_torch.dataset import KGDataset  # noqa: E402
+from besskge_tpu_torch.device_sampler import DeviceBatchSampler, split_key  # noqa: E402
 from besskge_tpu_torch.loss import LogSigmoidLoss, SampledSoftmaxCrossEntropyLoss  # noqa: E402
 from besskge_tpu_torch.metric import Evaluation  # noqa: E402
 from besskge_tpu_torch.negative_sampler import (  # noqa: E402
@@ -148,6 +164,15 @@ DENSE_FIT_STEPS = 4
 # held to the tolerance plus lr·|r_card − r_cpu|, where r = m̂/(√v̂ + eps) of
 # each device's own moments, and the moments themselves to the tolerance.
 DENSE_RTOL = 1e-5
+
+# Device-sampled training: bench.py's headline steps as it runs them, the
+# batch drawn on the device from a key ("runs" positives) and
+# steps_per_call steps per call, one CUDA graph on the card.
+WIKIKG2_SPC, BIOKG_SPC = 8, 10
+# Timed calls per set: at least DEVICE_TIMED_CALLS, and enough to fill
+# DEVICE_TIMED_S seconds.
+DEVICE_TIMED_CALLS, DEVICE_TIMED_S = 20, 0.5
+DEVICE_FIT_CALLS = 3
 
 L1_SOURCE = "besskge_tpu_torch/csrc/l1_distance.cu"
 ROW_SOURCE = "besskge_tpu_torch/csrc/row_update.cu"
@@ -877,6 +902,8 @@ def autograd(gen: torch.Generator) -> dict:
 
 
 def _training_setup(triples: np.ndarray, sharding: Sharding, score_fn: TransE):
+    """The wikikg2 module and its host sampler over ``triples``, and their
+    partitioned triples."""
     dataset = KGDataset(n_entity=N_ENTITY, n_relation_type=N_RELATION, triples={"train": triples},
                         original_triple_ids={"train": np.arange(len(triples))})
     pts = PartitionedTripleSet.create_from_dataset(dataset, "train", sharding)
@@ -886,13 +913,38 @@ def _training_setup(triples: np.ndarray, sharding: Sharding, score_fn: TransE):
                                     augment_negative=True)
     sampler = RandomShardedBatchSampler(pts, ns, shard_bs=SHARD_BS_TRAIN, batches_per_step=BPS,
                                         seed=SEED)
-    return module, sampler
+    return module, sampler, pts
 
 
-def _clone_state(state):
-    if isinstance(state, dict):
-        return {k: _clone_state(v) for k, v in state.items()}
-    return state.clone()
+def _wikikg2():
+    """The wikikg2 configuration's random triples, sharding and TransE-L1
+    scorer with bf16 scoring math, and the generator that drew the triples."""
+    rng = np.random.default_rng(SEED)
+    triples = np.stack([rng.integers(N_ENTITY, size=N_TRIPLE), rng.integers(N_RELATION, size=N_TRIPLE),
+                        rng.integers(N_ENTITY, size=N_TRIPLE)], 1).astype(np.int32)
+    sharding = Sharding.create(N_ENTITY, 1, seed=SEED)
+    score_fn = TransE(True, 1, sharding, N_RELATION, DIM, seed=SEED)
+    score_fn.compute_dtype = torch.bfloat16
+    return triples, sharding, score_fn, rng
+
+
+def _biokg(triples=None):
+    """bench.py's biokg configuration: its random triples (or ``triples``),
+    sharding, RotatE scorer, module and partitioned triples."""
+    if triples is None:
+        rng = np.random.default_rng(SEED)  # bench.py _make_dataset's stream
+        triples = np.stack([rng.integers(DENSE_ENTITY, size=DENSE_TRIPLE),
+                            rng.integers(DENSE_RELATION, size=DENSE_TRIPLE),
+                            rng.integers(DENSE_ENTITY, size=DENSE_TRIPLE)], 1).astype(np.int32)
+    sharding = Sharding.create(DENSE_ENTITY, 1, seed=SEED)
+    dataset = KGDataset(n_entity=DENSE_ENTITY, n_relation_type=DENSE_RELATION,
+                        triples={"train": triples}, original_triple_ids={"train": np.arange(len(triples))})
+    pts = PartitionedTripleSet.create_from_dataset(dataset, "train", sharding)
+    score_fn = RotatE(True, 2, sharding, DENSE_RELATION, DENSE_EMB, seed=SEED)
+    ns = RandomShardedNegativeSampler(1, sharding, SEED, "ht", local_sampling=False,
+                                      flat_negative_format=True)
+    module = EmbeddingMovingBessKGE(ns, score_fn, LogSigmoidLoss(12.0, True))
+    return triples, sharding, score_fn, module, pts
 
 
 def _to(state, device):
@@ -906,13 +958,8 @@ def training(gen: torch.Generator, profile: bool = False, device: str = "cuda") 
     "cpu" rehearses the phase with the plain versions)."""
     on_card = device == "cuda"
     t = time.perf_counter()
-    rng = np.random.default_rng(SEED)
-    triples = np.stack([rng.integers(N_ENTITY, size=N_TRIPLE), rng.integers(N_RELATION, size=N_TRIPLE),
-                        rng.integers(N_ENTITY, size=N_TRIPLE)], 1).astype(np.int32)
-    sharding = Sharding.create(N_ENTITY, 1, seed=SEED)
-    score_fn = TransE(True, 1, sharding, N_RELATION, DIM, seed=SEED)
-    score_fn.compute_dtype = torch.bfloat16
-    module, sampler = _training_setup(triples, sharding, score_fn)
+    triples, sharding, score_fn, rng = _wikikg2()
+    module, sampler, _ = _training_setup(triples, sharding, score_fn)
     batches = [sampler.sample_batch(b) for b, _ in zip(sampler.epoch_index_blocks(), range(2 + 2 * TIMED_STEPS))]
     sgd = optim.SGD(LR, momentum=MOMENTUM)
     rows = {v: optim.RowSGDM(LR, momentum=MOMENTUM, interleaved=True, fused_variant=v)
@@ -937,7 +984,7 @@ def training(gen: torch.Generator, profile: bool = False, device: str = "cuda") 
     pool = torch.from_numpy(rng.choice(n_logical, size=4 * N_UNTOUCHED, replace=False))
     untouched = pool[~torch.isin(pool, touched)][:N_UNTOUCHED]
     reset_counts()
-    card_params, card_state, card_out = steps["xla"](params, _clone_state(state0), batch)
+    card_params, card_state, card_out = steps["xla"](params, trainer._clone(state0), batch)
     sync(device)
     counts_default = read_counts()
     if on_card:
@@ -976,7 +1023,7 @@ def training(gen: torch.Generator, profile: bool = False, device: str = "cuda") 
     # The fused variant from the same state.
     fused_params = {k: v.clone() for k, v in initial.items()}
     reset_counts()
-    fused_params, _, fused_out = steps["fused"](fused_params, _clone_state(state0), batch)
+    fused_params, _, fused_out = steps["fused"](fused_params, trainer._clone(state0), batch)
     sync(device)
     counts_fused = read_counts()
     if on_card:
@@ -996,7 +1043,7 @@ def training(gen: torch.Generator, profile: bool = False, device: str = "cuda") 
     del initial
 
     # Trainer.fit, the entry a user calls, over a few steps.
-    fit_module, fit_sampler = _training_setup(triples[:FIT_TRIPLES], sharding, score_fn)
+    fit_module, fit_sampler, _ = _training_setup(triples[:FIT_TRIPLES], sharding, score_fn)
     fit = trainer.Trainer(fit_module, fit_sampler, sgd, params=card_params,
                           entity_optimizer=rows["xla"], device=device)
     summary = fit.fit(n_epochs=1, log_every=1)
@@ -1169,18 +1216,8 @@ def dense_training(gen: torch.Generator, profile: bool = False, device: str = "c
     card (``device`` "cpu" rehearses the phase with the plain versions)."""
     on_card = device == "cuda"
     t = time.perf_counter()
-    rng = np.random.default_rng(SEED)  # bench.py _make_dataset's stream
-    triples = np.stack([rng.integers(DENSE_ENTITY, size=DENSE_TRIPLE),
-                        rng.integers(DENSE_RELATION, size=DENSE_TRIPLE),
-                        rng.integers(DENSE_ENTITY, size=DENSE_TRIPLE)], 1).astype(np.int32)
-    sharding = Sharding.create(DENSE_ENTITY, 1, seed=SEED)
-    dataset = KGDataset(n_entity=DENSE_ENTITY, n_relation_type=DENSE_RELATION,
-                        triples={"train": triples}, original_triple_ids={"train": np.arange(DENSE_TRIPLE)})
-    pts = PartitionedTripleSet.create_from_dataset(dataset, "train", sharding)
-    score_fn = RotatE(True, 2, sharding, DENSE_RELATION, DENSE_EMB, seed=SEED)
-    ns = RandomShardedNegativeSampler(1, sharding, SEED, "ht", local_sampling=False,
-                                      flat_negative_format=True)
-    module = EmbeddingMovingBessKGE(ns, score_fn, LogSigmoidLoss(12.0, True))
+    triples, sharding, score_fn, module, pts = _biokg()
+    ns = module.negative_sampler
     sampler = RandomShardedBatchSampler(pts, ns, shard_bs=DENSE_SHARD_BS,
                                         batches_per_step=DENSE_BPS, seed=SEED)
     positives = DENSE_SHARD_BS * DENSE_BPS
@@ -1292,31 +1329,359 @@ def dense_training(gen: torch.Generator, profile: bool = False, device: str = "c
     return {"dense_adamw_update": {"launches": counts["dense_adamw_update"]}, "step_ms": timed}
 
 
-def profile_steps(step, params, state, batches, trace: str) -> None:
-    """Device time by kernel and the device's busy share over a few steps
-    (``torch.profiler``); the trace goes to chiprun_out/."""
+def _adam_params(params: dict, state: dict) -> dict:
+    """name -> (param, its AdamW moments {"mu", "nu"}) of a dense form's
+    params and state: plain AdamW over every param, or FusedDenseAdamW on
+    the table beside AdamW on the relations."""
+    if "entity" in state:
+        rel = "relation_embedding"
+        return {"entity_embedding": (params["entity_embedding"], state["entity"]),
+                rel: (params[rel], {k: state["other"][k][rel] for k in ("mu", "nu")})}
+    return {k: (v, {m: state[m][k] for m in ("mu", "nu")}) for k, v in params.items()}
+
+
+def _hold_dense(what: str, got: tuple, want: tuple, count: int, lr: float) -> dict:
+    """A dense form's (params, state) against another's: equal bits, or every
+    param within DENSE_RTOL x (|want| + max|want|) plus lr x the difference
+    of m^/(v^1/2 + eps) of each side's own moments, and the moments within
+    the tolerance. Returns each array's max |err| (0.0: equal bits)."""
+    errs = {}
+    g_adam, w_adam = _adam_params(*got), _adam_params(*want)
+    for name, (w_param, w_mom) in w_adam.items():
+        g_param, g_mom = g_adam[name]
+        g_mom = {k: v.cpu() for k, v in g_mom.items()}
+        w_mom = {k: v.cpu() for k, v in w_mom.items()}
+        moved = DENSE_LR * (_adam_ratio(g_mom, count, 0.9, 0.999)
+                            - _adam_ratio(w_mom, count, 0.9, 0.999)).abs()
+        for part, g, w, extra in ((name, g_param.cpu(), w_param.cpu(), moved),
+                                  (f"{name} mu", g_mom["mu"], w_mom["mu"], 0.0),
+                                  (f"{name} nu", g_mom["nu"], w_mom["nu"], 0.0)):
+            err = (g - w).abs()
+            tol = DENSE_RTOL * (w.abs() + w.abs().max()) + extra
+            if not (err <= tol).all() or not torch.isfinite(g).all():
+                raise AssertionError(f"{what}: {part} off by {err.max().item()}")
+            errs[part] = err.max().item()
+    return errs
+
+
+def _hold_sparse(what: str, got: tuple, want: tuple, rows=None) -> dict:
+    """The sparse form's (params, state) against another's over the relation
+    table and its momentum and, given ``rows``, at those logical rows of the
+    entity table (params and momentum), within BF16_STEP_RTOL x (|want| +
+    max|want|)."""
+    errs = {}
+    if rows is not None:
+        pairs = 2 * rows[:, None] + torch.arange(2)
+        for sub, col in (("params", 0), ("momentum", 1)):
+            idx = pairs[:, col]
+            errs[sub] = _within(what, sub, got[0]["entity_embedding"][idx.to(
+                got[0]["entity_embedding"].device)].cpu(), want[0]["entity_embedding"][idx.to(
+                    want[0]["entity_embedding"].device)].cpu())
+    rel = "relation_embedding"
+    errs["relation"] = _within(what, "relation", got[0][rel].cpu(), want[0][rel].cpu())
+    errs["relation momentum"] = _within(what, "relation momentum",
+                                        got[1]["other"]["trace"][rel].cpu(),
+                                        want[1]["other"]["trace"][rel].cpu())
+    return errs
+
+
+def _within(what: str, name: str, got: torch.Tensor, want: torch.Tensor) -> float:
+    err = (got - want).abs()
+    tol = BF16_STEP_RTOL * (want.abs() + want.abs().max())
+    if not (err <= tol).all() or not torch.isfinite(got).all():
+        raise AssertionError(f"{what}: {name} off by {err.max().item()}")
+    return err.max().item()
+
+
+def _device_forms(gen: torch.Generator, device: str) -> dict:
+    """bench.py's device-sampled steps at full width: the wikikg2 step
+    (RowSGDM interleaved, B3) at steps_per_call 8 and the biokg step with
+    plain AdamW (bench.py's form) and with FusedDenseAdamW (B10) at 10."""
+    forms = {}
+    triples, sharding, score_fn, _ = _wikikg2()
+    module, _, pts = _training_setup(triples, sharding, score_fn)
+    params = score_fn.initial_params_device(device=device, generator=gen)
+    params["entity_embedding"] = optim.interleave_momentum(params["entity_embedding"])
+    sgd, row = optim.SGD(LR, momentum=MOMENTUM), optim.RowSGDM(LR, momentum=MOMENTUM,
+                                                               interleaved=True)
+    forms["wikikg2"] = dict(
+        module=module, opt=sgd, ent=row, spc=WIKIKG2_SPC, params=params, pts=pts,
+        state=trainer.init_optimizer_state(sgd, params, None, row,
+                                           n_logical=sharding.max_entity_per_shard),
+        sampler=DeviceBatchSampler(pts, module.negative_sampler, shard_bs=SHARD_BS_TRAIN,
+                                   batches_per_step=BPS, seed=SEED, positive_mode="runs"),
+        triples=triples, want={"l1_distance_matrix_batched": 2, "l1_distance_grads_batched": 2,
+                               "scatter_rows": 1},
+        kernels={"l1_distance_small_kernel": 2, "l1_grads_kernel": 2, "scatter_rows_kernel": 1})
+    triples, sharding, score_fn, module, pts = _biokg()
+    sampler = DeviceBatchSampler(pts, module.negative_sampler, shard_bs=DENSE_SHARD_BS,
+                                 batches_per_step=DENSE_BPS, seed=SEED, positive_mode="runs")
+    initial = score_fn.initial_params_device(device=device, generator=gen)
+    for name, ent in (("biokg_adamw", None),
+                      ("biokg_fused", optim.FusedDenseAdamW(DENSE_LR, weight_decay=1e-4))):
+        adamw = optim.AdamW(DENSE_LR)
+        params = {k: v.clone() for k, v in initial.items()}
+        forms[name] = dict(
+            module=module, opt=adamw, ent=ent, spc=BIOKG_SPC, params=params, pts=pts,
+            state=trainer.init_optimizer_state(adamw, params, None, ent), sampler=sampler,
+            triples=triples, want={"dense_adamw_update": 1} if ent else {},
+            kernels={"dense_adamw_kernel": 1} if ent else {})
+    for form in forms.values():
+        form["fn"] = trainer.build_device_train_step(
+            form["module"], form["opt"], form["sampler"], None, form["ent"],
+            steps_per_call=form["spc"], device=device)
+        form["sampler_state"] = form["sampler"].state(device)
+    return forms
+
+
+def _card_batches_equal_cpu(name: str, form: dict) -> None:
+    """The batches of one call drawn on the card equal those drawn on the
+    CPU from the same key, bit for bit."""
+    dev, spc = form["sampler"], form["spc"]
+    cpu_state = dev.state("cpu")
+    key = dev.next_key(1000)
+    card_keys, cpu_keys = split_key(key.cuda(), spc), split_key(key, spc)
+    if not torch.equal(card_keys.cpu(), cpu_keys):
+        raise AssertionError(f"{name}: the call's keys differ between the card and the CPU")
+    for k_card, k_cpu in zip(card_keys, cpu_keys):
+        card, cpu = dev.sample(form["sampler_state"], k_card), dev.sample(cpu_state, k_cpu)
+        for key_name, want in cpu.items():
+            if not torch.equal(card[key_name].cpu(), want):
+                raise AssertionError(f"{name}: batch {key_name!r} drawn on the card differs from"
+                                     " the CPU's")
+    say("device", f"{name}: the {spc} batches of a call drawn on the card equal the CPU's bit for"
+        f" bit ({', '.join(f'{k} {tuple(v.shape)}' for k, v in cpu.items())})")
+
+
+def _graph_equals_eager(name: str, form: dict) -> dict:
+    """The first call (eager on a side stream, then captured) and two
+    replays, each held against the eager card steps from the same state with
+    the same key. The path's counts are set to 0 before each call and read
+    after it: the first call's wrappers launch each kernel spc times a
+    step's count in the warm-up and as many again into the capture; a replay
+    calls no wrapper (no fall-back to eager steps, no new capture), runs
+    under the sync debug mode "error" (any host synchronisation raises), and
+    its launches are counted by the profiler, by kernel name. Returns the
+    comparisons, counts and capture statistics."""
+    fn, dev, spc, st = form["fn"], form["sampler"], form["spc"], form["sampler_state"]
+    graph = (form["params"], form["state"])
+    eager = (trainer._clone(form["params"]), trainer._clone(form["state"]))
+    sparse = name == "wikikg2"
+    results = {"replays": []}
+    for call in range(3):
+        key = dev.next_key(call)
+        if call:
+            trainer._write_back(eager[0], graph[0])
+            trainer._write_back(eager[1], graph[1])
+        reset_counts()
+        if call:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            fn(*graph, st, key)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        counts = read_counts()
+        per_call = 0 if call else 2  # a replay calls no wrapper
+        expect_counts(f"{name} call {call}", counts,
+                      {k: per_call * n * spc for k, n in form["want"].items()})
+        if not call:
+            results["first_call_wrapper_launches"] = {k: v for k, v in counts.items() if v}
+        fn._eager(*eager, st, key.cuda())
+        torch.cuda.synchronize()
+        bits = {path: torch.equal(g, e) for (path, g), (_, e) in zip(
+            trainer._leaves({"params": graph[0], "state": graph[1]}),
+            trainer._leaves({"params": eager[0], "state": eager[1]}))}
+        if sparse:
+            # The entity table (params and momentum rows) and the step counts
+            # come from sums without atomics: equal bits.
+            exact = [p for p in bits if "entity" in p or p.endswith("count")]
+            errs = _hold_sparse(f"{name} call {call} (graph vs eager)", graph, eager)
+        else:
+            exact = [p for p in bits if p.endswith("count")]
+            errs = _hold_dense(f"{name} call {call} (graph vs eager)", graph, eager,
+                               (call + 1) * spc, DENSE_LR)
+        if not all(bits[p] for p in exact):
+            raise AssertionError(f"{name} call {call}: graph and eager differ in"
+                                 f" {[p for p in exact if not bits[p]]}")
+        results["replays"].append({"call": call, "graph": call > 0, "bitwise": bits,
+                                   "max_abs_err": errs})
+        say("device", f"{name} call {call} ({'replay' if call else 'eager warm-up, then capture'},"
+            f" key {int(key)}): {'; '.join(f'{p} equal' if b else f'{p} differs' for p, b in bits.items())}"
+            f" against the eager card steps (max|err| {', '.join(f'{k} {v:.3g}' for k, v in errs.items())});"
+            f" wrapper launches {dict((k, v) for k, v in counts.items() if v)}"
+            + ("" if call else " (the warm-up's and the capture's)"))
+    results.update(fn._graph.stats)
+    say("device", f"{name}: capture of {spc} steps {results['capture_s']:.3f} s, graph pool"
+        f" {results['pool_bytes'] / 2**20:.1f} MiB, peak during capture"
+        f" {results['peak_bytes'] / 2**20:.1f} MiB; replays made no host sync")
+    # A replay's launches, by kernel name, from the profiler.
+    kernels = device_kernels(lambda: fn(*graph, st, dev.next_key(7)), 1)
+    seen = {kernel: sum(c for key, (_, c) in kernels.items() if kernel in key)
+            for kernel in form["kernels"]}
+    if seen != {k: n * spc for k, n in form["kernels"].items()}:
+        raise AssertionError(f"{name}: the profiler saw {seen} in a replay, expected"
+                             f" {spc} x {form['kernels']}")
+    results["launches_per_call"] = seen
+    say("device", f"{name}: a replay launched {seen} (profiler, by name)")
+    del eager
+    return results
+
+
+def _call_vs_cpu(name: str, form: dict) -> dict:
+    """One steps_per_call=1 call on the card against the same call on the
+    CPU, from copies of one state, within PERF.md section 2's tolerances."""
+    dev, key = form["sampler"], form["sampler"].next_key(500)
+    card = (trainer._clone(form["params"]), trainer._clone(form["state"]))
+    cpu = (_to(form["params"], "cpu"), _to(form["state"], "cpu"))
+    fn_card = trainer.build_device_train_step(form["module"], form["opt"], dev, None, form["ent"],
+                                              device="cuda")
+    fn_cpu = trainer.build_device_train_step(form["module"], form["opt"], dev, None, form["ent"],
+                                             device="cpu")
+    _, _, out = fn_card(*card, form["sampler_state"], key)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    _, _, cpu_out = fn_cpu(*cpu, dev.state("cpu"), key)
+    cpu_s = time.perf_counter() - t
+    loss, cpu_loss = float(out["loss"]), float(cpu_out["loss"])
+    rtol = 2.0**-8 if name == "wikikg2" else DENSE_RTOL
+    if not np.isfinite(loss) or abs(loss - cpu_loss) > rtol * abs(cpu_loss):
+        raise AssertionError(f"{name}: loss {loss} on the card, {cpu_loss} on the CPU")
+    if name == "wikikg2":
+        batch = dev.sample(dev.state("cpu"), key)
+        touched = torch.unique(torch.cat([batch[k].reshape(-1).long()
+                                          for k in ("head", "tail", "negative")]))
+        errs = _hold_sparse(f"{name} call vs the CPU", card, cpu, touched)
+    else:
+        errs = _hold_dense(f"{name} call vs the CPU", card, cpu, 1, DENSE_LR)
+    say("device", f"{name}: one steps_per_call=1 call on the card vs the CPU ({cpu_s:.1f}s): loss"
+        f" {loss:.6f} vs {cpu_loss:.6f}, max|err| {', '.join(f'{k} {v:.3g}' for k, v in errs.items())}")
+    return errs
+
+
+def device_training(gen: torch.Generator, profile: bool = False, device: str = "cuda") -> dict:
+    """bench.py's headline steps as it runs them: batches drawn on the device
+    (``DeviceBatchSampler``, "runs" positives), ``steps_per_call`` steps per
+    call of ``build_device_train_step``, one CUDA graph on the card
+    (``device`` "cpu" rehearses the phase eagerly, without the graph's
+    gates)."""
+    on_card = device == "cuda"
+    t = time.perf_counter()
+    forms = _device_forms(gen, device)
+    say("device", f"wikikg2 (spc {WIKIKG2_SPC}) and biokg (spc {BIOKG_SPC}, AdamW and"
+        f" FusedDenseAdamW) forms built ({time.perf_counter() - t:.1f}s set-up)")
+    results: Dict[str, dict] = {}
+    for name, form in forms.items():
+        if on_card:
+            _card_batches_equal_cpu(name, form)
+            results[name] = {"vs_cpu": _call_vs_cpu(name, form), **_graph_equals_eager(name, form)}
+        else:
+            out = form["fn"](form["params"], form["state"], form["sampler_state"],
+                             form["sampler"].next_key(0))[2]
+            results[name] = {"loss": float(out["loss"])}
+
+    # Trainer.fit, the entry a user calls, over a few calls.
+    for name, form in forms.items():
+        positives = form["sampler"].partition_sample_size  # one shard
+        fit_triples = form["triples"][: DEVICE_FIT_CALLS * form["spc"] * positives]
+        if name == "wikikg2":
+            fit_module, _, fit_pts = _training_setup(fit_triples, form["pts"].sharding,
+                                                     form["module"].score_fn)
+        else:
+            *_, fit_module, fit_pts = _biokg(fit_triples)
+        fit_dev = DeviceBatchSampler(fit_pts, fit_module.negative_sampler,
+                                     shard_bs=form["sampler"].shard_bs,
+                                     batches_per_step=form["sampler"].batches_per_step, seed=SEED,
+                                     positive_mode="runs")
+        fit = trainer.Trainer(fit_module, fit_dev, form["opt"],
+                              params={k: v.clone() for k, v in form["params"].items()},
+                              entity_optimizer=form["ent"], steps_per_call=form["spc"],
+                              device=device)
+        summary = fit.fit(n_epochs=1, log_every=1)
+        losses = [r["loss"] for r in fit.history]
+        if summary["steps"] != DEVICE_FIT_CALLS or not np.isfinite(losses).all():
+            raise AssertionError(f"{name} Trainer.fit: {summary}")
+        say("device", f"{name} Trainer.fit: {summary['steps']} calls of {form['spc']} steps, loss"
+            f" {losses[0]:.3f} -> {losses[-1]:.3f}, {summary['triples_per_s']:.0f} positive"
+            " triples/s, capture included")
+        del fit
+
+    # Two sets of warm calls of each form, in turns, host clock around
+    # synchronised runs; a set's length comes from a timed warm-up call.
+    timed: Dict[str, list] = {}
+    order = list(forms)
+    for name in order + order[::-1]:
+        form = forms[name]
+        fn, st, dev = form["fn"], form["sampler_state"], form["sampler"]
+        held = (form["params"], form["state"])
+        sync(device)
+        t = time.perf_counter()
+        fn(*held, st, dev.next_key(100))  # warm-up
+        sync(device)
+        n_calls = results[name].setdefault("timed_calls", max(
+            DEVICE_TIMED_CALLS, int(np.ceil(DEVICE_TIMED_S / (time.perf_counter() - t)))))
+        t = time.perf_counter()
+        for i in range(n_calls):
+            _, _, out = fn(*held, st, dev.next_key(101 + i))
+        sync(device)
+        timed.setdefault(name, []).append(
+            (time.perf_counter() - t) / (n_calls * form["spc"]) * 1e3)
+        results[name]["final_loss"] = float(out["loss"])
+    for name, ms in timed.items():
+        positives = forms[name]["sampler"].partition_sample_size
+        spread = 100 * abs(ms[0] - ms[1]) / min(ms)
+        say("device", f"{name} (device-sampled, {forms[name]['spc']} steps per call): {ms[0]:.4f} /"
+            f" {ms[1]:.4f} ms per step over {results[name]['timed_calls']} calls each (spread"
+            f" {spread:.1f} %), {positives / ms[0] * 1e3:.0f} / {positives / ms[1] * 1e3:.0f}"
+            " positive triples/s")
+        results[name]["ms_per_step"] = ms
+    if profile and on_card:
+        for name, form in forms.items():
+            fn, st, dev = form["fn"], form["sampler_state"], form["sampler"]
+            held = (form["params"], form["state"])
+            results[name]["profile"] = profile_run(
+                lambda: [fn(*held, st, dev.next_key(200 + i)) for i in range(2)],
+                2 * form["spc"], f"device_{name}_trace.json")
+    return results
+
+
+def profile_steps(step, params, state, batches, trace: str) -> dict:
+    """Device time by kernel and the device's busy share over a few host-fed
+    steps (``torch.profiler``); the trace goes to chiprun_out/."""
+    def run():
+        p, st = params, state
+        for b in batches:
+            p, st, _ = step(p, st, b)
+
+    return profile_run(run, len(batches), trace)
+
+
+def profile_run(run, n_steps: int, trace: str) -> dict:
+    """Device time by kernel (per step, over ``n_steps`` steps) and the
+    device's busy share while ``run()`` runs, from ``torch.profiler``; the
+    trace goes to chiprun_out/."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        for b in batches:
-            params, state, _ = step(params, state, b)
+        run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
     # Kernels only: an op's device time is its kernels' time again.
     device_us = {e.key: e.self_device_time_total for e in prof.key_averages()
                  if e.device_type == DeviceType.CUDA}
     busy_ms = sum(device_us.values()) / 1e3
-    say("profile", f"{len(batches)} steps: wall {wall_ms:.3f} ms, device kernels {busy_ms:.3f} ms"
+    say("profile", f"{n_steps} steps: wall {wall_ms:.3f} ms, device kernels {busy_ms:.3f} ms"
         f" ({100 * busy_ms / wall_ms:.1f} % busy)")
     for key, us in sorted(device_us.items(), key=lambda kv: -kv[1])[:15]:
         if us > 0:
-            say("profile", f"{us / 1e3 / len(batches):9.4f} ms per step  {key[:90]}")
+            say("profile", f"{us / 1e3 / n_steps:9.4f} ms per step  {key[:90]}")
     out = Path("chiprun_out")
     out.mkdir(exist_ok=True)
     prof.export_chrome_trace(str(out / trace))
+    return {"wall_ms": wall_ms, "device_ms": busy_ms, "busy_pct": 100 * busy_ms / wall_ms}
 
 
 # Kernels redesigned for the card's registers: they must not spill.
@@ -1399,6 +1764,7 @@ def main() -> int:
     dense_ms = dense.pop("step_ms")
     for name, run in dense.items():
         results[name].update(run)
+    device = device_training(gen, profile=profile)
 
     kernels = []
     for name, spec in KERNELS.items():
@@ -1433,6 +1799,25 @@ def main() -> int:
                       "positives_per_step": SHARD_BS_TRAIN * BPS}), flush=True)
     print(json.dumps({"dense_training_ms_per_step": dense_ms,
                       "dense_positives_per_step": DENSE_SHARD_BS * DENSE_BPS}), flush=True)
+    spc = {"wikikg2": WIKIKG2_SPC, "biokg_adamw": BIOKG_SPC, "biokg_fused": BIOKG_SPC}
+    print(json.dumps({
+        "device_training_ms_per_step": {name: r["ms_per_step"] for name, r in device.items()},
+        "steps_per_call": spc,
+        "host_sampled_ms_per_step": {"wikikg2": step_ms["xla"], "biokg_adamw": dense_ms["plain"],
+                                     "biokg_fused": dense_ms["fused"]},
+        "launches_per_call": {name: r["launches_per_call"] for name, r in device.items()},
+        "first_call_wrapper_launches": {name: r["first_call_wrapper_launches"]
+                                        for name, r in device.items()},
+        "timed_calls": {name: r["timed_calls"] for name, r in device.items()},
+        "capture_s": {name: r["capture_s"] for name, r in device.items()},
+        "graph_pool_bytes": {name: r["pool_bytes"] for name, r in device.items()},
+        "graph_capture_peak_bytes": {name: r["peak_bytes"] for name, r in device.items()},
+        "replay_bitwise_equal_to_eager": {
+            name: {path: all(rep["bitwise"][path] for rep in r["replays"])
+                   for path in r["replays"][0]["bitwise"]} for name, r in device.items()},
+        "busy_pct": {name: r["profile"]["busy_pct"] for name, r in device.items()
+                     if "profile" in r},
+    }), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

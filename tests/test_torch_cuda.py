@@ -4,6 +4,8 @@ Marked ``cuda``: without a card every test here skips. On a machine with one
 (and nvcc), run them with
 ``python -m pytest --noconftest tests/test_torch_cuda.py -q``;
 ``chip_smoke.py`` makes the same checks at the serving and training shapes.
+The last tests hold the device-sampled training call, one CUDA graph, to its
+eager steps and to the CPU.
 
 Tolerances: distances as in ``test_torch_l1_kernels.py``. Gradients (B2/B6)
 are fp32 sums of n = N (da) or B (db) terms ``±w`` in another order on each
@@ -25,13 +27,15 @@ from besskge_tpu_torch import bess, loss, optim, trainer
 from besskge_tpu_torch.batch_sampler import RandomShardedBatchSampler
 from besskge_tpu_torch.bess import TopKQueryBessKGE, build_topk_forward
 from besskge_tpu_torch.dataset import KGDataset
+from besskge_tpu_torch.device_sampler import DeviceBatchSampler, split_key
 from besskge_tpu_torch.negative_sampler import (
     PlaceholderNegativeSampler,
     RandomShardedNegativeSampler,
+    TypeBasedShardedNegativeSampler,
 )
 from besskge_tpu_torch.ops import adamw_kernels, distance, l1_kernels, row_kernels
 from besskge_tpu_torch.profiling import DISTANCE_EDGES, device_kernels
-from besskge_tpu_torch.scoring import TransE
+from besskge_tpu_torch.scoring import RotatE, TransE
 from besskge_tpu_torch.sharding import PartitionedTripleSet, Sharding
 
 pytestmark = pytest.mark.cuda
@@ -497,3 +501,186 @@ def test_dense_adamw_corrections_match_plain(cuda, t, count_dtype):
     torch.cuda.synchronize()
     assert torch.equal(mu, want[1]) and torch.equal(nu, want[2])
     assert ((p - want[0]).abs() <= 2.0**-22 * want[0].abs() + 1e-30).all()
+
+
+# --------------------------------------------------------------------------
+# Device-sampled training: one call of steps_per_call steps is one CUDA graph.
+# A replay is held against the eager card steps from the same state with the
+# same key: the sparse form's entity table and every step count to equal
+# bits (their sums have no atomics), the relation table, its momentum and
+# the dense forms' arrays within 1e-5 x (|want| + max|want|), plus, for an
+# AdamW param, lr x the difference of m^/(v^1/2 + eps) of the two sides.
+
+
+def _device_setup(device, form, spc, typed=False, hrt=False, donate=True):
+    n_entity, n_rel = 3000, 13
+    rng = np.random.default_rng(0)
+    triples = np.stack([rng.integers(n_entity, size=6000), rng.integers(n_rel, size=6000),
+                        rng.integers(n_entity, size=6000)], 1).astype(np.int32)
+    ds = KGDataset(n_entity=n_entity, n_relation_type=n_rel, triples={"train": triples},
+                   original_triple_ids={"train": np.arange(6000)},
+                   type_offsets={"a": 0, "b": 1000} if typed else None)
+    sharding = Sharding.create(n_entity, 1, seed=0,
+                               type_offsets=np.asarray([0, 1000]) if typed else None)
+    pts = PartitionedTripleSet.create_from_dataset(ds, "train", sharding)
+    if form == "sparse":
+        score_fn = TransE(True, 1, sharding, n_rel, 128, seed=0)
+        score_fn.compute_dtype = torch.bfloat16
+        ns = RandomShardedNegativeSampler(32, sharding, 0, "ht", False, flat_negative_format=True)
+        module = bess.EmbeddingMovingBessKGE(
+            ns, score_fn, loss.SampledSoftmaxCrossEntropyLoss(n_entity), augment_negative=True)
+        opt, ent = optim.SGD(0.05, momentum=0.9), optim.RowSGDM(0.05, momentum=0.9,
+                                                                 interleaved=True)
+    else:
+        score_fn = RotatE(True, 2, sharding, n_rel, 32, seed=0)
+        ns = (TypeBasedShardedNegativeSampler(pts.types, 2, sharding, "ht", False, 0) if typed
+              else RandomShardedNegativeSampler(1, sharding, 0, "ht", False,
+                                                flat_negative_format=True))
+        module = bess.EmbeddingMovingBessKGE(ns, score_fn, loss.LogSigmoidLoss(12.0, True))
+        opt = optim.AdamW(1e-3)
+        ent = optim.FusedDenseAdamW(1e-3, weight_decay=1e-4) if form == "fused" else None
+    dev = DeviceBatchSampler(pts, ns, shard_bs=128, batches_per_step=4, seed=0,
+                             hrt_freq_weighting=hrt, positive_mode="runs")
+    params = score_fn.initial_params(device="cpu")
+    if form == "sparse":
+        params["entity_embedding"] = optim.interleave_momentum(params["entity_embedding"])
+    params = {k: v.to(device) for k, v in params.items()}
+    state = trainer.init_optimizer_state(opt, params, None, ent, n_logical=n_entity)
+    fn = trainer.build_device_train_step(module, opt, dev, None, ent, donate, spc, device)
+    return fn, params, state, dev
+
+
+def _ratio(tree, name, count):
+    """m^/(v^1/2 + eps) of the AdamW moments of param ``name``."""
+    flat = dict(trainer._leaves(tree))
+    key = name.split(".", 1)[1]
+    mu = next(flat[n] for n in (f"state.mu.{key}", f"state.other.mu.{key}", "state.entity.mu")
+              if n in flat)
+    nu = flat[next(n for n in (f"state.nu.{key}", f"state.other.nu.{key}", "state.entity.nu")
+                   if n in flat)]
+    return (mu / (1 - 0.9**count)) / (torch.sqrt(nu / (1 - 0.999**count)) + 1e-8)
+
+
+def _assert_graph_like_eager(form, graph, eager, count):
+    g_tree, e_tree = dict(params=graph[0], state=graph[1]), dict(params=eager[0], state=eager[1])
+    for (name, g), (_, e) in zip(trainer._leaves(g_tree), trainer._leaves(e_tree)):
+        if name.endswith("count") or (form == "sparse" and "entity" in name):
+            assert torch.equal(g, e), name
+            continue
+        extra = 0.0
+        if form != "sparse" and name.startswith("params."):
+            extra = 1e-3 * (_ratio(g_tree, name, count) - _ratio(e_tree, name, count)).abs()
+        assert ((g - e).abs() <= 1e-5 * (e.abs() + e.abs().max()) + extra).all(), name
+
+
+# A step's kernel launches: by wrapper (counted where it launches) and by
+# kernel name (seen by the profiler).
+WANT_LAUNCHES = {
+    "sparse": {"l1_distance_matrix_batched": 2, "l1_distance_grads_batched": 2, "scatter_rows": 1},
+    "dense": {},
+    "fused": {"dense_adamw_update": 1},
+}
+WANT_KERNELS = {
+    "sparse": {"l1_distance_small_kernel": 2, "l1_grads_kernel": 2, "scatter_rows_kernel": 1},
+    "dense": {},
+    "fused": {"dense_adamw_kernel": 1},
+}
+WRAPPERS = (*l1_kernels._WRAPPERS, row_kernels.scatter_rows, row_kernels.fused_pair_sgdm,
+            row_kernels.scatter_rows_multi, row_kernels.gather_rows,
+            adamw_kernels.dense_adamw_update)
+
+
+def _wrapper_launches():
+    return {w.__name__: w.launches for w in WRAPPERS}
+
+
+@pytest.mark.parametrize("form", ["sparse", "dense", "fused"])
+def test_device_call_replays_equal_eager_steps(cuda, form):
+    """The first call runs eagerly, then captures: its wrappers launch each
+    kernel spc times a step's count and the capture records as many. Each
+    replay equals the eager card steps with the same key from the same
+    state, makes no host sync and calls no wrapper; the profiler sees its
+    kernels by name, spc times a step's."""
+    spc = 3
+    fn, params, state, dev = _device_setup(cuda, form, spc)
+    sampler_state = dev.state(cuda)
+    eager = (trainer._clone(params), trainer._clone(state))
+    for call in range(3):
+        key = dev.next_key(call)
+        if call:
+            trainer._write_back(eager[0], params)
+            trainer._write_back(eager[1], state)
+        for module in (l1_kernels, row_kernels, adamw_kernels):
+            module.reset_launch_counts()
+        if call:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            new_params, new_state, out = fn(params, state, sampler_state, key)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        assert new_params is params and new_state is state
+        per_call = 2 if call == 0 else 0  # the warm-up's launches and the capture's records
+        assert _wrapper_launches() == {
+            name: per_call * WANT_LAUNCHES[form].get(name, 0) * spc for name in _wrapper_launches()}
+        fn._eager(*eager, sampler_state, key.to(cuda))
+        torch.cuda.synchronize()
+        _assert_graph_like_eager(form, (params, state), eager, (call + 1) * spc)
+        assert torch.isfinite(out["loss"]).all()
+    assert fn._graph.stats["capture_s"] > 0
+    kernels = device_kernels(lambda: fn(params, state, sampler_state, dev.next_key(9)), 1)
+    for kernel, n in WANT_KERNELS[form].items():
+        assert sum(c for name, (_, c) in kernels.items() if kernel in name) == n * spc, kernel
+
+
+@pytest.mark.parametrize("typed,hrt", [(False, False), (True, True)])
+def test_device_batches_on_the_card_equal_the_cpu(cuda, typed, hrt):
+    _, _, _, dev = _device_setup("cpu", "dense", 1, typed=typed, hrt=hrt)
+    card, cpu = dev.state(cuda), dev.state("cpu")
+    for step in range(3):
+        key = dev.next_key(step)
+        keys = split_key(key, 4)
+        assert torch.equal(split_key(key.to(cuda), 4).cpu(), keys)
+        for k in (key, *keys):
+            got, want = dev.sample(card, k.to(cuda)), dev.sample(cpu, k)
+            assert got.keys() == want.keys()
+            for name in want:
+                if name == "triple_weight":  # a float sum in each device's order
+                    n = want[name].shape[-1]
+                    torch.testing.assert_close(got[name].cpu(), want[name],
+                                               rtol=2 * n * 2.0**-24, atol=0.0)
+                else:
+                    assert torch.equal(got[name].cpu(), want[name]), name
+
+
+def test_device_call_on_the_card_matches_the_cpu(cuda):
+    """One steps_per_call=1 call on the card against the same call on the
+    CPU (bf16 scores: one bf16 ulp of each value, as for the host step)."""
+    fn, params, state, dev = _device_setup(cuda, "sparse", 1)
+    cpu_fn, cpu_params, cpu_state, _ = _device_setup("cpu", "sparse", 1)
+    key = dev.next_key(3)
+    _, _, out = fn(params, state, dev.state(cuda), key)
+    _, _, cpu_out = cpu_fn(cpu_params, cpu_state, dev.state("cpu"), key)
+    torch.testing.assert_close(out["loss"].cpu(), cpu_out["loss"], rtol=2.0**-8, atol=0.0)
+    for name in cpu_params:
+        m = cpu_params[name].abs().max()
+        torch.testing.assert_close(params[name].cpu(), cpu_params[name], rtol=2.0**-7,
+                                   atol=2.0**-7 * m)
+
+
+def test_device_call_without_donation_leaves_the_inputs(cuda):
+    """``donate=False`` on the card: the graph keeps its own state, filled
+    from the caller's at every call; the caller's tensors stay as they were,
+    and each call's result is one call from them."""
+    fn, params, state, dev = _device_setup(cuda, "fused", 2, donate=False)
+    before = trainer._clone(dict(p=params, s=state))
+    sampler_state = dev.state(cuda)
+    for call in range(3):  # the capture, then replays
+        got = fn(params, state, sampler_state, dev.next_key(call))
+        torch.cuda.synchronize()
+        for (name, now), (_, was) in zip(trainer._leaves(dict(p=params, s=state)),
+                                         trainer._leaves(before)):
+            assert torch.equal(now, was), name
+        ref_fn, ref_params, ref_state, _ = _device_setup(cuda, "fused", 2)
+        ref_fn(ref_params, ref_state, sampler_state, dev.next_key(call))
+        _assert_graph_like_eager("fused", got[:2], (ref_params, ref_state), 2)

@@ -14,6 +14,7 @@ import importlib
 import inspect
 import pkgutil
 
+import numpy as np
 import pytest
 
 import besskge_tpu_torch
@@ -73,7 +74,13 @@ def test_the_scan_sees_the_ported_modules():
                  "besskge_tpu_torch.loss.LogSigmoidLoss", "besskge_tpu_torch.trainer.Trainer",
                  "besskge_tpu_torch.trainer.build_train_step",
                  "besskge_tpu_torch.batch_sampler.ShardedBatchSampler",
-                 "besskge_tpu_torch.bess.BessKGE.forward"):
+                 "besskge_tpu_torch.bess.BessKGE.forward",
+                 "besskge_tpu_torch.device_sampler.DeviceBatchSampler",
+                 "besskge_tpu_torch.device_sampler.DeviceBatchSampler.sample",
+                 "besskge_tpu_torch.device_sampler.DeviceBatchSampler.state",
+                 "besskge_tpu_torch.device_sampler.DeviceBatchSampler.slice_local",
+                 "besskge_tpu_torch.trainer.build_device_train_step",
+                 "besskge_tpu_torch.negative_sampler.TypeBasedShardedNegativeSampler"):
         assert must in names, must
     assert len(SHARED) > 60
 
@@ -100,13 +107,43 @@ def test_the_four_repaired_signatures():
     assert step[5:] == ["device"]
 
 
-def test_unported_sampler_options_raise():
-    fields = dict(partitioned_triple_set=None, negative_sampler=None, shard_bs=2,
-                  batches_per_step=1, seed=0)
-    for key, value in (("hrt_freq_weighting", True), ("weight_smoothing", 0.5),
-                       ("duplicate_batch", True)):
-        with pytest.raises(NotImplementedError, match="A8"):
-            port_bs.RandomShardedBatchSampler(**fields, **{key: value})
+def _sampler_batch(bs_mod, sh_mod, ds_mod, ns_mod, options):
+    rng = np.random.default_rng(0)
+    tri = np.stack([rng.integers(200, size=900), rng.integers(5, size=900),
+                    rng.integers(200, size=900)], 1).astype(np.int32)
+    ds = ds_mod.KGDataset(n_entity=200, n_relation_type=5, triples={"train": tri},
+                          original_triple_ids={"train": np.arange(900)})
+    sharding = sh_mod.Sharding.create(200, 2, seed=0)
+    pts = sh_mod.PartitionedTripleSet.create_from_dataset(ds, "train", sharding)
+    ns = ns_mod.RandomShardedNegativeSampler(3, sharding, 0, "ht", False, False)
+    sampler = bs_mod.RandomShardedBatchSampler(pts, ns, shard_bs=12, batches_per_step=2, seed=0,
+                                               **options)
+    return sampler.sample_batch(next(sampler.epoch_index_blocks(True)))
+
+
+@pytest.mark.parametrize("key,value", [("hrt_freq_weighting", True),
+                                       ("weight_smoothing", 0.5),
+                                       ("duplicate_batch", True)])
+def test_unported_sampler_options_raise(key, value):
+    """Each of the sampler options that once raised (ROADMAP A8) is ported:
+    the batch it gives equals the JAX package's for the same seed."""
+    from besskge_tpu import dataset as jax_ds
+    from besskge_tpu import negative_sampler as jax_ns
+    from besskge_tpu import sharding as jax_sh
+    from besskge_tpu_torch import dataset as port_ds
+    from besskge_tpu_torch import negative_sampler as port_ns
+    from besskge_tpu_torch import sharding as port_sh
+
+    options = {key: value}
+    if key == "weight_smoothing":
+        options["hrt_freq_weighting"] = True
+    want = _sampler_batch(jax_bs, jax_sh, jax_ds, jax_ns, options)
+    got = _sampler_batch(port_bs, port_sh, port_ds, port_ns, options)
+    assert got.keys() == want.keys()
+    assert ("triple_weight" in got) == options.get("hrt_freq_weighting", False)
+    for name in want:
+        assert got[name].dtype == want[name].dtype, name
+        np.testing.assert_array_equal(got[name], want[name], err_msg=name)
 
 
 def test_sixteen_bit_tables_raise_for_row_optimizers():

@@ -390,8 +390,11 @@ def test_unported_training_paths_raise():
         port_bess.EmbeddingMovingBessKGE(module.negative_sampler, fn,
                                          port_loss.SampledSoftmaxCrossEntropyLoss(N_ENTITY),
                                          evaluation=object())
-    with pytest.raises(NotImplementedError, match="A8"):
+    with pytest.raises(TypeError, match="ShardedBatchSampler or a DeviceBatchSampler"):
         port_trainer.Trainer(module, object(), sgd, entity_optimizer=row, device="cpu")
+    with pytest.raises(ValueError, match="steps_per_call requires a DeviceBatchSampler"):
+        port_trainer.Trainer(module, sampler, sgd, entity_optimizer=row, steps_per_call=2,
+                             device="cpu")
     params = fn.initial_params(device="cpu")
     params["entity_embedding"] = params["entity_embedding"][:-2]
     with pytest.raises(ValueError, match="rows"):
