@@ -17,6 +17,12 @@ ported: every collective is the identity. A mesh raises
 queries (a ``TripleBasedShardedNegativeSampler``) and ``AllScoresBESS`` are
 not ported yet (ROADMAP A14).
 
+The entity table may be in any layout the optimizers keep: plain, pair- or
+treble-major fp32, row-pair-packed 16-bit, or its triplet or quintuplet
+store (:mod:`besskge_tpu_torch.packed`); every read of it goes through
+``packed.take_rows``/``take_contiguous_rows``, and a top-k window over a
+packed table starts and ends on even rows (an odd window gathers).
+
 For TransE with L1 scoring the default chunk merge scores each window with
 one launch of the fused L1 kernel (scores + mask + 128-column chunk maxima,
 :func:`besskge_tpu_torch.ops.distance.l1_scores_chunkmax`); the sort merge
@@ -38,7 +44,15 @@ from besskge_tpu_torch.negative_sampler import (
     ShardedNegativeSampler,
 )
 from besskge_tpu_torch.ops.distance import l1_scores_chunkmax as ops_l1_scores_chunkmax
-from besskge_tpu_torch.packed import check_plain_table, take_contiguous_rows, take_rows
+from besskge_tpu_torch.packed import (
+    is_packed,
+    is_paired,
+    is_quintupled,
+    is_trebled,
+    is_tripled,
+    take_contiguous_rows,
+    take_rows,
+)
 from besskge_tpu_torch.scoring import BaseScoreFunction, DistanceBasedScoreFunction
 from besskge_tpu_torch.utils import gather_indices, resolve_device
 
@@ -410,14 +424,14 @@ class TopKQueryBessKGE:
             raise NotImplementedError("candidate-set queries are not ported yet (ROADMAP A14)")
         sharding = self.sharding
         n_rows = sharding.max_entity_per_shard
-        table = check_plain_table(params["entity_embedding"], n_rows)
-        device = table.device
+        table = params["entity_embedding"]
+        t_flat = table[0] if table.dim() == 3 else table
+        device = t_flat.device
         shard_bs = relation.shape[0]
         n_best = self.k + 1
         scheme = self.negative_sampler.corruption_scheme
         window = self.window_size
         n_candidate = n_rows
-        row_cap = table.shape[0]
 
         known = take_rows(table, tail if scheme == "h" else head, n_rows)
         cd = self.score_fn.compute_dtype
@@ -426,8 +440,26 @@ class TopKQueryBessKGE:
         # All-entities mode slides over contiguous local rows. The final
         # window clamps its start to stay in range; rows it re-reads from the
         # previous window are masked invalid (idx < i*W), so the merge never
-        # sees an entity twice. A window wider than the table gathers instead.
-        contiguous = window <= row_cap
+        # sees an entity twice. A window wider than the table, or an odd
+        # window over a packed table (whose windows start and end on packed
+        # rows), gathers instead. The logical row cap: a packed table backs
+        # 2 logical rows per physical row (2 per 3 in the triplet store, 2
+        # per 5 in the quintuplet one), a pair- or treble-major one 1 per 2
+        # or 3.
+        packed_tab = is_packed(t_flat)
+        if is_tripled(t_flat, n_rows):
+            row_cap = 2 * (t_flat.shape[0] // 3)
+        elif is_quintupled(t_flat, n_rows):
+            row_cap = 2 * (t_flat.shape[0] // 5)
+        elif packed_tab:
+            row_cap = 2 * t_flat.shape[0]
+        elif is_paired(t_flat, n_rows):
+            row_cap = t_flat.shape[0] // 2
+        elif is_trebled(t_flat, n_rows):
+            row_cap = t_flat.shape[0] // 3
+        else:
+            row_cap = t_flat.shape[0]
+        contiguous = window <= row_cap and not (packed_tab and window % 2)
         n_chunk = window // CHUNK
         use_chunk_merge = (
             self.merge_mode in ("auto", "chunk")

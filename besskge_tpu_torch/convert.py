@@ -22,6 +22,8 @@ def _tensor(value: Any, device: torch.device) -> torch.Tensor:
     arr = np.array(value)  # a writable copy: torch.from_numpy shares memory
     if arr.dtype.name == "bfloat16":
         return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16).to(device)
+    if arr.dtype == np.uint32:  # packed fp16 storage, carried by its bits
+        return torch.from_numpy(arr.view(np.int32)).view(torch.uint32).to(device)
     return torch.from_numpy(arr).to(device)
 
 
@@ -29,9 +31,11 @@ def params_from_jax(params: Dict[str, Any], device: Device = None) -> Dict[str, 
     """The port's params from the JAX package's, given as numpy arrays
     (``{k: np.asarray(v) for k, v in jax_params.items()}``), on ``device``
     (default ``cuda``). Values and dtypes are kept bit for bit — a plain
-    ``(N, D)`` table, a pair-major interleaved ``(2N, D)`` one and its
-    ``(1, ·, D)`` block alike; bfloat16 arrays (numpy dtype ``bfloat16``
-    from ``ml_dtypes``) are carried by their bits."""
+    ``(N, D)`` table, a pair-major ``(2N, D)`` or treble-major ``(3N, D)``
+    one, a row-pair-packed table (int32 bf16 pairs, uint32 fp16 pairs) or its
+    triplet ``(3P, D)`` or quintuplet ``(5P, D)`` store, and their
+    ``(1, ·, D)`` blocks alike; float16 arrays as they are, bfloat16 arrays
+    (numpy dtype ``bfloat16`` from ``ml_dtypes``) by their bits."""
     device = resolve_device(device)
     return {key: _tensor(value, device) for key, value in params.items()}
 
@@ -67,7 +71,8 @@ def opt_state_from_jax(state: Any, device: Device = None) -> Dict[str, Any]:
       dict of arrays in either package: ``{"count"}`` for an interleaved
       ``RowSGDM`` or ``RowAdamW`` (their moments live in the widened table,
       which :func:`params_from_jax` carries), ``{"m", "count"}`` for a
-      separate-buffer ``RowSGDM``, ``{"mu", "nu", "count"}`` for a
+      separate-buffer ``RowSGDM`` (a packed table's moments are logical-major
+      ``(2P, D)`` fp32), ``{"mu", "nu", "count"}`` for a
       separate-buffer ``RowAdamW`` and for ``FusedDenseAdamW``.
     * Without one, the optax state of every param becomes the port's dense
       state alone.
@@ -89,13 +94,19 @@ def opt_state_from_jax(state: Any, device: Device = None) -> Dict[str, Any]:
 def _numpy(value: Any) -> Any:
     if isinstance(value, dict):
         return {k: _numpy(v) for k, v in value.items()}
+    value = value.detach().cpu()
     if value.dtype == torch.bfloat16:
         value = value.float()  # exact: numpy has no bfloat16
-    return value.detach().cpu().numpy()
+    if value.dtype == torch.uint32:
+        return value.view(torch.int32).numpy().view(np.uint32)
+    return value.numpy()
 
 
 def params_to_numpy(params: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
-    """The port's params as numpy arrays (bfloat16 widened to float32)."""
+    """The port's params as numpy arrays: a packed table (or its triplet or
+    quintuplet store) as its int32 or uint32 words and float16 as float16,
+    bit for bit as the JAX package holds them; a plain bfloat16 table
+    widened to float32 (exact: numpy has no bfloat16)."""
     return _numpy(params)
 
 

@@ -45,7 +45,7 @@ from besskge_tpu_torch.negative_sampler import (
     TypeBasedShardedNegativeSampler,
 )
 from besskge_tpu_torch.sharding import PartitionedTripleSet
-from besskge_tpu_torch.utils import resolve_device
+from besskge_tpu_torch.utils import _M32, _mix32, _mul32, resolve_device
 
 __all__ = ["DeviceBatchSampler", "split_key"]
 
@@ -54,31 +54,11 @@ Batch = Dict[str, torch.Tensor]
 #: helpers, the same value as a Python int).
 Key = Union[torch.Tensor, int]
 
-_M32 = 0xFFFFFFFF
 _GOLDEN = 0x9E3779B9
 #: Salts of the two draw streams of a step (positives, negatives) and of the
 #: keys split from a call's key.
 _STREAM_SALT = (0x243F6A88, 0x85A308D3)
 _SPLIT_SALT = 0x13198A2E
-
-
-def _mul32(x: Key, c: int) -> Key:
-    """``x · c mod 2^32`` for ``0 ≤ x < 2^32`` without leaving int64: a
-    constant at or above 2^31 is split into ``c − 2^31`` and ``2^31``, whose
-    product with ``x`` is ``(x & 1) << 31`` mod 2^32."""
-    if c < 1 << 31:
-        return (x * c) & _M32
-    return (x * (c - (1 << 31)) + ((x & 1) << 31)) & _M32
-
-
-def _mix32(x: Key) -> Key:
-    """The ``lowbias32`` finaliser: a bijection of 32-bit values, on Python
-    ints or int64 tensors alike."""
-    x = x ^ (x >> 16)
-    x = _mul32(x, 0x7FEB352D)
-    x = x ^ (x >> 15)
-    x = _mul32(x, 0x846CA68B)
-    return x ^ (x >> 16)
 
 
 def split_key(key: torch.Tensor, n: int) -> torch.Tensor:

@@ -51,11 +51,21 @@ _PLAIN_TEMP_BYTES = 256 << 20
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
+def _check_dtypes(a: torch.Tensor, b: torch.Tensor) -> None:
+    if torch.float16 in (a.dtype, b.dtype):
+        raise NotImplementedError(
+            "the L1 kernels take float32 or bfloat16 operands, got float16: an fp16 table"
+            " scores through compute_dtype=torch.bfloat16 (fp16 operands for the L1"
+            " kernels: ROADMAP A17)"
+        )
+    if a.dtype != b.dtype or a.dtype not in _DTYPE_CODE:
+        raise ValueError(f"a and b must share a dtype in float32/bfloat16, got {a.dtype}, {b.dtype}")
+
+
 def _check_pair(a: torch.Tensor, b: torch.Tensor) -> None:
     if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[1]:
         raise ValueError(f"expected a (B, d) and b (N, d), got {tuple(a.shape)}, {tuple(b.shape)}")
-    if a.dtype != b.dtype or a.dtype not in _DTYPE_CODE:
-        raise ValueError(f"a and b must share a dtype in float32/bfloat16, got {a.dtype}, {b.dtype}")
+    _check_dtypes(a, b)
     if a.device != b.device:
         raise ValueError(f"a on {a.device} and b on {b.device}")
 
@@ -65,8 +75,7 @@ def _check_groups(a: torch.Tensor, b: torch.Tensor) -> None:
         raise ValueError(
             f"expected a (G, B, d) and b (G, N, d), got {tuple(a.shape)}, {tuple(b.shape)}"
         )
-    if a.dtype != b.dtype or a.dtype not in _DTYPE_CODE:
-        raise ValueError(f"a and b must share a dtype in float32/bfloat16, got {a.dtype}, {b.dtype}")
+    _check_dtypes(a, b)
     if a.device != b.device:
         raise ValueError(f"a on {a.device} and b on {b.device}")
 

@@ -101,6 +101,23 @@ def _copy_unit(name: str, row_bytes: int, tensors, units) -> int:
     raise ValueError(f"{name} copies {units[-1]}-byte units at least; rows of {row_bytes} bytes")
 
 
+_WORDS = (torch.int32, torch.uint32)
+
+
+def _as_storage(rows: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``rows`` in a table's dtype: a value cast, but the bits as they are
+    between the 32-bit integer dtypes of packed storage (int32, uint32)."""
+    if rows.dtype != dtype and rows.dtype in _WORDS and dtype in _WORDS:
+        return rows.view(dtype)
+    return rows.to(dtype)
+
+
+def _indexable(t: torch.Tensor) -> torch.Tensor:
+    """A view PyTorch's indexing writes: uint32 (packed fp16 storage) has
+    no ``index_put``, so its int32 view."""
+    return t.view(torch.int32) if t.dtype == torch.uint32 else t
+
+
 def _check_scatter(table: torch.Tensor, idx: torch.Tensor, rows: torch.Tensor, h: int) -> None:
     t = _flat(table)
     if idx.dim() != 1:
@@ -126,7 +143,8 @@ def scatter_rows_plain(
     _check_scatter(table, idx, rows, h)
     t = _flat(table)
     _check_range(idx, t.shape[0], h)
-    blocks = rows.to(t.dtype).reshape(idx.shape[0], h, t.shape[1])
+    blocks = _indexable(_as_storage(rows, t.dtype)).reshape(idx.shape[0], h, t.shape[1])
+    t = _indexable(t)
     idx = idx.long()
     if skip_dups:
         keep = _first_of_run(idx)
@@ -149,7 +167,8 @@ def scatter_rows(
     :param table: (n, D) table, or its (1, n, D) block; contiguous.
     :param idx: (R,) row indices in ``[0, n − h]``; duplicates allowed when
         their rows are identical, or under ``skip_dups``.
-    :param rows: (h·R, D) replacement rows (cast to the table's dtype).
+    :param rows: (h·R, D) replacement rows (cast to the table's dtype; int32
+        and uint32 words, packed storage, keep their bits).
     :param slice_rows: rows ``h`` written per index (``h = 2``: the
         [param | momentum] pairs of a pair-major table).
     :param skip_dups: ``idx`` is sorted and only the first slot of each run
@@ -161,7 +180,7 @@ def scatter_rows(
         return scatter_rows_plain(table, idx, rows, h, skip_dups)
     t = _flat(table)
     idx = idx.to(torch.int32).contiguous()
-    rows = rows.to(t.dtype).contiguous()
+    rows = _as_storage(rows, t.dtype).contiguous()
     row_bytes = t.shape[1] * t.element_size()
     unit = _copy_unit("scatter_rows", row_bytes, (t, rows), (16, 4, 2))
     rc = _library().bess_scatter_rows(
@@ -298,11 +317,13 @@ def scatter_rows_multi(
     and in one launch (replaces Pallas B8); returns ``tuple(tables)``.
 
     :param tables: 1 to :data:`MAX_TABLES` contiguous ``(n_b, D)`` tables or
-        ``(1, n_b, D)`` blocks with 4-byte elements on a card, D shared.
+        ``(1, n_b, D)`` blocks with 4-byte elements on a card (fp32, or
+        int32/uint32 packed storage), D shared.
     :param idxs: one ``(R_b,)`` index list per table, in ``[0, n_b)``; the
         lengths may differ. Duplicates allowed when their rows are identical,
         or under ``skip_dups``.
-    :param rows: one ``(R_b, D)`` buffer per table (cast to its dtype).
+    :param rows: one ``(R_b, D)`` buffer per table (cast to its dtype as
+        :func:`scatter_rows` casts).
     :param skip_dups: every ``idxs[b]`` is sorted, and only the first slot of
         each of its runs is written; each table has its own runs.
     """
@@ -314,10 +335,10 @@ def scatter_rows_multi(
     if any(t.element_size() != 4 for t in flats):
         raise ValueError(
             "scatter_rows_multi copies 4-byte words: tables of"
-            f" {[t.dtype for t in flats]} (16-bit tables: ROADMAP A9)"
+            f" {[t.dtype for t in flats]} (a plain 16-bit table takes scatter_rows)"
         )
     idxs = [i.to(torch.int32).contiguous() for i in idxs]
-    rows = [r.to(t.dtype).contiguous() for r, t in zip(rows, flats)]
+    rows = [_as_storage(r, t.dtype).contiguous() for r, t in zip(rows, flats)]
     row_bytes = flats[0].shape[1] * 4
     unit = _copy_unit("scatter_rows_multi", row_bytes, (*flats, *rows), (16, 4))
     k = len(flats)

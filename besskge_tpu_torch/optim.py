@@ -10,19 +10,28 @@ rows (heads, tails, negatives), so the entity table may be updated sparsely:
 3. the optimizer updates parameters and fp32 moments only at touched rows,
    in place, writing each row once.
 
-Row optimizers on fp32 tables, and the kernels that write them on a card:
+Row optimizers, and the kernels that write them on a card:
 
 =====================================  =======================================
-:class:`RowSGDM` ``interleaved=True``  B3 (h = 2), or B4 (``"fused"``), or B9
-                                       reads and B3 writes (``"pallas_gather"``)
-:class:`RowSGDM` separate buffer       B8 (table and momentum), B3 (h = 1) at
-                                       momentum 0
-:class:`RowAdamW` separate buffers     B8 (table, mu, nu)
-:class:`RowAdamW` ``interleaved=True``  B3 (h = 3) on the treble-major table
+:class:`RowSGDM` ``interleaved=True``  fp32: B3 (h = 2), or B4 (``"fused"``),
+                                       or B9 reads and B3 writes
+                                       (``"pallas_gather"``); packed: B3
+                                       (h = 3) on the triplet store
+:class:`RowSGDM` separate buffer       B8 (table and momentum; an int32 or
+                                       uint32 packed table is 4-byte words
+                                       too), B3 (h = 1) at momentum 0 and for
+                                       each table when one is plain 16-bit
+:class:`RowAdamW` separate buffers     B8 (table, mu, nu), or B3 per table
+                                       beside a plain 16-bit table
+:class:`RowAdamW` ``interleaved=True``  fp32: B3 (h = 3) on the treble-major
+                                       table; packed: B3 (h = 5) on the
+                                       quintuplet store
 =====================================  =======================================
 
-16-bit and row-pair-packed tables, and so stochastic rounding, wait on
-ROADMAP A9; ``RowAdagrad`` on A13.
+A 16-bit table, plain or row-pair-packed (:mod:`besskge_tpu_torch.packed`),
+keeps fp32 moments, and its updated rows are stochastically rounded to
+16 bits by default (:func:`_sr_round_16`). ``RowAdagrad`` waits on ROADMAP
+A13.
 
 Dense optimizers, in place: :class:`SGD` (``optax.sgd(lr, momentum)``) and
 :class:`AdamW` (``optax.adamw``) for the replicated params, or for every
@@ -38,6 +47,19 @@ from typing import Any, Callable, Dict, Optional, Sequence, Tuple, Union
 import torch
 
 from besskge_tpu_torch.ops import adamw_kernels, row_kernels
+from besskge_tpu_torch.packed import (
+    _bits16,
+    _from_bits16,
+    _words,
+    half_dtype,
+    interleave_packed_adamw,
+    interleave_packed_momentum,
+    is_packed,
+    merge_packed_block_writes,
+    merge_packed_row_writes,
+    take_rows,
+)
+from besskge_tpu_torch.utils import _mix32, _mul32
 
 __all__ = [
     "AdamW",
@@ -67,15 +89,74 @@ def _lr_at(lr: LearningRate, count: torch.Tensor):
     return lr(count) if callable(lr) else lr
 
 
-def _check_fp32_table(table: torch.Tensor, what: str) -> None:
-    """Row optimizers take plain fp32 tables; 16-bit and packed ones (and with
-    them stochastic rounding) wait on ROADMAP A9."""
+def _is_16bit_table(table: torch.Tensor) -> bool:
+    """A row-pair-packed table, or a plain bf16 or fp16 one."""
     t = _flat(table)
-    if t.dtype != torch.float32:
-        raise NotImplementedError(
-            f"{what} needs an fp32 table, got {t.dtype}"
-            " (16-bit and packed tables, stochastic rounding: ROADMAP A9)"
-        )
+    return is_packed(t) or t.dtype in (torch.bfloat16, torch.float16)
+
+
+def _moment_shape(table: torch.Tensor) -> Tuple[int, ...]:
+    """Shape of a per-logical-row fp32 moment buffer for ``table``: a packed
+    table's moments stay unpacked, ``(2·P, D)`` for ``P`` packed rows."""
+    t = _flat(table)
+    if is_packed(t):
+        return (2 * t.shape[0], t.shape[1])
+    return tuple(table.shape)
+
+
+def _sr_round_16(
+    rows: torch.Tensor, idx: torch.Tensor, count: torch.Tensor,
+    table: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Stochastically round fp32 rows to the table's 16-bit dtype (bf16
+    without a table), bit for bit as ``besskge_tpu.optim._sr_round_16``.
+
+    Round-to-nearest drops an update smaller than half a 16-bit ulp of the
+    weight, so a 16-bit table at a small learning rate stops learning; with
+    stochastic rounding an update lands with probability proportional to its
+    size, and the expected weight follows the fp32 trajectory. The random
+    bits are a counter-based hash of (row id, lane, step count), computed in
+    int64 with 32-bit wraparound: duplicate occurrences of a row round alike,
+    so their writes stay byte-identical.
+
+    bf16 is the top half of fp32: a uniform ``r ∈ [0, 2^16)`` added to the
+    fp32 bit pattern, then truncation, rounds exactly. fp16 takes the
+    two-candidate form: round to nearest, then take the neighbour on the
+    error's side (from the bit pattern) with probability error/gap.
+    Non-finite values pass through.
+    """
+    half = half_dtype(_flat(table)) if table is not None else torch.bfloat16
+    device = rows.device
+    lane = torch.arange(rows.shape[-1], dtype=torch.int64, device=device)[None, :]
+    x = (
+        _mul32(idx.to(torch.int64)[:, None] & 0xFFFFFFFF, 2654435761)
+        ^ _mul32(lane, 0x9E3779B9)
+        ^ _mul32(count.to(torch.int64) & 0xFFFFFFFF, 0x85EBCA6B)
+    )
+    x = _mix32(x)
+    r32 = rows.to(torch.float32)
+    if half == torch.float16:
+        y = r32.to(torch.float16)  # round to nearest
+        y32 = y.to(torch.float32)
+        err = r32 - y32
+        up = err > 0
+        # the fp16 neighbour of y toward ±inf: one bit pattern step away
+        # from zero when the signs agree, toward it otherwise; ±0 steps to
+        # the smallest subnormal of the direction's sign
+        b = _bits16(y, torch.float16)
+        away = (y > 0) == up
+        nb_bits = torch.where(y == 0, torch.where(up, 0x0001, 0x8001),
+                              torch.where(away, b + 1, b - 1))
+        nb = _from_bits16(nb_bits, torch.float16)
+        gap = nb.to(torch.float32) - y32
+        p = torch.where(gap != 0.0, err / gap, torch.zeros_like(err))  # in [0, 1/2]
+        u = (x >> 8).to(torch.float32) * 2.0**-24  # [0, 1)
+        sr = torch.where(u < p, nb, y)
+        return torch.where(torch.isfinite(rows), sr, rows.to(torch.float16))
+    bits = _words(r32.contiguous()).to(torch.int64) & 0xFFFFFFFF
+    sr = _from_bits16((bits + (x & 0xFFFF)) >> 16, torch.bfloat16)
+    # inf/nan payloads must not pick up carries
+    return torch.where(torch.isfinite(rows), sr, rows.to(torch.bfloat16))
 
 
 def interleave_momentum(
@@ -87,8 +168,11 @@ def interleave_momentum(
     ``interleaved=True``: a touched row's param and momentum are one
     contiguous 1 KB block at D = 128. A leading unit axis is kept."""
     t = _flat(table)
-    if not t.is_floating_point():
-        raise ValueError("interleaved momentum requires a plain fp32 table")
+    if is_packed(t):
+        raise ValueError(
+            "interleaved momentum requires a plain fp32 table (a packed table widens with"
+            " interleave_packed_momentum)"
+        )
     m = torch.zeros_like(t) if momentum is None else momentum.to(t.dtype)
     n, d = t.shape
     paired = torch.stack([t, m], dim=1).reshape(2 * n, d)
@@ -105,10 +189,10 @@ def interleave_adamw(
     first moment at ``3i+1``, second at ``3i+2`` — the storage of
     :class:`RowAdamW` ``interleaved=True``. A leading unit axis is kept."""
     t = _flat(table)
-    if not t.is_floating_point():
+    if is_packed(t):
         raise ValueError(
-            "interleaved Adam moments require a plain fp32 table (packed tables:"
-            " ROADMAP A9)"
+            "interleaved Adam moments require a plain fp32 table (a packed table widens"
+            " with interleave_packed_adamw)"
         )
     m = torch.zeros_like(t) if mu is None else mu.reshape(t.shape).to(t.dtype)
     v = torch.zeros_like(t) if nu is None else nu.reshape(t.shape).to(t.dtype)
@@ -208,13 +292,26 @@ class EntityRowOptimizer:
         raise NotImplementedError
 
 
-def _check_interleaved(table: torch.Tensor, n_logical: Optional[int], h: int, widen: str) -> None:
-    """An interleaved table must be fp32 and ``h``-major: ``(h·n_logical, D)``."""
+def _check_interleaved(
+    table: torch.Tensor, n_logical: Optional[int], h: int, packed_h: int, widen: str,
+    widen_packed: str,
+) -> None:
+    """An interleaved table is either fp32 and ``h``-major, ``(h·n_logical,
+    D)``, or a packed store of ``packed_h`` rows per packed row,
+    ``(packed_h·ceil(n_logical/2), D)``; a plain 16-bit table raises."""
     t = _flat(table)
-    _check_fp32_table(table, "an interleaved row optimizer")
-    if n_logical is not None and t.shape[0] != h * n_logical:
+    rows = n_logical
+    if is_packed(t):
+        h, widen = packed_h, widen_packed
+        rows = None if n_logical is None else (n_logical + 1) // 2
+    elif _is_16bit_table(t) or t.element_size() != 4:
         raise ValueError(
-            f"interleaved table must be ({h}*{n_logical}, D) — got {tuple(t.shape)};"
+            "an interleaved row optimizer requires a plain fp32 or a row-pair-packed table,"
+            f" got {t.dtype}"
+        )
+    if rows is not None and t.shape[0] != h * rows:
+        raise ValueError(
+            f"interleaved table must be ({h}*{rows}, D) — got {tuple(t.shape)};"
             f" widen it with {widen}()"
         )
     if t.shape[0] % h:
@@ -225,24 +322,38 @@ def _apply_rows(
     table: torch.Tensor, idx: torch.Tensor, rows: torch.Tensor, sorted_dedup: bool = False
 ) -> torch.Tensor:
     """In-place row writes ``table[idx[i]] = rows[i]``: B3 (h = 1) on a card,
-    its plain version on the CPU. ``sorted_dedup``: ``idx`` is sorted and
-    only the first slot of each run is written."""
-    if not _flat(table).is_floating_point():
-        raise NotImplementedError("row-pair-packed tables are not ported yet (ROADMAP A9)")
+    its plain version on the CPU. A packed table's logical writes are first
+    merged into packed-row writes (:func:`merge_packed_row_writes`), which
+    come sorted with duplicate-identical rows. ``sorted_dedup``: ``idx`` is
+    sorted and only the first slot of each run is written."""
+    if is_packed(_flat(table)):
+        idx, rows = merge_packed_row_writes(table, idx, rows, sorted_idx=sorted_dedup)
+        sorted_dedup = True
     return row_kernels.scatter_rows(table, idx, rows, slice_rows=1, skip_dups=sorted_dedup)
 
 
 def _apply_rows_multi(
     writes: Sequence[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]], sorted_dedup: bool = False
 ) -> Tuple[torch.Tensor, ...]:
-    """Several in-place ``(table, idx, rows)`` row writes in one launch of the
-    multi-table scatter (B8; one write: B3); returns the tables in order."""
-    if any(not _flat(t).is_floating_point() for t, _, _ in writes):
-        raise NotImplementedError("row-pair-packed tables are not ported yet (ROADMAP A9)")
-    if len(writes) == 1:
-        return (_apply_rows(*writes[0], sorted_dedup),)
-    tables, idxs, rows = zip(*writes)
-    return row_kernels.scatter_rows_multi(tables, idxs, rows, skip_dups=sorted_dedup)
+    """Several in-place ``(table, idx, rows)`` row writes: one launch of the
+    multi-table scatter (B8) when every table has 4-byte elements (fp32, or
+    packed), else one B3 launch per table, as the JAX package falls back to
+    per-buffer writes. A packed table's writes are merged first, as in
+    :func:`_apply_rows`. Returns the tables in order."""
+    resolved = []
+    for table, idx, rows in writes:
+        if is_packed(_flat(table)):
+            idx, rows = merge_packed_row_writes(table, idx, rows, sorted_idx=sorted_dedup)
+            resolved.append((table, idx, rows, True))
+        else:
+            resolved.append((table, idx, rows, sorted_dedup))
+    if len(resolved) > 1 and all(_flat(t).element_size() == 4 for t, _, _, _ in resolved):
+        tables, idxs, rows, srt = zip(*resolved)
+        return row_kernels.scatter_rows_multi(tables, idxs, rows, skip_dups=all(srt))
+    return tuple(
+        row_kernels.scatter_rows(table, idx, rows, slice_rows=1, skip_dups=srt)
+        for table, idx, rows, srt in resolved
+    )
 
 
 def _apply_row_slices(
@@ -257,8 +368,8 @@ def _apply_row_slices(
 
 
 def _read_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """fp32 values of the touched rows of a plain table."""
-    return _flat(table)[idx.long()].float()
+    """fp32 values of the touched logical rows of a plain or packed table."""
+    return take_rows(_flat(table), idx).float()
 
 
 def _read_slices(table: torch.Tensor, phys: torch.Tensor, h: int) -> torch.Tensor:
@@ -267,6 +378,24 @@ def _read_slices(table: torch.Tensor, phys: torch.Tensor, h: int) -> torch.Tenso
     t = _flat(table)
     flat_idx = (phys.long()[:, None] + torch.arange(h, device=phys.device)).reshape(-1)
     return t[flat_idx].reshape(-1, h, t.shape[-1])
+
+
+def _state_rows(table: torch.Tensor, phys: torch.Tensor) -> torch.Tensor:
+    """fp32 state rows held by their bits at physical rows ``phys`` of a
+    packed store."""
+    return _words(_flat(table))[phys.long()].view(torch.float32)
+
+
+def _round_rows(
+    opt: "EntityRowOptimizer", rows: torch.Tensor, idx: torch.Tensor, count: torch.Tensor,
+    table: torch.Tensor,
+) -> torch.Tensor:
+    """Updated fp32 rows for a write into ``table``: stochastically rounded
+    to 16 bits for a 16-bit table under ``opt.stochastic_rounding``, else as
+    they are (a write into a 16-bit table then rounds to nearest)."""
+    if opt.stochastic_rounding and _is_16bit_table(table):
+        return _sr_round_16(rows, idx, count, table)
+    return rows
 
 
 def _adam_moments(b1: float, b2: float, mu_prev, nu_prev, g, count):
@@ -287,12 +416,15 @@ class RowAdamW(EntityRowOptimizer):
     correction at the post-increment one, as in the reference.
 
     :param learning_rate: a float, or a schedule called with the step count.
-    :param stochastic_rounding: a no-op on the fp32 tables ported so far
-        (16-bit tables raise, naming ROADMAP A9).
-    :param interleaved: keep both moments in one treble-major ``(3N, D)``
-        table with the params (:func:`interleave_adamw`), written back as one
-        3-row block per touched row (B3, h = 3); otherwise separate ``mu`` and
-        ``nu`` buffers written with the table in one launch (B8, k = 3).
+    :param stochastic_rounding: round the updated rows of a 16-bit table
+        stochastically (:func:`_sr_round_16`); no effect on an fp32 table.
+    :param interleaved: keep both moments in the table: treble-major
+        ``(3N, D)`` for an fp32 table (:func:`interleave_adamw`), written back
+        as one 3-row block per touched row (B3, h = 3); the quintuplet store
+        ``(5P, D)`` for a packed one
+        (:func:`~besskge_tpu_torch.packed.interleave_packed_adamw`), one 5-row
+        block per touched packed row (B3, h = 5). Otherwise separate ``mu``
+        and ``nu`` buffers written with the table in one launch (B8, k = 3).
     """
 
     learning_rate: LearningRate
@@ -306,17 +438,22 @@ class RowAdamW(EntityRowOptimizer):
     def init(self, table: torch.Tensor, n_logical: Optional[int] = None) -> Dict[str, Any]:
         count = torch.zeros((), dtype=torch.int32, device=table.device)
         if self.interleaved:
-            _check_interleaved(table, n_logical, 3, "interleave_adamw")
+            _check_interleaved(table, n_logical, 3, 5, "interleave_adamw",
+                               "interleave_packed_adamw")
             return {"count": count}
-        _check_fp32_table(table, "RowAdamW")
+        shape = _moment_shape(table)
         return {
-            "mu": torch.zeros(table.shape, dtype=torch.float32, device=table.device),
-            "nu": torch.zeros(table.shape, dtype=torch.float32, device=table.device),
+            "mu": torch.zeros(shape, dtype=torch.float32, device=table.device),
+            "nu": torch.zeros(shape, dtype=torch.float32, device=table.device),
             "count": count,
         }
 
     def widen_table(self, table: torch.Tensor) -> torch.Tensor:
-        return interleave_adamw(table) if self.interleaved else table
+        if not self.interleaved:
+            return table
+        if is_packed(_flat(table)):
+            return interleave_packed_adamw(table)
+        return interleave_adamw(table)
 
     def _step(self, p_rows, mu_prev, nu_prev, g, state):
         count = state["count"] + 1
@@ -329,6 +466,16 @@ class RowAdamW(EntityRowOptimizer):
 
     def update_rows(self, table, state, idx, grad_rows):
         idx, g = _dedup_row_grads(idx, grad_rows)
+        if self.interleaved and is_packed(_flat(table)):
+            # the quintuplet store: [packed | mu 2p | mu 2p+1 | nu 2p | nu 2p+1]
+            p5, odd = 5 * (idx >> 1), idx & 1
+            new_p, mu_rows, nu_rows, count = self._step(
+                take_rows(table, idx, n_logical=2 * (_flat(table).shape[0] // 5)).float(),
+                _state_rows(table, p5 + 1 + odd), _state_rows(table, p5 + 3 + odd), g, state)
+            new_p = _round_rows(self, new_p, idx, count, table)
+            phys, out = merge_packed_block_writes(table, idx, new_p, [mu_rows, nu_rows])
+            _apply_row_slices(table, phys, out, 5, sorted_dedup=True)
+            return table, {"count": count}
         if self.interleaved:
             phys = 3 * idx
             trios = _read_slices(table, phys, 3)
@@ -341,13 +488,14 @@ class RowAdamW(EntityRowOptimizer):
             _read_rows(table, idx), _read_rows(state["mu"], idx), _read_rows(state["nu"], idx),
             g, state)
         _apply_rows_multi([
-            (table, idx, new_p), (state["mu"], idx, mu_rows), (state["nu"], idx, nu_rows),
+            (table, idx, _round_rows(self, new_p, idx, count, table)),
+            (state["mu"], idx, mu_rows), (state["nu"], idx, nu_rows),
         ], sorted_dedup=True)
         return table, {"mu": state["mu"], "nu": state["nu"], "count": count}
 
 
-#: RowSGDM update variants of the interleaved table: "xla" gathers the pairs
-#: with PyTorch indexing, updates them and writes them with B3;
+#: RowSGDM update variants of the interleaved fp32 table: "xla" gathers the
+#: pairs with PyTorch indexing, updates them and writes them with B3;
 #: "pallas_gather" reads them with B9 instead; "fused" runs B4.
 _VARIANTS = ("xla", "pallas_gather", "fused")
 
@@ -361,15 +509,20 @@ class RowSGDM(EntityRowOptimizer):
         (a 0-dim tensor on the table's device).
     :param momentum: momentum coefficient; 0 keeps no momentum buffer.
     :param weight_decay: L2 term added to the gradient.
-    :param stochastic_rounding: a no-op on the fp32 tables ported so far
-        (16-bit tables raise, naming ROADMAP A9).
-    :param interleaved: keep the momentum pair-major in one ``(2N, D)`` table
-        with the params (:func:`interleave_momentum`); otherwise a separate
-        ``m`` buffer, written with the table in one launch (B8, k = 2).
-    :param fused_variant: the interleaved update: ``"xla"`` (the default):
-        PyTorch gathers and updates the pairs and B3 writes them;
+    :param stochastic_rounding: round the updated rows of a 16-bit table
+        stochastically (:func:`_sr_round_16`); no effect on an fp32 table.
+    :param interleaved: keep the momentum in the table: pair-major
+        ``(2N, D)`` for an fp32 table (:func:`interleave_momentum`); the
+        triplet store ``(3P, D)`` for a packed one
+        (:func:`~besskge_tpu_torch.packed.interleave_packed_momentum`),
+        written back as one 3-row block per touched packed row (B3, h = 3).
+        Otherwise a separate ``m`` buffer, written with the table in one
+        launch (B8, k = 2).
+    :param fused_variant: the interleaved fp32 update: ``"xla"`` (the
+        default): PyTorch gathers and updates the pairs and B3 writes them;
         ``"pallas_gather"``: B9 reads them instead; ``"fused"``: B4 does all
-        three.
+        three. A packed store always takes the ``"xla"`` form, as in the JAX
+        package.
     """
 
     learning_rate: LearningRate
@@ -386,20 +539,24 @@ class RowSGDM(EntityRowOptimizer):
             raise ValueError("fused_variant selects an update of the interleaved table only")
 
     def widen_table(self, table: torch.Tensor) -> torch.Tensor:
-        return interleave_momentum(table) if self.interleaved else table
+        if not self.interleaved:
+            return table
+        if is_packed(_flat(table)):
+            return interleave_packed_momentum(table)
+        return interleave_momentum(table)
 
     def init(self, table: torch.Tensor, n_logical: Optional[int] = None) -> Dict[str, Any]:
         count = torch.zeros((), dtype=torch.int32, device=table.device)
         if self.interleaved:
             if self.momentum == 0.0:
                 raise ValueError("interleaved=True requires momentum != 0")
-            _check_interleaved(table, n_logical, 2, "interleave_momentum")
+            _check_interleaved(table, n_logical, 2, 3, "interleave_momentum",
+                               "interleave_packed_momentum")
             return {"count": count}
-        _check_fp32_table(table, "RowSGDM")
         if self.momentum == 0.0:
             return {"count": count}
         return {
-            "m": torch.zeros(table.shape, dtype=torch.float32, device=table.device),
+            "m": torch.zeros(_moment_shape(table), dtype=torch.float32, device=table.device),
             "count": count,
         }
 
@@ -430,9 +587,24 @@ class RowSGDM(EntityRowOptimizer):
         new_pairs = torch.stack([new_p, m_rows], dim=1).reshape(-1, d)
         return _apply_row_slices(table, phys, new_pairs, 2, sorted_dedup=True)
 
+    def _update_rows_interleaved_packed(self, table, state, idx, g, count):
+        """The triplet store ``[packed | m 2p | m 2p+1]``: the same update as
+        the separate-buffer form (same dedup, momentum rule and rounding
+        hash), written back as one (3, D) block per touched packed row."""
+        new_p, m_rows = self._step(
+            take_rows(table, idx, tripled=True).float(),
+            _state_rows(table, 3 * (idx >> 1) + 1 + (idx & 1)), g,
+            _lr_at(self.learning_rate, state["count"]))
+        new_p = _round_rows(self, new_p, idx, count, table)
+        phys, out = merge_packed_block_writes(table, idx, new_p, [m_rows])
+        return _apply_row_slices(table, phys, out, 3, sorted_dedup=True)
+
     def update_rows(self, table, state, idx, grad_rows):
         idx, g = _dedup_row_grads(idx, grad_rows)
         new_state = dict(state, count=state["count"] + 1)
+        if self.interleaved and is_packed(_flat(table)):
+            return self._update_rows_interleaved_packed(
+                table, state, idx, g, new_state["count"]), new_state
         if self.interleaved:
             return self._update_rows_interleaved(table, state, idx, g), new_state
         lr = _lr_at(self.learning_rate, state["count"])
@@ -440,8 +612,10 @@ class RowSGDM(EntityRowOptimizer):
         if self.momentum == 0.0:
             if self.weight_decay:
                 g = g + self.weight_decay * p_rows
-            return _apply_rows(table, idx, p_rows - lr * g, sorted_dedup=True), new_state
+            new_p = _round_rows(self, p_rows - lr * g, idx, new_state["count"], table)
+            return _apply_rows(table, idx, new_p, sorted_dedup=True), new_state
         new_p, m_rows = self._step(p_rows, _read_rows(state["m"], idx), g, lr)
+        new_p = _round_rows(self, new_p, idx, new_state["count"], table)
         _apply_rows_multi([(table, idx, new_p), (state["m"], idx, m_rows)], sorted_dedup=True)
         return table, new_state
 

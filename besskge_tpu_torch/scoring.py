@@ -31,6 +31,7 @@ from besskge_tpu_torch.embedding import (
     initialize_relation_embedding,
 )
 from besskge_tpu_torch.ops.distance import p_distance_matrix
+from besskge_tpu_torch.packed import _store_dtype, pack_table, pack_table_host
 from besskge_tpu_torch.sharding import Sharding
 from besskge_tpu_torch.utils import complex_rotation, resolve_device
 
@@ -61,6 +62,12 @@ class BaseScoreFunction(ABC):
     #: Optional compute precision for scoring (e.g. ``torch.bfloat16``):
     #: gathered rows are cast to it while storage stays in ``dtype``.
     compute_dtype: Optional[torch.dtype] = None
+    #: Store the entity table row-pair-packed (:mod:`besskge_tpu_torch.packed`):
+    #: int32 words of bf16 pairs, or uint32 words of fp16 pairs when
+    #: ``dtype`` is ``torch.float16``, at half the bytes of fp32; trained by
+    #: an :class:`~besskge_tpu_torch.optim.EntityRowOptimizer`. Set before
+    #: ``initial_params*``.
+    packed_entity_storage: bool = False
 
     def _build_tables(
         self,
@@ -101,8 +108,16 @@ class BaseScoreFunction(ABC):
             rel_slices,
             seed=self.seed + 1,
         )
+        if self.packed_entity_storage:
+            if self.sharding.max_entity_per_shard % 2:
+                raise ValueError("a packed table needs an even max_entity_per_shard")
+            # the JAX package casts to the table dtype, then packs on the host
+            ent = pack_table_host(ent.astype(np.float16) if self.dtype == torch.float16 else ent)
+            entity = torch.from_numpy(ent.view(np.int32)).view(_store_dtype(self.dtype))
+        else:
+            entity = torch.from_numpy(ent).to(self.dtype)
         return {
-            "entity_embedding": torch.from_numpy(ent).to(device, self.dtype),
+            "entity_embedding": entity.to(device),
             "relation_embedding": torch.from_numpy(rel).to(device, self.dtype),
         }
 
@@ -126,10 +141,15 @@ class BaseScoreFunction(ABC):
             self.sharding.n_shard * self.sharding.max_entity_per_shard,
             self.entity_row_size,
         )
+        ent = device_table_init(
+            *self._entity_spec, ent_shape, self.seed, self.dtype, None, device, generator
+        )
+        if self.packed_entity_storage:
+            if self.sharding.max_entity_per_shard % 2:
+                raise ValueError("a packed table needs an even max_entity_per_shard")
+            ent = pack_table(ent)
         return {
-            "entity_embedding": device_table_init(
-                *self._entity_spec, ent_shape, self.seed, self.dtype, None, device, generator
-            ),
+            "entity_embedding": ent,
             "relation_embedding": device_table_init(
                 *self._relation_spec, (n_rel, self.relation_row_size), self.seed + 1,
                 self.dtype, None, device, generator,

@@ -26,7 +26,8 @@ Counterpart of ``besskge_tpu/trainer.py``:
   (the counterpart of the JAX package's ``lax.scan`` in one jitted
   program): captured on the first call, replayed from then on.
 
-* :class:`Trainer` widens the table for an interleaved optimizer, builds the
+* :class:`Trainer` widens the table for an interleaved optimizer (a
+  row-pair-packed one into its triplet or quintuplet store), builds the
   optimizer state and runs epochs over a host batch sampler, or over keys of
   a device sampler.
 
@@ -48,7 +49,7 @@ from besskge_tpu_torch.batch_sampler import ShardedBatchSampler
 from besskge_tpu_torch.bess import _FORWARD_KEYS, BessKGE, _format_outputs
 from besskge_tpu_torch.device_sampler import DeviceBatchSampler, split_key
 from besskge_tpu_torch.optim import AdamW, SGD, EntityRowOptimizer, FusedDenseAdamW
-from besskge_tpu_torch.packed import take_rows
+from besskge_tpu_torch.packed import is_packed, take_rows
 from besskge_tpu_torch.utils import resolve_device
 
 __all__ = ["build_train_step", "build_device_train_step", "init_optimizer_state", "Trainer"]
@@ -142,7 +143,7 @@ def _dense_train_step(
     param, or B10 over the table and ``optimizer`` over the rest."""
 
     def step(params: Params, opt_state: Dict[str, Any], batch: Dict[str, torch.Tensor]):
-        if not params["entity_embedding"].is_floating_point():
+        if is_packed(params["entity_embedding"]):
             raise ValueError(
                 "a row-pair-packed table cannot take a dense gradient; train it with"
                 " a sparse EntityRowOptimizer"
@@ -439,9 +440,9 @@ class Trainer:
         param without an ``entity_optimizer``).
     :param mesh: must be ``None``.
     :param params: initial params on the device; default
-        ``score_fn.initial_params(device)``. A plain entity table is widened
-        for an interleaved ``entity_optimizer``; a widened one is taken as it
-        is.
+        ``score_fn.initial_params(device)``. A plain entity table (or a
+        packed one, ``(n + 1) // 2`` rows) is widened for an interleaved
+        ``entity_optimizer``; a widened one is taken as it is.
     :param seed: seed of the dropout streams, which no ported scorer has
         (ConvE: ROADMAP A11); kept as :attr:`seed`.
     :param entity_optimizer: sparse row optimizer of the entity table, or
@@ -486,15 +487,17 @@ class Trainer:
         if getattr(entity_optimizer, "interleaved", False):
             tab = raw["entity_embedding"]
             height = tab.shape[-2]
-            # The optimizer owns its layout: the height of a widened table.
+            # A packed table holds two logical rows per row. The optimizer
+            # owns its layout: the height of a widened table.
+            plain = (n_global + 1) // 2 if is_packed(tab) else n_global
             wide = entity_optimizer.widen_table(
-                torch.empty((n_global, tab.shape[-1]), dtype=tab.dtype, device="meta")
+                torch.empty((plain, tab.shape[-1]), dtype=tab.dtype, device="meta")
             ).shape[-2]
-            if height == n_global:
+            if height == plain:
                 raw["entity_embedding"] = entity_optimizer.widen_table(tab)
             elif height != wide:
                 raise ValueError(
-                    f"entity table has {height} rows; expected {n_global} (plain, to"
+                    f"entity table has {height} rows; expected {plain} (plain, to"
                     f" be widened) or {wide} (already interleaved for"
                     f" {type(entity_optimizer).__name__}) for this sharding"
                 )

@@ -6,10 +6,35 @@ from typing import Optional, Union
 
 import torch
 
+#: A 32-bit value held in an int64 tensor (or a Python int).
+Word = Union[torch.Tensor, int]
+
 __all__ = [
     "complex_multiplication", "complex_rotation", "gather_indices", "on_cuda",
     "resolve_device",
 ]
+
+
+_M32 = 0xFFFFFFFF
+
+
+def _mul32(x: Word, c: int) -> Word:
+    """``x · c mod 2^32`` for ``0 ≤ x < 2^32`` without leaving int64: a
+    constant at or above 2^31 is split into ``c − 2^31`` and ``2^31``, whose
+    product with ``x`` is ``(x & 1) << 31`` mod 2^32."""
+    if c < 1 << 31:
+        return (x * c) & _M32
+    return (x * (c - (1 << 31)) + ((x & 1) << 31)) & _M32
+
+
+def _mix32(x: Word) -> Word:
+    """The ``lowbias32`` finaliser: a bijection of 32-bit values, on Python
+    ints or int64 tensors alike."""
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x7FEB352D)
+    x = x ^ (x >> 15)
+    x = _mul32(x, 0x846CA68B)
+    return x ^ (x >> 16)
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.device:

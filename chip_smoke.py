@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Build the port's kernels and drive its serving and training paths on one card.
 
-    python3 chip_smoke.py [--profile]
+    python3 chip_smoke.py [--profile | --profile=PHASE[,PHASE...]]
 
 Run from the root of a checkout on a machine with an NVIDIA Hopper card and
 the CUDA toolkit. Phases, one line each with its elapsed seconds:
@@ -72,13 +72,31 @@ the CUDA toolkit. Phases, one line each with its elapsed seconds:
    fused biokg call) and a replay's kernels counted by name by the
    profiler; ``Trainer.fit`` over three calls of each; then 2 x 5 timed
    calls of each form, in turns.
+9. packed training: ``bench.py``'s wikikg2_bf16 and wikikg2_fp16 steps as
+   it runs them: both tables 16-bit, the entity table row-pair-packed
+   (int32 bf16 pairs, uint32 fp16 pairs) in the (3,750,906, 128) triplet
+   store of ``RowSGDM`` interleaved, device-sampled at ``steps_per_call``
+   8 in one CUDA graph. Gates, for each: the batches as in phase 8; one
+   ``steps_per_call=1`` call against the CPU (each 16-bit value within lr x
+   the two devices' momentum difference plus one ulp, two for fp16;
+   untouched rows and sibling planes bit for bit); the first
+   call and two replays against the eager card steps, bit for bit on every
+   array, no host sync, B1/B2 16 and B3 8 launches per call by name; the
+   triplet store against separate buffers (B3 h = 3 against B8 k = 2) and
+   the quintuplet store against separate AdamW buffers (B3 h = 5 against
+   B8 k = 3) over one host-fed step, bit for bit; ``Trainer.fit``, which
+   widens the packed table; sets of timed calls in turns with the fp32
+   wikikg2 step; and a JSON line of times, table bytes, captures and
+   launches.
 
 Each path is driven with every launch count set to 0 just before it and
 read just after. Then one JSON line describing each kernel, and the result
 line. Any failed check raises, so the script exits non-zero and prints no
 result; so it does when no CUDA card is available. ``--profile`` adds a
-``torch.profiler`` trace of sparse and of dense training steps: device time
-by kernel, and the device's busy share.
+``torch.profiler`` trace of the training steps of each training phase
+(``training``, ``dense``, ``device``, ``packed``; ``--profile=packed``
+traces only the named ones): device time by kernel, and the device's busy
+share.
 """
 
 from __future__ import annotations
@@ -95,7 +113,7 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
-from besskge_tpu_torch import _build, optim, trainer  # noqa: E402
+from besskge_tpu_torch import _build, optim, packed, trainer  # noqa: E402
 from besskge_tpu_torch.batch_sampler import (  # noqa: E402
     RandomShardedBatchSampler,
     RigidShardedBatchSampler,
@@ -173,6 +191,10 @@ WIKIKG2_SPC, BIOKG_SPC = 8, 10
 # DEVICE_TIMED_S seconds.
 DEVICE_TIMED_CALLS, DEVICE_TIMED_S = 20, 0.5
 DEVICE_FIT_CALLS = 3
+# 16-bit tables: bench.py's wikikg2_bf16 and wikikg2_fp16 configurations,
+# the entity table row-pair-packed (int32 bf16 pairs, uint32 fp16 pairs) in
+# the triplet store of RowSGDM interleaved, the relation table 16-bit too.
+PACKED = {"wikikg2_bf16": torch.bfloat16, "wikikg2_fp16": torch.float16}
 
 L1_SOURCE = "besskge_tpu_torch/csrc/l1_distance.cu"
 ROW_SOURCE = "besskge_tpu_torch/csrc/row_update.cu"
@@ -1386,6 +1408,7 @@ def _hold_sparse(what: str, got: tuple, want: tuple, rows=None) -> dict:
 
 
 def _within(what: str, name: str, got: torch.Tensor, want: torch.Tensor) -> float:
+    got, want = got.float(), want.float()
     err = (got - want).abs()
     tol = BF16_STEP_RTOL * (want.abs() + want.abs().max())
     if not (err <= tol).all() or not torch.isfinite(got).all():
@@ -1437,7 +1460,7 @@ def _device_forms(gen: torch.Generator, device: str) -> dict:
 def _card_batches_equal_cpu(name: str, form: dict) -> None:
     """The batches of one call drawn on the card equal those drawn on the
     CPU from the same key, bit for bit."""
-    dev, spc = form["sampler"], form["spc"]
+    dev, spc, phase = form["sampler"], form["spc"], form.get("phase", "device")
     cpu_state = dev.state("cpu")
     key = dev.next_key(1000)
     card_keys, cpu_keys = split_key(key.cuda(), spc), split_key(key, spc)
@@ -1449,7 +1472,7 @@ def _card_batches_equal_cpu(name: str, form: dict) -> None:
             if not torch.equal(card[key_name].cpu(), want):
                 raise AssertionError(f"{name}: batch {key_name!r} drawn on the card differs from"
                                      " the CPU's")
-    say("device", f"{name}: the {spc} batches of a call drawn on the card equal the CPU's bit for"
+    say(phase, f"{name}: the {spc} batches of a call drawn on the card equal the CPU's bit for"
         f" bit ({', '.join(f'{k} {tuple(v.shape)}' for k, v in cpu.items())})")
 
 
@@ -1464,9 +1487,10 @@ def _graph_equals_eager(name: str, form: dict) -> dict:
     its launches are counted by the profiler, by kernel name. Returns the
     comparisons, counts and capture statistics."""
     fn, dev, spc, st = form["fn"], form["sampler"], form["spc"], form["sampler_state"]
+    phase = form.get("phase", "device")
     graph = (form["params"], form["state"])
     eager = (trainer._clone(form["params"]), trainer._clone(form["state"]))
-    sparse = name == "wikikg2"
+    sparse = isinstance(form["ent"], optim.EntityRowOptimizer)
     results = {"replays": []}
     for call in range(3):
         key = dev.next_key(call)
@@ -1492,7 +1516,10 @@ def _graph_equals_eager(name: str, form: dict) -> dict:
         bits = {path: torch.equal(g, e) for (path, g), (_, e) in zip(
             trainer._leaves({"params": graph[0], "state": graph[1]}),
             trainer._leaves({"params": eager[0], "state": eager[1]}))}
-        if sparse:
+        if form.get("all_bits"):
+            exact = list(bits)  # a packed form: every array
+            errs = _hold_sparse(f"{name} call {call} (graph vs eager)", graph, eager)
+        elif sparse:
             # The entity table (params and momentum rows) and the step counts
             # come from sums without atomics: equal bits.
             exact = [p for p in bits if "entity" in p or p.endswith("count")]
@@ -1506,13 +1533,13 @@ def _graph_equals_eager(name: str, form: dict) -> dict:
                                  f" {[p for p in exact if not bits[p]]}")
         results["replays"].append({"call": call, "graph": call > 0, "bitwise": bits,
                                    "max_abs_err": errs})
-        say("device", f"{name} call {call} ({'replay' if call else 'eager warm-up, then capture'},"
+        say(phase, f"{name} call {call} ({'replay' if call else 'eager warm-up, then capture'},"
             f" key {int(key)}): {'; '.join(f'{p} equal' if b else f'{p} differs' for p, b in bits.items())}"
             f" against the eager card steps (max|err| {', '.join(f'{k} {v:.3g}' for k, v in errs.items())});"
             f" wrapper launches {dict((k, v) for k, v in counts.items() if v)}"
             + ("" if call else " (the warm-up's and the capture's)"))
     results.update(fn._graph.stats)
-    say("device", f"{name}: capture of {spc} steps {results['capture_s']:.3f} s, graph pool"
+    say(phase, f"{name}: capture of {spc} steps {results['capture_s']:.3f} s, graph pool"
         f" {results['pool_bytes'] / 2**20:.1f} MiB, peak during capture"
         f" {results['peak_bytes'] / 2**20:.1f} MiB; replays made no host sync")
     # A replay's launches, by kernel name, from the profiler.
@@ -1523,7 +1550,7 @@ def _graph_equals_eager(name: str, form: dict) -> dict:
         raise AssertionError(f"{name}: the profiler saw {seen} in a replay, expected"
                              f" {spc} x {form['kernels']}")
     results["launches_per_call"] = seen
-    say("device", f"{name}: a replay launched {seen} (profiler, by name)")
+    say(phase, f"{name}: a replay launched {seen} (profiler, by name)")
     del eager
     return results
 
@@ -1645,6 +1672,303 @@ def device_training(gen: torch.Generator, profile: bool = False, device: str = "
     return results
 
 
+def _packed_score_fn(sharding: Sharding, half: torch.dtype) -> TransE:
+    """The wikikg2 scorer (bf16 scoring math) with both tables in ``half``
+    and the entity table row-pair-packed, as bench.py sets it up for its
+    wikikg2_bf16 and wikikg2_fp16 configurations."""
+    score_fn = TransE(True, 1, sharding, N_RELATION, DIM, seed=SEED)
+    score_fn.compute_dtype = torch.bfloat16
+    score_fn.dtype = half
+    score_fn.packed_entity_storage = True
+    return score_fn
+
+
+def _packed_forms(gen: torch.Generator, device: str) -> dict:
+    """bench.py's wikikg2, wikikg2_bf16 and wikikg2_fp16 device-sampled steps
+    at full width, RowSGDM interleaved (the fp32 pair-major table, or the
+    packed triplet store) at steps_per_call 8; each form keeps the table as
+    drawn (``plain``) for Trainer.fit to widen."""
+    triples, sharding, score_fn, _ = _wikikg2()
+    forms = {}
+    for name, half in (("wikikg2", None), *PACKED.items()):
+        if half is not None:
+            score_fn = _packed_score_fn(sharding, half)
+        module, _, pts = _training_setup(triples, sharding, score_fn)
+        params = score_fn.initial_params_device(device=device, generator=gen)
+        sgd, row = optim.SGD(LR, momentum=MOMENTUM), optim.RowSGDM(LR, momentum=MOMENTUM,
+                                                                   interleaved=True)
+        plain = params["entity_embedding"]
+        params["entity_embedding"] = row.widen_table(plain)
+        forms[name] = dict(
+            module=module, opt=sgd, ent=row, spc=WIKIKG2_SPC, params=params, pts=pts,
+            plain=plain, triples=triples, all_bits=half is not None, phase="packed",
+            state=trainer.init_optimizer_state(sgd, params, None, row,
+                                               n_logical=sharding.max_entity_per_shard),
+            sampler=DeviceBatchSampler(pts, module.negative_sampler, shard_bs=SHARD_BS_TRAIN,
+                                       batches_per_step=BPS, seed=SEED, positive_mode="runs"),
+            want={"l1_distance_matrix_batched": 2, "l1_distance_grads_batched": 2,
+                  "scatter_rows": 1},
+            kernels={"l1_distance_small_kernel": 2, "l1_grads_kernel": 2,
+                     "scatter_rows_kernel": 1})
+        forms[name]["fn"] = trainer.build_device_train_step(
+            module, sgd, forms[name]["sampler"], None, row, steps_per_call=WIKIKG2_SPC,
+            device=device)
+        forms[name]["sampler_state"] = forms[name]["sampler"].state(device)
+    return forms
+
+
+def _ordinal16(bits: torch.Tensor) -> torch.Tensor:
+    """16-bit float patterns (int16) as integers ordered like their values,
+    ±0 both 0: neighbouring values are 1 apart."""
+    b = bits.to(torch.int32) & 0xFFFF
+    return torch.where(b >= 0x8000, -(b & 0x7FFF), b)
+
+
+def _ulp16(x: torch.Tensor, half: torch.dtype) -> torch.Tensor:
+    """The spacing of ``half`` values at |x| (the subnormal spacing at 0)."""
+    mantissa, tiny = (7, 2.0**-133) if half == torch.bfloat16 else (10, 2.0**-24)
+    _, e = torch.frexp(x.float())
+    ulp = torch.ldexp(torch.ones_like(x, dtype=torch.float32), e - 1 - mantissa)
+    return torch.where(x == 0, tiny, torch.clamp(ulp, min=tiny))
+
+
+def _packed_call_vs_cpu(name: str, form: dict) -> dict:
+    """One steps_per_call=1 call of a packed form on the card against the
+    same call on the CPU, from copies of one state. Untouched rows (the
+    untouched siblings of touched rows among them) bit for bit as before
+    the call; the fp32 momentum rows of the store and the 16-bit relation
+    table and its trace within BF16_STEP_RTOL x (|want| + max|want|). A
+    16-bit entity value is the stochastic rounding, with the same random
+    bits on both devices, of ``p − lr·m``: it may differ by lr x the
+    difference of the two devices' momenta (their gradients differ in the
+    last bits of B1's bf16 distances and B2's sums) plus one 16-bit ulp in
+    bf16, whose rounding (truncation after adding the random bits) is
+    monotone, and two in fp16: its two-candidate rounding takes each value's
+    neighbour on its own error's side, so two values just either side of a
+    representable one that draw the same small number round away from it in
+    opposite directions. The share of values that differ, and the largest
+    difference in ulps, are reported."""
+    dev, key = form["sampler"], form["sampler"].next_key(500)
+    n = N_ENTITY
+    before = packed.unpack_table(packed.split_packed_interleaved(form["params"]["entity_embedding"])[0], n)
+    card = (trainer._clone(form["params"]), trainer._clone(form["state"]))
+    cpu = (_to(form["params"], "cpu"), _to(form["state"], "cpu"))
+    fn_card = trainer.build_device_train_step(form["module"], form["opt"], dev, None, form["ent"],
+                                              device="cuda")
+    fn_cpu = trainer.build_device_train_step(form["module"], form["opt"], dev, None, form["ent"],
+                                             device="cpu")
+    _, _, out = fn_card(*card, form["sampler_state"], key)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    _, _, cpu_out = fn_cpu(*cpu, dev.state("cpu"), key)
+    cpu_s = time.perf_counter() - t
+    loss, cpu_loss = float(out["loss"]), float(cpu_out["loss"])
+    if not np.isfinite(loss) or abs(loss - cpu_loss) > 2.0**-8 * abs(cpu_loss):
+        raise AssertionError(f"{name}: loss {loss} on the card, {cpu_loss} on the CPU")
+    batch = dev.sample(dev.state("cpu"), key)
+    touched = torch.zeros(n, dtype=torch.bool)
+    for k in ("head", "tail", "negative"):
+        touched[batch[k].reshape(-1).long()] = True
+    card_p, (card_m,) = packed.split_packed_state(card[0]["entity_embedding"], 1)
+    cpu_p, (cpu_m,) = packed.split_packed_state(cpu[0]["entity_embedding"], 1)
+    got_v = packed.unpack_table(card_p, n).cpu()
+    want_v = packed.unpack_table(cpu_p, n)
+    got, want = got_v.view(torch.int16), want_v.view(torch.int16)
+    gap = (_ordinal16(got) - _ordinal16(want)).abs()
+    rows = torch.nonzero(touched).reshape(-1)
+    moved = LR * (card_m[rows.cuda()].cpu() - cpu_m[rows]).abs()
+    ulps = 1 if got_v.dtype == torch.bfloat16 else 2
+    tol = moved + ulps * _ulp16(
+        torch.maximum(got_v[rows].float().abs(), want_v[rows].float().abs()), got_v.dtype)
+    off = (got_v[rows].float() - want_v[rows].float()).abs()
+    if not (off <= tol).all():
+        raise AssertionError(f"{name}: entity values off the CPU's by {float((off - tol).max())}"
+                             f" beyond lr x the momentum difference plus {ulps} ulp")
+    base = before.cpu().view(torch.int16)
+    if not (torch.equal(got[~touched], base[~touched]) and torch.equal(want[~touched],
+                                                                      base[~touched])):
+        raise AssertionError(f"{name}: the call moved untouched rows (or sibling planes)")
+    pairs = touched.reshape(-1, 2)
+    lone = int((pairs[:, 0] != pairs[:, 1]).sum())
+    errs = {"momentum": _within(f"{name} vs the CPU", "momentum", card_m[rows.cuda()].cpu(),
+                                cpu_m[rows])}
+    errs.update(_hold_sparse(f"{name} call vs the CPU", card, cpu))
+    differ, one_ulp = int((gap > 0).sum()), int((gap == 1).sum())
+    same_m = moved == 0
+    values = int(touched.sum()) * DIM
+    say("packed", f"{name}: one steps_per_call=1 call on the card vs the CPU ({cpu_s:.1f}s): loss"
+        f" {loss:.6f} vs {cpu_loss:.6f}; 16-bit entity values: {differ} of {values} touched"
+        f" ({100 * differ / values:.4f} %) differ, {one_ulp} by one ulp, at most"
+        f" {int(gap.max())} ulps; where the momenta agree ({int(same_m.sum())} values) at most"
+        f" {int(gap[rows][same_m].max()) if same_m.any() else 0} ulp; {int((~touched).sum())}"
+        f" untouched rows bit for bit ({lone} packed rows with one plane touched); max|err|"
+        f" {', '.join(f'{k} {v:.3g}' for k, v in errs.items())}")
+    del card, cpu
+    return {"values_differ": differ, "values_one_ulp": one_ulp, "max_ulps": int(gap.max()),
+            "touched_values": values, "max_abs_err": errs}
+
+
+def _packed_layout_gates(name: str, form: dict, device: str) -> dict:
+    """The port's layouts against each other on one host-fed step
+    (``build_train_step``) from copies of one state, bit for bit: the
+    triplet store (RowSGDM, B3 h = 3) against a packed table with a separate
+    momentum buffer (B8, k = 2), and the quintuplet store (RowAdamW, B3
+    h = 5) against a packed table with separate moments (B8, k = 3). The
+    twins of tests/test_packed_interleaved.py:101 and
+    tests/test_adamw_interleaved.py:311 at full width."""
+    table, (momentum,) = packed.split_packed_state(form["params"]["entity_embedding"], 1)
+    table = table.contiguous()
+    rel = form["params"]["relation_embedding"]
+    dev = form["sampler"]
+    batch = dev.sample(form["sampler_state"], dev.next_key(900).to(device))
+    sgd = form["opt"]
+    results = {}
+    for opt_name, k, wide_opt, sep_opt, widen in (
+        ("RowSGDM", 1, optim.RowSGDM(LR, MOMENTUM, interleaved=True), optim.RowSGDM(LR, MOMENTUM),
+         lambda t: packed.interleave_packed_momentum(t, momentum)),
+        ("RowAdamW", 2, optim.RowAdamW(LR, interleaved=True), optim.RowAdamW(LR),
+         packed.interleave_packed_adamw),
+    ):
+        runs = {}
+        for layout, opt, ent in (("interleaved", wide_opt, widen(table)),
+                                 ("separate", sep_opt, table.clone())):
+            params = {"entity_embedding": ent, "relation_embedding": rel.clone()}
+            state = trainer.init_optimizer_state(sgd, params, None, opt, n_logical=N_ENTITY)
+            if layout == "separate" and k == 1:
+                state["entity"]["m"].copy_(momentum)
+            step = trainer.build_train_step(form["module"], sgd, None, opt, device=device)
+            reset_counts()
+            params, state, out = step(params, state, batch)
+            sync(device)
+            runs[layout] = (params, state, read_counts(), float(out["loss"]))
+        (p_i, s_i, c_i, loss_i), (p_s, s_s, c_s, loss_s) = runs["interleaved"], runs["separate"]
+        if device == "cuda":
+            base = {"l1_distance_matrix_batched": 2, "l1_distance_grads_batched": 2}
+            expect_counts(f"{name} {opt_name} interleaved", c_i, {**base, "scatter_rows": 1})
+            expect_counts(f"{name} {opt_name} separate", c_s, {**base, "scatter_rows_multi": 1})
+        params_i, states_i = packed.split_packed_state(p_i["entity_embedding"], k)
+        moments = ["m"] if k == 1 else ["mu", "nu"]
+        same = {
+            "params": torch.equal(params_i.view(torch.int32),
+                                  p_s["entity_embedding"].view(torch.int32)),
+            **{m: torch.equal(si, s_s["entity"][m]) for m, si in zip(moments, states_i)},
+            "relation": torch.equal(p_i["relation_embedding"], p_s["relation_embedding"]),
+            "relation momentum": torch.equal(s_i["other"]["trace"]["relation_embedding"],
+                                             s_s["other"]["trace"]["relation_embedding"]),
+            "loss": loss_i == loss_s,
+        }
+        if not all(same.values()):
+            raise AssertionError(f"{name} {opt_name}: interleaved and separate differ in"
+                                 f" {[k for k, v in same.items() if not v]}")
+        store = p_i["entity_embedding"]
+        say("packed", f"{name} {opt_name}: the {tuple(store.shape)} store (launches"
+            f" {dict((k, v) for k, v in c_i.items() if v)}) and separate buffers (launches"
+            f" {dict((k, v) for k, v in c_s.items() if v)}) give equal bits on every array"
+            f" after one step")
+        results[opt_name] = {"interleaved_launches": {k: v for k, v in c_i.items() if v},
+                             "separate_launches": {k: v for k, v in c_s.items() if v}}
+        del runs, p_i, s_i, p_s, s_s, params_i, states_i, store
+    return results
+
+
+def packed_training(gen: torch.Generator, profile: bool = False, device: str = "cuda") -> dict:
+    """bench.py's wikikg2_bf16 and wikikg2_fp16 steps as it runs them: the
+    entity table row-pair-packed into the triplet store, the relation table
+    16-bit, batches drawn on the device, steps_per_call 8 in one CUDA graph;
+    timed in turns with the fp32 wikikg2 step. ``device`` "cpu" rehearses
+    the phase eagerly, without the graph's and the card's gates."""
+    on_card = device == "cuda"
+    t = time.perf_counter()
+    forms = _packed_forms(gen, device)
+    table_bytes = {name: f["params"]["entity_embedding"].numel()
+                   * f["params"]["entity_embedding"].element_size() for name, f in forms.items()}
+    say("packed", f"wikikg2 (fp32 pair-major), wikikg2_bf16 and wikikg2_fp16 (triplet stores) at"
+        f" spc {WIKIKG2_SPC} built ({time.perf_counter() - t:.1f}s set-up); table bytes"
+        f" {table_bytes}")
+    results: Dict[str, dict] = {name: {"table_bytes": b} for name, b in table_bytes.items()}
+    for name in PACKED:
+        form = forms[name]
+        if on_card:
+            _card_batches_equal_cpu(name, form)
+            results[name]["vs_cpu"] = _packed_call_vs_cpu(name, form)
+            results[name].update(_graph_equals_eager(name, form))
+        else:
+            out = form["fn"](form["params"], form["state"], form["sampler_state"],
+                             form["sampler"].next_key(0))[2]
+            results[name]["loss"] = float(out["loss"])
+        results[name]["layouts"] = _packed_layout_gates(name, form, device)
+
+    # Trainer.fit, the entry a user calls: it widens the packed table.
+    for name in PACKED:
+        form = forms[name]
+        positives = form["sampler"].partition_sample_size
+        fit_triples = form["triples"][: DEVICE_FIT_CALLS * form["spc"] * positives]
+        fit_module, _, fit_pts = _training_setup(fit_triples, form["pts"].sharding,
+                                                 form["module"].score_fn)
+        fit_dev = DeviceBatchSampler(fit_pts, fit_module.negative_sampler, shard_bs=SHARD_BS_TRAIN,
+                                     batches_per_step=BPS, seed=SEED, positive_mode="runs")
+        rel = form["params"]["relation_embedding"]
+        fit = trainer.Trainer(fit_module, fit_dev, form["opt"],
+                              params={"entity_embedding": form.pop("plain"),
+                                      "relation_embedding": rel.clone()},
+                              entity_optimizer=form["ent"], steps_per_call=form["spc"],
+                              device=device)
+        if fit.params["entity_embedding"].shape != form["params"]["entity_embedding"].shape:
+            raise AssertionError(f"{name}: Trainer widened the packed table to"
+                                 f" {tuple(fit.params['entity_embedding'].shape)}")
+        summary = fit.fit(n_epochs=1, log_every=1)
+        losses = [r["loss"] for r in fit.history]
+        if summary["steps"] != DEVICE_FIT_CALLS or not np.isfinite(losses).all():
+            raise AssertionError(f"{name} Trainer.fit: {summary}")
+        say("packed", f"{name} Trainer.fit (the packed table widened to the triplet store):"
+            f" {summary['steps']} calls of {form['spc']} steps, loss {losses[0]:.3f} ->"
+            f" {losses[-1]:.3f}, capture included")
+        del fit
+    forms["wikikg2"].pop("plain")
+
+    # Sets of warm calls of each form, in turns (fp32, bf16, fp16, then
+    # reversed), host clock around synchronised runs; the fp32 form's first
+    # call (its capture) comes first, so that no set's length is read off a
+    # capture.
+    fp32 = forms["wikikg2"]
+    fp32["fn"](fp32["params"], fp32["state"], fp32["sampler_state"], fp32["sampler"].next_key(99))
+    timed: Dict[str, list] = {}
+    order = list(forms)
+    for name in order + order[::-1]:
+        form = forms[name]
+        fn, st, dev = form["fn"], form["sampler_state"], form["sampler"]
+        held = (form["params"], form["state"])
+        sync(device)
+        t = time.perf_counter()
+        fn(*held, st, dev.next_key(100))  # warm-up
+        sync(device)
+        n_calls = results[name].setdefault("timed_calls", max(
+            DEVICE_TIMED_CALLS, int(np.ceil(DEVICE_TIMED_S / (time.perf_counter() - t)))))
+        t = time.perf_counter()
+        for i in range(n_calls):
+            _, _, out = fn(*held, st, dev.next_key(101 + i))
+        sync(device)
+        timed.setdefault(name, []).append(
+            (time.perf_counter() - t) / (n_calls * form["spc"]) * 1e3)
+        results[name]["final_loss"] = float(out["loss"])
+    positives = SHARD_BS_TRAIN * BPS
+    for name, ms in timed.items():
+        spread = 100 * abs(ms[0] - ms[1]) / min(ms)
+        say("packed", f"{name} (spc {WIKIKG2_SPC}, {table_bytes[name] / 1e9:.3f} GB table): {ms[0]:.5f}"
+            f" / {ms[1]:.5f} ms per step over {results[name]['timed_calls']} calls each (spread"
+            f" {spread:.2f} %), {positives / ms[0] * 1e3:.0f} / {positives / ms[1] * 1e3:.0f}"
+            f" positive triples/s; {min(ms) / min(timed['wikikg2']):.4f}x the fp32 step")
+        results[name]["ms_per_step"] = ms
+    if profile and on_card:
+        for name, form in forms.items():
+            fn, st, dev = form["fn"], form["sampler_state"], form["sampler"]
+            held = (form["params"], form["state"])
+            results[name]["profile"] = profile_run(
+                lambda: [fn(*held, st, dev.next_key(200 + i)) for i in range(2)],
+                2 * form["spc"], f"packed_{name}_trace.json")
+    return results
+
+
 def profile_steps(step, params, state, batches, trace: str) -> dict:
     """Device time by kernel and the device's busy share over a few host-fed
     steps (``torch.profiler``); the trace goes to chiprun_out/."""
@@ -1725,6 +2049,24 @@ def ptxas_report(names=("l1_distance", "dense_adamw")) -> None:
                 raise AssertionError(f"{k['name']} spills {k['spills']}")
 
 
+PHASES = ("training", "dense", "device", "packed")
+
+
+def profiled_phases(argv) -> set:
+    """The training phases to trace: every one for ``--profile``, the named
+    ones for ``--profile=a,b``."""
+    phases = set()
+    for arg in argv:
+        if arg == "--profile":
+            phases.update(PHASES)
+        elif arg.startswith("--profile="):
+            named = set(arg.split("=", 1)[1].split(","))
+            if not named <= set(PHASES):
+                raise SystemExit(f"--profile takes phases of {PHASES}, got {sorted(named)}")
+            phases.update(named)
+    return phases
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device; nothing was run", file=sys.stderr)
@@ -1744,7 +2086,7 @@ def main() -> int:
     ptxas_report()
 
     gen = torch.Generator("cuda").manual_seed(SEED)
-    profile = "--profile" in sys.argv[1:]
+    profile = profiled_phases(sys.argv[1:])
     results = check_kernels(gen)
     results.update(check_training_kernels(gen, 2 * N_ENTITY))
     for name, edges in check_distance_edges(gen).items():
@@ -1756,15 +2098,16 @@ def main() -> int:
         results[name].update(run)
     for name, run in autograd(gen).items():
         results[name].update(run)
-    train = training(gen, profile=profile)
+    train = training(gen, profile="training" in profile)
     step_ms = train.pop("step_ms")
     for name, run in train.items():
         results[name].update(run)
-    dense = dense_training(gen, profile=profile)
+    dense = dense_training(gen, profile="dense" in profile)
     dense_ms = dense.pop("step_ms")
     for name, run in dense.items():
         results[name].update(run)
-    device = device_training(gen, profile=profile)
+    device = device_training(gen, profile="device" in profile)
+    packed_run = packed_training(gen, profile="packed" in profile)
 
     kernels = []
     for name, spec in KERNELS.items():
@@ -1816,6 +2159,22 @@ def main() -> int:
             name: {path: all(rep["bitwise"][path] for rep in r["replays"])
                    for path in r["replays"][0]["bitwise"]} for name, r in device.items()},
         "busy_pct": {name: r["profile"]["busy_pct"] for name, r in device.items()
+                     if "profile" in r},
+    }), flush=True)
+    print(json.dumps({
+        "packed_training_ms_per_step": {name: r["ms_per_step"] for name, r in packed_run.items()},
+        "steps_per_call": WIKIKG2_SPC, "positives_per_step": SHARD_BS_TRAIN * BPS,
+        "table_bytes": {name: r["table_bytes"] for name, r in packed_run.items()},
+        "timed_calls": {name: r["timed_calls"] for name, r in packed_run.items()},
+        **{key: {name: packed_run[name][field] for name in PACKED} for key, field in (
+            ("launches_per_call", "launches_per_call"), ("capture_s", "capture_s"),
+            ("graph_pool_bytes", "pool_bytes"), ("graph_capture_peak_bytes", "peak_bytes"),
+            ("first_call_wrapper_launches", "first_call_wrapper_launches"),
+            ("vs_cpu", "vs_cpu"), ("layouts", "layouts"))},
+        "replay_bitwise_equal_to_eager": {
+            name: all(all(rep["bitwise"].values()) for rep in packed_run[name]["replays"])
+            for name in PACKED},
+        "busy_pct": {name: r["profile"]["busy_pct"] for name, r in packed_run.items()
                      if "profile" in r},
     }), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

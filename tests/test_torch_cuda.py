@@ -411,6 +411,74 @@ def test_scatter_rows_multi_takes_int32_words(cuda):
     assert torch.equal(packed, want[0]) and torch.equal(moment, want[1])
 
 
+@pytest.mark.parametrize("store", [torch.int32, torch.uint32])
+def test_row_kernels_write_packed_storage(cuda, store):
+    """B3 at h = 1, 3 and 5 over packed words (uint32: packed fp16, whose
+    plain version indexes the int32 view) and B8 with a packed table beside
+    two fp32 moments, each against its plain version on the same inputs;
+    int32 rows into a uint32 table keep their bits."""
+    gen = torch.Generator(cuda).manual_seed(5)
+    P, D, R = 300, 128, 97
+
+    def words(*shape):
+        return torch.randint(-2**31, 2**31 - 1, shape, device=cuda, generator=gen,
+                             dtype=torch.int64).to(torch.int32)
+
+    for h in (1, 3, 5):
+        table = words(h * P, D).view(store)
+        idx, _ = _runs(cuda, R, P - 1, seed=30 + h)
+        phys = h * idx
+        # int32 words (bits, not values), the same for every slot of a run
+        run = torch.cummax(torch.where(_first(idx), torch.arange(R, device=cuda), 0), 0).values
+        rows = words(R, h, D)[run].reshape(h * R, D)
+        for skip in (False, True):
+            got, want = table.clone(), table.clone()
+            row_kernels.scatter_rows_plain(want, phys, rows, h, skip)
+            row_kernels.scatter_rows(got, phys, rows, h, skip)
+            torch.cuda.synchronize()
+            assert got.dtype == store
+            assert torch.equal(got.view(torch.int32), want.view(torch.int32)), (h, skip)
+    packed = words(P, D).view(store)
+    mu, nu = (torch.randn(2 * P, D, device=cuda, generator=gen) for _ in range(2))
+    pidx, _ = _runs(cuda, R, P, seed=40)
+    lidx, _ = _runs(cuda, R, 2 * P, seed=41)  # later slots of a run hold anything
+    rows = [words(R, D).view(store), torch.randn(R, D, device=cuda, generator=gen),
+            torch.randn(R, D, device=cuda, generator=gen)]
+    want = [packed.clone(), mu.clone(), nu.clone()]
+    row_kernels.scatter_rows_multi_plain(want, [pidx, lidx, lidx], rows, True)
+    row_kernels.reset_launch_counts()
+    row_kernels.scatter_rows_multi([packed, mu, nu], [pidx, lidx, lidx], rows, True)
+    torch.cuda.synchronize()
+    assert row_kernels.scatter_rows_multi.launches == 1
+    assert torch.equal(packed.view(torch.int32), want[0].view(torch.int32))
+    assert torch.equal(mu, want[1]) and torch.equal(nu, want[2])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_plain_16bit_table_writes_take_b3_per_table(cuda, dtype):
+    """A plain 16-bit table beside its fp32 moment: B8 copies 4-byte words
+    only, so the separate-buffer RowSGDM writes each table with one B3
+    launch; the step on the card equals the same step of the plain versions
+    on the CPU bit for bit (one row update, stochastically rounded)."""
+    gen = torch.Generator("cpu").manual_seed(6)
+    N, D, R = 500, 128, 300
+    table = torch.randn(N, D, generator=gen).to(dtype)
+    idx = torch.randint(0, N, (R,), generator=gen)
+    g = (torch.randint(-8, 9, (R, D), generator=gen) / 4).float()
+    opt = optim.RowSGDM(1e-3, 0.9)
+    cpu_t, cpu_s = table.clone(), opt.init(table)
+    card_t, card_s = table.to(cuda), opt.init(table.to(cuda))
+    for _ in range(2):
+        cpu_t, cpu_s = opt.update_rows(cpu_t, cpu_s, idx, g)
+        row_kernels.reset_launch_counts()
+        card_t, card_s = opt.update_rows(card_t, card_s, idx.to(cuda), g.to(cuda))
+        torch.cuda.synchronize()
+        assert row_kernels.scatter_rows.launches == 2
+        assert row_kernels.scatter_rows_multi.launches == 0
+    assert torch.equal(card_t.cpu().view(torch.int16), cpu_t.view(torch.int16))
+    assert torch.equal(card_s["m"].cpu(), cpu_s["m"])
+
+
 @pytest.mark.parametrize("h", [1, 2, 3])
 @pytest.mark.parametrize("skip_dups", [False, True])
 @pytest.mark.parametrize("block", [False, True])

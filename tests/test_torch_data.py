@@ -164,15 +164,16 @@ def test_take_rows_plain_and_unported_layouts():
     assert torch.equal(port_packed.take_contiguous_rows(table, 2, 3, 6), table[2:5])
     with pytest.raises(ValueError):
         port_packed.take_contiguous_rows(table, 4, 3, 6)
-    with pytest.raises(NotImplementedError, match="A9"):
-        port_packed.take_rows(table.to(torch.int32), idx, 6)
+    # int32 storage is a row-pair-packed bf16 table (ROADMAP A9, ported):
+    # logical row i is the halfword plane i % 2 of packed row i // 2.
+    packed = port_packed.pack_table(table)
+    assert packed.dtype == torch.int32 and packed.shape == (3, 4)
+    assert torch.equal(port_packed.take_rows(packed, idx, 6), table[idx].to(torch.bfloat16))
     # (2N, D): pair-major interleaved, param row i at physical row 2i.
     pair_idx = torch.tensor([[2, 0], [1, 1]])
     assert torch.equal(port_packed.take_rows(table, pair_idx, 3), table[2 * pair_idx])
-    with pytest.raises(NotImplementedError):
-        port_packed.take_contiguous_rows(table, 0, 2, 3)
+    assert torch.equal(port_packed.take_contiguous_rows(table, 0, 2, 3), table[0:4:2])
     # (3N, D): treble-major interleaved AdamW, param row i at physical row 3i.
     treb_idx = torch.tensor([[1, 0], [1, 1]])
     assert torch.equal(port_packed.take_rows(table, treb_idx, 2), table[3 * treb_idx])
-    with pytest.raises(NotImplementedError):
-        port_packed.take_contiguous_rows(table, 0, 2, 2)
+    assert torch.equal(port_packed.take_contiguous_rows(table, 0, 2, 2), table[0:6:3])

@@ -199,9 +199,9 @@ def test_row_sgdm_update_rows_matches_jax(variant, schedule):
 
 
 def test_unported_row_sgdm_forms_raise():
-    # The separate-buffer form (B8) and the "pallas_gather" variant (B9) are
-    # ported; 16-bit tables (A9), unknown variants and inconsistent layouts
-    # raise.
+    # The separate-buffer form (B8), the "pallas_gather" variant (B9) and
+    # 16-bit tables (A9) are ported; unknown variants, inconsistent layouts
+    # and a plain 16-bit table under interleaved momentum raise.
     row = port_optim.RowSGDM(0.1, momentum=0.9)
     assert set(row.init(torch.zeros(10, 4))) == {"m", "count"}
     port_optim.RowSGDM(0.1, momentum=0.9, interleaved=True, fused_variant="pallas_gather")
@@ -214,10 +214,10 @@ def test_unported_row_sgdm_forms_raise():
     row = port_optim.RowSGDM(0.1, momentum=0.9, interleaved=True)
     with pytest.raises(ValueError):
         row.init(torch.zeros(10, 4), n_logical=4)
-    with pytest.raises(NotImplementedError, match="A9"):
+    with pytest.raises(ValueError, match="row-pair-packed"):
         row.init(torch.zeros(8, 4, dtype=torch.bfloat16), n_logical=4)
-    with pytest.raises(NotImplementedError, match="A9"):
-        port_optim.RowSGDM(0.1).init(torch.zeros(8, 4, dtype=torch.bfloat16))
+    state = port_optim.RowSGDM(0.1).init(torch.zeros(8, 4, dtype=torch.bfloat16))
+    assert state["m"].dtype == torch.float32 and state["m"].shape == (8, 4)
 
 
 @pytest.mark.parametrize("momentum", [0.0, 0.9])

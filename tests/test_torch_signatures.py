@@ -85,6 +85,28 @@ def test_the_scan_sees_the_ported_modules():
     assert len(SHARED) > 60
 
 
+def test_the_scan_sees_the_packed_surface():
+    """Every public function of the JAX package's packed.py is in the port's,
+    and the scan holds each to its parameter order; so the row optimizers'
+    16-bit members and the score function's packed storage flag."""
+    from besskge_tpu import packed as jax_packed
+    from besskge_tpu import scoring as jax_scoring
+    from besskge_tpu_torch import packed as port_packed
+    from besskge_tpu_torch import scoring as port_scoring
+
+    names = {name for name, _, _ in SHARED}
+    assert set(jax_packed.__all__) <= set(port_packed.__all__)
+    for name in jax_packed.__all__:
+        assert f"besskge_tpu_torch.packed.{name}" in names, name
+    for cls in ("RowSGDM", "RowAdamW"):
+        for member in ("init", "widen_table", "update_rows"):
+            assert f"besskge_tpu_torch.optim.{cls}.{member}" in names, (cls, member)
+    assert _params(port_optim._sr_round_16) == _params(jax_optim._sr_round_16)
+    for cls in ("BaseScoreFunction", "TransE", "RotatE"):
+        assert getattr(port_scoring, cls).packed_entity_storage is False
+        assert getattr(jax_scoring, cls).packed_entity_storage is False
+
+
 @pytest.mark.parametrize("name,port_obj,jax_obj", SHARED, ids=[n for n, _, _ in SHARED])
 def test_shared_signatures_are_prefix_compatible(name, port_obj, jax_obj):
     port, ref = _params(port_obj), _params(jax_obj)
@@ -147,10 +169,24 @@ def test_unported_sampler_options_raise(key, value):
 
 
 def test_sixteen_bit_tables_raise_for_row_optimizers():
+    """16-bit tables are ported (ROADMAP A9): the row optimizers take a plain
+    or packed one, with fp32 moments. What still raises, as in the JAX
+    package: an interleaved optimizer over a plain 16-bit table; and, the
+    port's own gap, fp16 operands for the L1 kernels (ROADMAP A17)."""
     import torch
 
+    from besskge_tpu_torch.ops import l1_kernels
+
     table = torch.zeros(8, 4, dtype=torch.bfloat16)
-    for opt in (port_optim.RowSGDM(0.1, 0.9, 0.0, False), port_optim.RowAdamW(0.1),
+    for opt in (port_optim.RowSGDM(0.1, 0.9, 0.0, False), port_optim.RowAdamW(0.1)):
+        state = opt.init(table)
+        assert all(v.dtype == torch.float32 for k, v in state.items() if k != "count")
+    for opt in (port_optim.RowSGDM(0.1, 0.9, interleaved=True),
                 port_optim.RowAdamW(0.1, interleaved=True)):
-        with pytest.raises(NotImplementedError, match="A9"):
+        with pytest.raises(ValueError, match="row-pair-packed"):
             opt.init(table)
+    half = torch.zeros(3, 4, dtype=torch.float16)
+    with pytest.raises(NotImplementedError, match="A17"):
+        l1_kernels.l1_distance_matrix(half, half)
+    with pytest.raises(NotImplementedError, match="A17"):
+        l1_kernels.l1_distance_matrix_batched(half[None], half[None])
