@@ -11,16 +11,19 @@ it needs are copied. Entry points run on ``cuda`` unless the caller passes
 
 Ported so far, on one device: TopK serving of TransE
 (``bess.TopKQueryBessKGE`` with ``build_topk_forward``), sparse training of
-TransE with every fp32 row optimizer (``RowSGDM``, ``RowAdamW``) and dense
-training of RotatE (``AdamW``, ``FusedDenseAdamW``), through
-``trainer.build_train_step`` and ``trainer.Trainer``, on host batches or on
-batches drawn on the device (``device_sampler.DeviceBatchSampler``,
-``trainer.build_device_train_step``: one CUDA graph per call of
-``steps_per_call`` steps on a card).
+TransE with every row optimizer (``RowSGDM``, ``RowAdamW``, ``RowAdagrad``;
+fp32, plain 16-bit and row-pair-packed tables) and dense training of RotatE
+(``AdamW``, ``FusedDenseAdamW``), through ``trainer.build_train_step`` and
+``trainer.Trainer``, on host batches or on batches drawn on the device
+(``device_sampler.DeviceBatchSampler``, ``trainer.build_device_train_step``:
+one CUDA graph per call of ``steps_per_call`` steps on a card); checkpoints
+in the JAX package's formats, with resharding (``checkpoint``,
+``Trainer.save``).
 """
 
 __version__ = "0.1.0"
 
+from besskge_tpu_torch.checkpoint import load_checkpoint, save_checkpoint  # noqa: E402
 from besskge_tpu_torch.device_sampler import DeviceBatchSampler  # noqa: E402
 from besskge_tpu_torch.negative_sampler import TypeBasedShardedNegativeSampler  # noqa: E402
 from besskge_tpu_torch.trainer import (  # noqa: E402
@@ -35,4 +38,6 @@ __all__ = [
     "TypeBasedShardedNegativeSampler",
     "build_device_train_step",
     "build_train_step",
+    "load_checkpoint",
+    "save_checkpoint",
 ]

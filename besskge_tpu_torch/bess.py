@@ -134,6 +134,16 @@ class BessKGE(ABC):
             raise ValueError("axis_name=None requires n_shard == 1")
         self.entity_embedding_size: int = score_fn.entity_row_size
 
+    @property
+    def n_embedding_parameters(self) -> int:
+        """Trainable parameters in the (global) embedding tables."""
+        sh = self.score_fn.sharding
+        n_rel = self.score_fn.n_relation_type * (2 if self.score_fn.inverse_relations else 1)
+        return int(
+            sh.n_shard * sh.max_entity_per_shard * self.score_fn.entity_row_size
+            + n_rel * self.score_fn.relation_row_size
+        )
+
     def forward(
         self,
         params: Dict[str, torch.Tensor],

@@ -2,19 +2,27 @@
 
 Host-side numpy, copied from ``besskge_tpu/dataset.py`` so that the port
 never imports the JAX package: the :class:`KGDataset` fields, its
-``from_triples`` random split. Save/load, ``from_dataframe`` and the dataset
-builders (OGB, YAGO3-10, OpenBioLink) are not ported yet.
+``from_triples`` random split and its pickle files, which either package
+loads from the other. ``from_dataframe`` and the dataset builders (OGB,
+YAGO3-10, OpenBioLink) are not ported yet (ROADMAP A14).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import io
+import pickle
+from pathlib import Path
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 from numpy.typing import NDArray
 
 __all__ = ["KGDataset"]
+
+#: Where a pickled KGDataset names its class: the JAX package's module, so
+#: that a file of either package loads into the other.
+_PICKLED_AS = ("besskge_tpu.dataset", "KGDataset")
 
 
 @dataclasses.dataclass
@@ -84,3 +92,42 @@ class KGDataset:
             relation_dict=relation_dict,
             type_offsets=type_offsets,
         )
+
+    def save(self, out_file: Path) -> None:
+        """Pickle to disk, under the JAX package's class name: the file is
+        the JAX package's ``KGDataset.save`` file of the same dataset, and
+        loads into either package. The stream is written at protocol 3, whose
+        class reference is one text opcode at the start, naming this class's
+        module; that name is replaced by the JAX package's (pickle would
+        import a module to write its name, and the port never imports the
+        JAX package)."""
+        ours = f"c{__name__}\n{type(self).__qualname__}\n".encode()
+        theirs = "c{}\n{}\n".format(*_PICKLED_AS).encode()
+        data = memoryview(pickle.dumps(self, protocol=3))
+        head = len(pickle.PROTO) + 1
+        if bytes(data[head:head + len(ours)]) != ours:
+            raise AssertionError("unexpected start of a KGDataset pickle")
+        with open(out_file, "wb") as f:
+            f.write(data[:head])
+            f.write(theirs)
+            f.write(data[head + len(ours):])
+
+    @classmethod
+    def load(cls, path: Path) -> "KGDataset":
+        """Load a dataset saved with :meth:`save` by either package; the
+        JAX package's class name resolves to this class, without importing
+        the JAX package."""
+        with open(path, "rb") as f:
+            ds = _Unpickler(f).load()
+        if not isinstance(ds, KGDataset):
+            raise ValueError(f"File at {path} is not a KGDataset")
+        return ds
+
+
+class _Unpickler(pickle.Unpickler):
+    """Resolves the JAX package's ``KGDataset`` to the port's."""
+
+    def find_class(self, module: str, name: str):
+        if (module, name) in (_PICKLED_AS, (__name__, "KGDataset")):
+            return KGDataset
+        return super().find_class(module, name)

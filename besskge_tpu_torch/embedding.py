@@ -22,6 +22,7 @@ __all__ = [
     "init_uniform_rotation",
     "initialize_entity_embedding",
     "initialize_relation_embedding",
+    "refactor_embedding_sharding",
     "device_table_init",
 ]
 
@@ -135,6 +136,19 @@ def initialize_relation_embedding(
         return np.ascontiguousarray(initializer, dtype=np.float32)
     rng = np.random.default_rng(seed)
     return _build_sliced((n_rows, total), initializer, row_size, rng)
+
+
+def refactor_embedding_sharding(
+    entity_embedding: NDArray[np.float32],
+    old_sharding: Sharding,
+    new_sharding: Sharding,
+) -> NDArray[np.float32]:
+    """Move a trained sharded ``(n_shard, max_entity_per_shard, row)`` table
+    to another sharding: unshard through ``(entity_to_shard, entity_to_idx)``,
+    then shard under ``new_sharding``, padding rows zero (reference
+    ``besskge/embedding.py:262-290``)."""
+    flat = entity_embedding[old_sharding.entity_to_shard, old_sharding.entity_to_idx]
+    return initialize_entity_embedding(new_sharding, flat, [entity_embedding.shape[-1]])
 
 
 def device_table_init(

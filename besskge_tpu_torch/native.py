@@ -8,12 +8,13 @@ port's own build directory (``build/besskge_tpu_torch/``). It exposes:
 * :func:`assemble_hrt` — shard-pair (h, r, t) gather with the tail
   pre-transpose for the AllToAll;
 * :func:`random_negatives` — balanced negative drawing (pcg32);
-* :func:`rigid_take` — padded-epoch triple selection + mask.
+* :func:`rigid_take` — padded-epoch triple selection + mask;
+* :func:`available` — whether the library builds and loads.
 
 Unlike the JAX package's module, these functions raise ``RuntimeError`` when
 the library cannot be built or loaded: a sampler asked to use the native
 loops never switches by itself to the numpy random stream, which draws
-different negatives.
+different negatives. :func:`available` only reports it.
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ import numpy as np
 
 from besskge_tpu_torch import _build
 
-__all__ = ["assemble_hrt", "random_negatives", "rigid_take"]
+__all__ = ["available", "assemble_hrt", "random_negatives", "rigid_take"]
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -68,6 +69,16 @@ def _get() -> ctypes.CDLL:
                 fn.restype = None
             _lib = lib
         return _lib
+
+
+def available() -> bool:
+    """True when the native library builds and loads. It reports only: the
+    samplers still raise on a library that does not load."""
+    try:
+        _get()
+    except RuntimeError:
+        return False
+    return True
 
 
 def assemble_hrt(

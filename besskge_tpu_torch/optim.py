@@ -26,12 +26,16 @@ Row optimizers, and the kernels that write them on a card:
 :class:`RowAdamW` ``interleaved=True``  fp32: B3 (h = 3) on the treble-major
                                        table; packed: B3 (h = 5) on the
                                        quintuplet store
+:class:`RowAdagrad` separate buffer    B8 (table and accumulator), or B3 per
+                                       table beside a plain 16-bit table
+:class:`RowAdagrad` ``interleaved``    fp32: B3 (h = 2) on the pair-major
+                                       table; packed: B3 (h = 3) on the
+                                       triplet store (``RowSGDM``'s layouts)
 =====================================  =======================================
 
 A 16-bit table, plain or row-pair-packed (:mod:`besskge_tpu_torch.packed`),
 keeps fp32 moments, and its updated rows are stochastically rounded to
-16 bits by default (:func:`_sr_round_16`). ``RowAdagrad`` waits on ROADMAP
-A13.
+16 bits by default (:func:`_sr_round_16`).
 
 Dense optimizers, in place: :class:`SGD` (``optax.sgd(lr, momentum)``) and
 :class:`AdamW` (``optax.adamw``) for the replicated params, or for every
@@ -65,6 +69,7 @@ __all__ = [
     "AdamW",
     "EntityRowOptimizer",
     "FusedDenseAdamW",
+    "RowAdagrad",
     "RowAdamW",
     "RowSGDM",
     "SGD",
@@ -263,11 +268,21 @@ def _dedup_row_grads(
 
 
 
+def is_packed_table(t: torch.Tensor) -> bool:
+    """True for a row-pair-packed table (int32 or uint32 words)."""
+    return is_packed(t)
+
+
 class EntityRowOptimizer:
     """Interface: sparse per-row optimizer for the local entity table."""
 
     #: True when optimizer state lives inside the widened param table.
     interleaved: bool = False
+    #: The interleaved layout that a checkpoint de- and re-interleaves:
+    #: "momentum" (pair-major / triplet stores of one state row), "adamw"
+    #: (treble-major / quintuplet stores of mu and nu), "adagrad" (the
+    #: momentum layouts, holding the accumulator).
+    interleave_layout: str = "momentum"
 
     def widen_table(self, table: torch.Tensor) -> torch.Tensor:
         """Widen a plain table into this optimizer's interleaved storage
@@ -434,6 +449,7 @@ class RowAdamW(EntityRowOptimizer):
     weight_decay: float = 0.0
     stochastic_rounding: bool = True
     interleaved: bool = False
+    interleave_layout: str = "adamw"
 
     def init(self, table: torch.Tensor, n_logical: Optional[int] = None) -> Dict[str, Any]:
         count = torch.zeros((), dtype=torch.int32, device=table.device)
@@ -618,6 +634,80 @@ class RowSGDM(EntityRowOptimizer):
         new_p = _round_rows(self, new_p, idx, new_state["count"], table)
         _apply_rows_multi([(table, idx, new_p), (state["m"], idx, m_rows)], sorted_dedup=True)
         return table, new_state
+
+
+@dataclasses.dataclass
+class RowAdagrad(EntityRowOptimizer):
+    """Lazy Adagrad on touched rows, fp32 accumulator
+    (``besskge_tpu.optim.RowAdagrad``): ``acc ← acc + g²``, ``p ← p −
+    lr·g / (√acc + eps)``, the learning rate read at the pre-increment step
+    count, stochastic rounding hashed with the post-increment one.
+
+    :param learning_rate: a float, or a schedule called with the step count.
+    :param stochastic_rounding: round the updated rows of a 16-bit table
+        stochastically (:func:`_sr_round_16`); no effect on an fp32 table.
+    :param interleaved: keep the accumulator in the table, in
+        :class:`RowSGDM`'s single-state layouts: pair-major ``(2N, D)`` for
+        an fp32 table (:func:`interleave_momentum`, B3 h = 2), the triplet
+        store ``(3P, D)`` for a packed one
+        (:func:`~besskge_tpu_torch.packed.interleave_packed_momentum`, B3
+        h = 3). Otherwise a separate ``acc`` buffer, written with the table
+        in one launch (B8, k = 2).
+    """
+
+    learning_rate: LearningRate
+    eps: float = 1e-10
+    stochastic_rounding: bool = True
+    interleaved: bool = False
+    interleave_layout: str = "adagrad"
+
+    def init(self, table: torch.Tensor, n_logical: Optional[int] = None) -> Dict[str, Any]:
+        count = torch.zeros((), dtype=torch.int32, device=table.device)
+        if self.interleaved:
+            _check_interleaved(table, n_logical, 2, 3, "interleave_momentum",
+                               "interleave_packed_momentum")
+            return {"count": count}
+        return {
+            "acc": torch.zeros(_moment_shape(table), dtype=torch.float32, device=table.device),
+            "count": count,
+        }
+
+    def widen_table(self, table: torch.Tensor) -> torch.Tensor:
+        if not self.interleaved:
+            return table
+        if is_packed(_flat(table)):
+            return interleave_packed_momentum(table)
+        return interleave_momentum(table)
+
+    def _step(self, p_rows, acc_prev, g, lr):
+        acc_rows = acc_prev + g * g
+        return p_rows - lr * g / (torch.sqrt(acc_rows) + self.eps), acc_rows
+
+    def update_rows(self, table, state, idx, grad_rows):
+        idx, g = _dedup_row_grads(idx, grad_rows)
+        count = state["count"] + 1
+        lr = _lr_at(self.learning_rate, state["count"])
+        if self.interleaved and is_packed(_flat(table)):
+            new_p, acc_rows = self._step(
+                take_rows(table, idx, tripled=True).float(),
+                _state_rows(table, 3 * (idx >> 1) + 1 + (idx & 1)), g, lr)
+            new_p = _round_rows(self, new_p, idx, count, table)
+            phys, out = merge_packed_block_writes(table, idx, new_p, [acc_rows])
+            _apply_row_slices(table, phys, out, 3, sorted_dedup=True)
+            return table, {"count": count}
+        if self.interleaved:
+            phys = 2 * idx
+            pairs = _read_slices(table, phys, 2)
+            new_p, acc_rows = self._step(pairs[:, 0], pairs[:, 1], g, lr)
+            new_pairs = torch.stack([new_p, acc_rows], dim=1).reshape(-1, g.shape[-1])
+            _apply_row_slices(table, phys, new_pairs, 2, sorted_dedup=True)
+            return table, {"count": count}
+        new_p, acc_rows = self._step(_read_rows(table, idx), _read_rows(state["acc"], idx), g, lr)
+        _apply_rows_multi([
+            (table, idx, _round_rows(self, new_p, idx, count, table)),
+            (state["acc"], idx, acc_rows),
+        ], sorted_dedup=True)
+        return table, {"acc": state["acc"], "count": count}
 
 
 @dataclasses.dataclass

@@ -29,9 +29,16 @@ from besskge_tpu_torch.embedding import (
     init_uniform_rotation,
     initialize_entity_embedding,
     initialize_relation_embedding,
+    refactor_embedding_sharding,
 )
 from besskge_tpu_torch.ops.distance import p_distance_matrix
-from besskge_tpu_torch.packed import _store_dtype, pack_table, pack_table_host
+from besskge_tpu_torch.packed import (
+    _store_dtype,
+    is_packed,
+    pack_table,
+    pack_table_host,
+    unpack_table_host,
+)
 from besskge_tpu_torch.sharding import Sharding
 from besskge_tpu_torch.utils import complex_rotation, resolve_device
 
@@ -155,6 +162,34 @@ class BaseScoreFunction(ABC):
                 self.dtype, None, device, generator,
             ),
         }
+
+    def update_sharding(self, params: Params, new_sharding: Sharding) -> Params:
+        """Re-shard a (trained) entity table to ``new_sharding`` on the host
+        and put it back on its device; a row-pair-packed table goes through
+        its logical 16-bit rows (reference ``besskge/scoring.py:126-142``)."""
+        tab = params["entity_embedding"]
+        host = tab.detach().cpu()
+        packed = is_packed(host)
+        if packed:
+            raw = unpack_table_host(
+                host.view(torch.int32).numpy().view(
+                    np.uint32 if host.dtype == torch.uint32 else np.int32),
+                self.sharding.n_shard * self.sharding.max_entity_per_shard)
+        else:  # a bf16 table widens to fp32 exactly
+            raw = (host.float() if host.dtype == torch.bfloat16 else host).numpy()
+        table = raw.reshape(self.sharding.n_shard, self.sharding.max_entity_per_shard, -1)
+        new_table = refactor_embedding_sharding(
+            table.astype(np.float32), self.sharding, new_sharding
+        ).astype(table.dtype)
+        self.sharding = new_sharding
+        new_table = new_table.reshape(-1, new_table.shape[-1])
+        if packed:
+            if new_sharding.max_entity_per_shard % 2:
+                raise ValueError("a packed table needs an even max_entity_per_shard")
+            new = torch.from_numpy(pack_table_host(new_table).view(np.int32)).view(host.dtype)
+        else:
+            new = torch.from_numpy(new_table).to(host.dtype)
+        return {**params, "entity_embedding": new.to(tab.device)}
 
     def relation_embedding(self, params: Params, relation_id: torch.Tensor) -> torch.Tensor:
         """Gather relation rows from the replicated table (cast to

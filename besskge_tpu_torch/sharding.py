@@ -7,13 +7,14 @@ micro-batch with a single balanced AllToAll of tail/negative embeddings.
 
 This module is pure host-side numpy, copied from ``besskge_tpu/sharding.py``
 so that the port never imports the JAX package; its arrays are identical to
-the JAX package's for the same seed. ``Sharding`` save/load is not ported
-yet.
+the JAX package's for the same seed, and a :class:`Sharding` file written by
+either package loads into the other.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from pathlib import Path
 from typing import Optional, Tuple
 
 import numpy as np
@@ -121,6 +122,18 @@ class Sharding:
             entity_type_offsets=type_offs,
         )
 
+    def save(self, out_file: Path) -> None:
+        """Serialize to ``.npz`` (None-valued optional fields are omitted)."""
+        fields = {k: v for k, v in dataclasses.asdict(self).items() if v is not None}
+        np.savez(out_file, **fields)
+
+    @classmethod
+    def load(cls, path: Path) -> "Sharding":
+        """Load a sharding saved with :meth:`save`."""
+        data = dict(np.load(path, allow_pickle=False))
+        n_shard = int(data.pop("n_shard"))
+        return cls(n_shard=n_shard, **data)
+
 
 def _partition_triples(
     triples: NDArray[np.int32],
@@ -200,6 +213,9 @@ class PartitionedTripleSet:
     neg_heads: Optional[NDArray[np.int32]] = None
     #: int32[n_triple or 1, n_neg] — global IDs of predefined negative tails.
     neg_tails: Optional[NDArray[np.int32]] = None
+
+    # Kept as a class member, as in the JAX package.
+    partition_triples = staticmethod(_partition_triples)
 
     @classmethod
     def create_from_dataset(

@@ -28,12 +28,13 @@ Counterpart of ``besskge_tpu/trainer.py``:
 
 * :class:`Trainer` widens the table for an interleaved optimizer (a
   row-pair-packed one into its triplet or quintuplet store), builds the
-  optimizer state and runs epochs over a host batch sampler, or over keys of
-  a device sampler.
+  optimizer state, runs epochs over a host batch sampler, or over keys of
+  a device sampler, and saves checkpoints in the JAX package's formats
+  (:mod:`besskge_tpu_torch.checkpoint`).
 
 Params and optimizer state are updated in place, as the JAX package donates
 them to the step; ``donate=False`` updates copies instead. Only one device
-is ported: a mesh raises (ROADMAP A15); checkpoints wait on A10.
+is ported: a mesh raises (ROADMAP A15).
 """
 
 from __future__ import annotations
@@ -47,6 +48,7 @@ import torch
 
 from besskge_tpu_torch.batch_sampler import ShardedBatchSampler
 from besskge_tpu_torch.bess import _FORWARD_KEYS, BessKGE, _format_outputs
+from besskge_tpu_torch.checkpoint import save_checkpoint, save_checkpoint_sharded
 from besskge_tpu_torch.device_sampler import DeviceBatchSampler, split_key
 from besskge_tpu_torch.optim import AdamW, SGD, EntityRowOptimizer, FusedDenseAdamW
 from besskge_tpu_torch.packed import is_packed, take_rows
@@ -538,11 +540,10 @@ class Trainer:
         :param valid_fn: optional validation hook ``fn(params) -> {metric:
             value}``, called every ``valid_every`` epochs; results land in
             :attr:`history` as ``{"epoch", "valid": {...}}`` records.
-        :param checkpoint_path: checkpoints are not ported yet (ROADMAP A10):
-            anything but ``None`` raises.
+        :param checkpoint_path: with ``valid_fn``, save a checkpoint here
+            (:meth:`save`) whenever ``checkpoint_metric`` improves; without
+            ``valid_fn``, save once after the last epoch.
         """
-        if checkpoint_path is not None:
-            raise NotImplementedError("checkpoints are not ported yet (ROADMAP A10)")
         step = 0
         triples_per_step = (
             self.batch_sampler.batches_per_step
@@ -550,6 +551,7 @@ class Trainer:
             * self.batch_sampler.shard_bs
         ) * (self.steps_per_call if self.device_sampling else 1)
         out: Optional[Dict[str, Any]] = None
+        best_metric = -float("inf")
         t0 = time.perf_counter()
         for epoch in range(n_epochs):
             for out in self._step_stream(epoch, shuffle):
@@ -562,15 +564,25 @@ class Trainer:
             if valid_fn is not None and (epoch + 1) % valid_every == 0:
                 metrics = valid_fn(self.params)
                 self.history.append({"epoch": epoch, "valid": dict(metrics)})
+                if checkpoint_path is not None:
+                    val = float(metrics[checkpoint_metric])
+                    if val > best_metric:
+                        best_metric = val
+                        self.save(checkpoint_path, step=step)
+        if valid_fn is None and checkpoint_path is not None:
+            self.save(checkpoint_path, step=step)
         last_loss = float(out["loss"]) if out is not None else float("nan")
         elapsed = time.perf_counter() - t0
-        return {
+        summary = {
             "steps": step,
             "epochs": n_epochs,
             "final_loss": last_loss,
             "wall_time_s": elapsed,
             "triples_per_s": step * triples_per_step / max(elapsed, 1e-9),
         }
+        if best_metric > -float("inf"):
+            summary[f"best_{checkpoint_metric}"] = best_metric
+        return summary
 
     def _step_stream(self, epoch: int, shuffle: bool) -> Iterator[Dict[str, Any]]:
         """Run one epoch of train steps, yielding each step's outputs.
@@ -604,3 +616,21 @@ class Trainer:
                 self.params, self.opt_state, batch
             )
             yield out
+
+    def save(self, path: str, step: int = 0, sharded: bool = False) -> None:
+        """Checkpoint the params, the optimizer state and the sharding in the
+        JAX package's format (:func:`~besskge_tpu_torch.checkpoint.save_checkpoint`),
+        an interleaved entity table de-interleaved on its device into the
+        plain table and its state rows. With ``sharded=True``, the directory
+        format (:func:`~besskge_tpu_torch.checkpoint.save_checkpoint_sharded`),
+        which keeps the table as it is stored."""
+        if sharded:
+            save_checkpoint_sharded(path, self.params, opt_state=self.opt_state,
+                                    sharding=self.bess.sharding, step=step)
+            return
+        opt = self.entity_optimizer
+        save_checkpoint(
+            path, self.params, opt_state=self.opt_state, sharding=self.bess.sharding, step=step,
+            interleaved_entity=opt.interleave_layout if getattr(opt, "interleaved", False)
+            else False,
+        )

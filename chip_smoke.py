@@ -47,8 +47,13 @@ the CUDA toolkit. Phases, one line each with its elapsed seconds:
    momentum buffer, B8, bit for bit after ``split_interleaved``), one
    RowAdamW step with separate moments (B8, k = 3) held against the CPU
    step and against the treble-interleaved RowAdamW step (B3, h = 3, bit
-   for bit), ``Trainer.fit`` over a few steps, and 2 x 20 timed steps of
-   each of the six variants;
+   for bit), one RowAdagrad step with a separate accumulator (B8, k = 2)
+   held against the CPU step (its accumulator the square of the card's
+   gradient bit for bit) and against the pair-major RowAdagrad step (B3,
+   h = 2, bit for bit), packed bf16 RowAdagrad in the triplet store (B3,
+   h = 3) against separate packed buffers (B8, k = 2) bit for bit,
+   ``Trainer.fit`` over a few steps, and 2 x 20 timed steps of each of the
+   eight variants;
 7. dense training: the dense RotatE step of the biokg configuration
    (``bench.py`` ``_setup_biokg``: 93,773 entities, 51 relation types,
    d = 2 x 64, 4,762,678 random triples, one shared "ht" negative,
@@ -88,6 +93,20 @@ the CUDA toolkit. Phases, one line each with its elapsed seconds:
    widens the packed table; sets of timed calls in turns with the fp32
    wikikg2 step; and a JSON line of times, table bytes, captures and
    launches.
+10. checkpoint: the wikikg2 (fp32 pair-major) and wikikg2_bf16 (triplet
+   store) device-sampled steps of phase 9, each run for 4 calls, and again
+   for 2 calls through a ``Trainer`` that ``save``s; a fresh ``Trainer``
+   from ``load_checkpoint`` (the file's optimizer state, counts 0-dim int32
+   on the card) runs calls 2 and 3, and every array must equal the
+   uninterrupted run bit for bit. Then one call of RowAdagrad in the
+   pair-major store (B3, h = 2), saved with ``opt/entity/acc`` and loaded
+   back bit for bit; and the fp32 file re-sharded onto 4 shards, saved,
+   re-sharded back onto 1: table and momentum bit for bit, and 512 top-10
+   queries (B7 chunk merge) over the restored table equal the original's by
+   global entity ID. Files go to a temporary directory, deleted afterwards;
+   a JSON line gives each file's bytes, save and load seconds and the
+   host's peak extra RSS beside the card's name and power limit. The phase
+   traces nothing (``--profile`` does not take it).
 
 Each path is driven with every launch count set to 0 just before it and
 read just after. Then one JSON line describing each kernel, and the result
@@ -102,8 +121,11 @@ share.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 from pathlib import Path
 from typing import Dict
@@ -113,7 +135,7 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
-from besskge_tpu_torch import _build, optim, packed, trainer  # noqa: E402
+from besskge_tpu_torch import _build, checkpoint, optim, packed, trainer  # noqa: E402
 from besskge_tpu_torch.batch_sampler import (  # noqa: E402
     RandomShardedBatchSampler,
     RigidShardedBatchSampler,
@@ -324,11 +346,16 @@ def read_counts() -> Dict[str, int]:
     return {name: spec["wrapper"].launches for name, spec in KERNELS.items()}
 
 
+def _launched() -> Dict[str, int]:
+    """The launch counts of the kernels that launched."""
+    return {name: n for name, n in read_counts().items() if n}
+
+
 def expect_counts(path: str, counts: Dict[str, int], want: Dict[str, int]) -> None:
-    """Launch counts of one run of a path: the named kernels exactly, every
-    other kernel 0."""
+    """Launch counts of one run of a path (of every kernel, or of those that
+    launched): the named kernels exactly, every other kernel 0."""
     full = {name: want.get(name, 0) for name in KERNELS}
-    if counts != full:
+    if {name: counts.get(name, 0) for name in KERNELS} != full or not counts.keys() <= full.keys():
         raise AssertionError(f"{path}: launches {counts}, expected {full}")
 
 
@@ -1040,6 +1067,8 @@ def training(gen: torch.Generator, profile: bool = False, device: str = "cuda") 
         f" max|err| {', '.join(f'{k} {v:.3g}' for k, v in errs.items())} over {len(touched)} touched"
         f" rows (tolerance {BF16_STEP_RTOL} x (|want| + max|want|)); {len(untouched)} untouched rows"
         f" bit-identical; launches {counts_default}")
+    # The first step's momentum is its deduplicated row gradient (m = 0.9·0 + g).
+    cpu_grad = cpu_params["entity_embedding"][pairs[:, 1]]
     del cpu_params, cpu_state
 
     # The fused variant from the same state.
@@ -1061,7 +1090,7 @@ def training(gen: torch.Generator, profile: bool = False, device: str = "cuda") 
         f" (max|err| {fused_err}); launches {counts_fused}")
     del fused_params
     variants = row_variants(module, sgd, initial, batch, card_params, card_state, touched,
-                            untouched, n_logical, device)
+                            untouched, n_logical, device, cpu_grad)
     del initial
 
     # Trainer.fit, the entry a user calls, over a few steps.
@@ -1080,7 +1109,8 @@ def training(gen: torch.Generator, profile: bool = False, device: str = "cuda") 
     variants["fused"] = (steps["fused"], "pair", "B4")
     holders = variants.pop("holders")
     holders["pair"] = [card_params, fit.opt_state]
-    order = ["xla", "fused", "pallas_gather", "separate", "adamw", "adamw_interleaved"]
+    order = ["xla", "fused", "pallas_gather", "separate", "adamw", "adamw_interleaved", "adagrad",
+             "adagrad_interleaved"]
     timed: Dict[str, list] = {}
     for name in order + order[::-1]:
         step, key, _ = variants[name]
@@ -1109,6 +1139,7 @@ def training(gen: torch.Generator, profile: bool = False, device: str = "cuda") 
         "scatter_rows_multi": {"launches": variants["separate_counts"]["scatter_rows_multi"]},
         "gather_rows": {"launches": variants["gather_counts"]["gather_rows"]},
         "step_ms": timed,
+        "adagrad": variants["adagrad_results"],
     }
 
 
@@ -1119,10 +1150,12 @@ def _adam_ratio(state: dict, count: int, b1: float, b2: float, eps: float = 1e-8
 
 
 def row_variants(module, sgd, initial, batch, card_params, card_state, touched, untouched,
-                 n_logical, device) -> dict:
+                 n_logical, device, cpu_grad) -> dict:
     """One step of each new row-update variant from the initial state of the
     B3 step, held against that step or the CPU; returns the steps,
-    their params and states for the timed runs, and their launch counts."""
+    their params and states for the timed runs, and their launch counts.
+    ``cpu_grad`` is the CPU step's deduplicated gradient at the touched rows
+    (its first momentum)."""
     on_card = device == "cuda"
     card_table = card_params["entity_embedding"]
     p0, _ = optim.split_interleaved(initial["entity_embedding"])
@@ -1221,16 +1254,125 @@ def row_variants(module, sgd, initial, batch, card_params, card_state, touched, 
         raise AssertionError("the interleaved RowAdamW step differs from the separate one")
     say("training", f"the treble-interleaved RowAdamW step (B3, h = 3) equals the separate one bit"
         f" for bit; launches {i_counts}")
+    ada = adagrad_variants(run, module, sgd, p0, rel0, batch, card_table, touched, untouched,
+                           cpu_grad, n_logical, device)
     return {
         "pallas_gather": (g_step, "pair", "B9 + B3"),
         "separate": (s_step, "separate", "B8, k = 2"),
         "adamw": (a_step, "adamw", "B8, k = 3"),
         "adamw_interleaved": (i_step, "adamw_interleaved", "B3, h = 3"),
+        "adagrad": (ada["steps"]["separate"], "adagrad", "B8, k = 2"),
+        "adagrad_interleaved": (ada["steps"]["interleaved"], "adagrad_interleaved", "B3, h = 2"),
         "holders": {"separate": [s_params, s_state], "adamw": [a_params, a_state],
-                    "adamw_interleaved": [i_params, i_state]},
+                    "adamw_interleaved": [i_params, i_state], **ada["holders"]},
         "separate_counts": s_counts,
         "gather_counts": g_counts,
+        "adagrad_results": ada["results"],
     }
+
+
+def adagrad_variants(run, module, sgd, p0, rel0, batch, card_table, touched, untouched,
+                     cpu_grad, n_logical, device) -> dict:
+    """RowAdagrad on the wikikg2 step, host-fed, from the initial state of
+    the B3 step: separate accumulator (B8, k = 2) against the CPU, the
+    pair-major store (B3, h = 2) against it bit for bit, and over a packed
+    bf16 table the triplet store (B3, h = 3) against separate buffers (B8,
+    k = 2) bit for bit.
+
+    Against the CPU: the accumulator after one step is g², and the update
+    lr·g/(√g² + eps) is lr·sign(g) but where |g| is near eps, so a gradient
+    that differs in its last bits between the devices may flip it. The
+    accumulator must equal the square of the card's own gradient (the B3
+    step's first momentum) bit for bit and lie within the sparse bound of
+    the CPU's; the params within the sparse bound plus lr x the difference
+    of g/(|g| + eps) of the two devices' gradients."""
+    on_card = device == "cuda"
+    rows_t = touched.to(device)
+    g_card = card_table[2 * rows_t + 1]
+    results, steps, holders = {}, {}, {}
+
+    ada = optim.RowAdagrad(LR)
+    params = {"entity_embedding": p0.clone(), "relation_embedding": rel0.clone()}
+    cpu_params = _to(params, "cpu")
+    steps["separate"], params, state, out, counts = run(
+        ada, params, "RowAdagrad, B8 k = 2", {"scatter_rows_multi": 1})
+    cpu_state = trainer.init_optimizer_state(sgd, cpu_params, None, ada, n_logical=n_logical)
+    cpu_params, cpu_state, cpu_out = trainer.build_train_step(module, sgd, None, ada, device="cpu")(
+        cpu_params, cpu_state, batch)
+    loss, cpu_loss = float(out["loss"]), float(cpu_out["loss"])
+    if not np.isfinite(loss) or abs(loss - cpu_loss) > 2.0**-8 * abs(cpu_loss):
+        raise AssertionError(f"RowAdagrad step loss {loss} on the card, {cpu_loss} on the CPU")
+    acc = state["entity"]["acc"][rows_t]
+    if not torch.equal(acc, g_card * g_card):
+        raise AssertionError("RowAdagrad's accumulator is not the square of the step's gradient")
+    moved = LR * (g_card / (g_card.abs() + ada.eps)
+                  - cpu_grad.to(device) / (cpu_grad.to(device).abs() + ada.eps)).abs().cpu()
+    errs = {}
+    for name, got, want, extra in (
+        ("params", params["entity_embedding"][rows_t].cpu(), cpu_params["entity_embedding"][touched],
+         moved),
+        ("acc", acc.cpu(), cpu_state["entity"]["acc"][touched], 0.0),
+        ("relation", params["relation_embedding"].cpu(), cpu_params["relation_embedding"], 0.0),
+    ):
+        err = (got - want).abs()
+        tol = BF16_STEP_RTOL * (want.abs() + want.abs().max()) + extra
+        if not (err <= tol).all() or not torch.isfinite(got).all():
+            raise AssertionError(f"RowAdagrad step: {name} off the CPU step by {err.max().item()}")
+        errs[name] = err.max().item()
+    if not torch.equal(params["entity_embedding"][untouched], p0[untouched]):
+        raise AssertionError("the RowAdagrad step moved untouched rows")
+    flips = int((moved > LR).sum())
+    say("training", f"RowAdagrad with a separate accumulator (B8, k = 2), one step on the card vs"
+        f" the CPU: loss {loss:.6f} vs {cpu_loss:.6f}, accumulator = g^2 of the card's gradient"
+        f" bit for bit, max|err| {', '.join(f'{k} {v:.3g}' for k, v in errs.items())} (tolerance"
+        f" {BF16_STEP_RTOL} x (|want| + max|want|), plus for the params lr x the difference of"
+        f" g/(|g| + eps): {flips} of {moved.numel()} values flipped); launches {counts}")
+    results["separate"] = {"launches": counts, "max_abs_err": errs, "sign_flips": flips}
+    holders["adagrad"] = [params, state]
+    del cpu_params, cpu_state
+
+    wide_opt = optim.RowAdagrad(LR, interleaved=True)
+    steps["interleaved"], w_params, w_state, _, w_counts = run(
+        wide_opt, {"entity_embedding": optim.interleave_momentum(p0),
+                   "relation_embedding": rel0.clone()},
+        "interleaved RowAdagrad, B3 h = 2", {"scatter_rows": 1})
+    p, acc_all = optim.split_interleaved(w_params["entity_embedding"])
+    if not (torch.equal(p, params["entity_embedding"]) and torch.equal(acc_all, state["entity"]["acc"])
+            and torch.equal(w_params["relation_embedding"], params["relation_embedding"])):
+        raise AssertionError("the interleaved RowAdagrad step differs from the separate one")
+    say("training", f"the pair-major RowAdagrad step (B3, h = 2) equals the separate one bit for"
+        f" bit; launches {w_counts}")
+    results["interleaved"] = {"launches": w_counts}
+    holders["adagrad_interleaved"] = [w_params, w_state]
+
+    # A packed bf16 table: the triplet store against separate buffers.
+    words = packed.pack_table(p0.to(torch.bfloat16))
+    runs = {}
+    for layout, opt, table, want in (
+        ("triplet store, B3 h = 3", wide_opt, packed.interleave_packed_momentum(words),
+         {"scatter_rows": 1}),
+        ("separate packed buffers, B8 k = 2", ada, words.clone(), {"scatter_rows_multi": 1}),
+    ):
+        _, t_params, t_state, t_out, t_counts = run(
+            opt, {"entity_embedding": table, "relation_embedding": rel0.clone()}, layout, want)
+        runs[layout] = (t_params, t_state, t_counts, float(t_out["loss"]))
+    (pi, si, ci, li), (ps, ss, cs, ls) = runs.values()
+    store_p, (store_acc,) = packed.split_packed_state(pi["entity_embedding"], 1)
+    same = {
+        "params": torch.equal(store_p.view(torch.int32), ps["entity_embedding"].view(torch.int32)),
+        "acc": torch.equal(store_acc, ss["entity"]["acc"]),
+        "relation": torch.equal(pi["relation_embedding"], ps["relation_embedding"]),
+        "loss": li == ls,
+    }
+    if not all(same.values()):
+        raise AssertionError(f"packed RowAdagrad: the triplet store and separate buffers differ in"
+                             f" {[k for k, v in same.items() if not v]}")
+    say("training", f"packed bf16 RowAdagrad: the {tuple(pi['entity_embedding'].shape)} triplet"
+        f" store (B3, h = 3; launches {ci}) and separate buffers (B8, k = 2; launches {cs}) give"
+        " equal bits on every array after one step")
+    results["packed"] = {"interleaved_launches": ci, "separate_launches": cs}
+    del runs, pi, si, ps, ss, store_p, store_acc
+    return {"steps": steps, "holders": holders, "results": results}
 
 
 def dense_training(gen: torch.Generator, profile: bool = False, device: str = "cuda") -> dict:
@@ -1683,14 +1825,16 @@ def _packed_score_fn(sharding: Sharding, half: torch.dtype) -> TransE:
     return score_fn
 
 
-def _packed_forms(gen: torch.Generator, device: str) -> dict:
+def _packed_forms(gen: torch.Generator, device: str, names=("wikikg2", *PACKED)) -> dict:
     """bench.py's wikikg2, wikikg2_bf16 and wikikg2_fp16 device-sampled steps
-    at full width, RowSGDM interleaved (the fp32 pair-major table, or the
-    packed triplet store) at steps_per_call 8; each form keeps the table as
-    drawn (``plain``) for Trainer.fit to widen."""
+    (those of ``names``) at full width, RowSGDM interleaved (the fp32
+    pair-major table, or the packed triplet store) at steps_per_call 8; each
+    form keeps the table as drawn (``plain``) for Trainer.fit to widen."""
     triples, sharding, score_fn, _ = _wikikg2()
     forms = {}
     for name, half in (("wikikg2", None), *PACKED.items()):
+        if name not in names:
+            continue
         if half is not None:
             score_fn = _packed_score_fn(sharding, half)
         module, _, pts = _training_setup(triples, sharding, score_fn)
@@ -1969,6 +2113,263 @@ def packed_training(gen: torch.Generator, profile: bool = False, device: str = "
     return results
 
 
+class PeakRSS:
+    """The host's peak resident bytes above their level on entry, sampled
+    every millisecond from ``/proc/self/statm`` by a thread; ``extra`` is
+    ``None`` where that file cannot be read."""
+
+    def __enter__(self) -> "PeakRSS":
+        self.base = self.peak = self._rss()
+        self.extra = None
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._sample, daemon=True)
+        if self.base is not None:
+            self._thread.start()
+        return self
+
+    @staticmethod
+    def _rss():
+        try:
+            with open("/proc/self/statm") as f:
+                return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+        except (OSError, ValueError):
+            return None
+
+    def _sample(self) -> None:
+        while not self._stop.wait(0.001):
+            self.peak = max(self.peak, self._rss() or 0)
+
+    def __exit__(self, *exc) -> None:
+        if self.base is not None:
+            self._stop.set()
+            self._thread.join()
+            self.peak = max(self.peak, self._rss() or 0)
+            self.extra = self.peak - self.base
+
+
+def _timed_io(what: str, fn, path: Path = None) -> tuple:
+    """``fn()``'s result, and its seconds, the host's peak extra RSS and the
+    bytes of ``path`` afterwards."""
+    with PeakRSS() as rss:
+        t = time.perf_counter()
+        result = fn()
+        seconds = time.perf_counter() - t
+    stats = {f"{what}_s": seconds, f"{what}_peak_extra_rss_bytes": rss.extra}
+    if path is not None:
+        stats["bytes"] = path.stat().st_size
+    return result, stats
+
+
+def _same_tree(what: str, got: dict, want: dict) -> int:
+    """Every leaf of ``got`` equals ``want``'s bit for bit (the same paths);
+    returns the number of leaves."""
+    got_leaves, want_leaves = dict(trainer._leaves(got)), dict(trainer._leaves(want))
+    if got_leaves.keys() != want_leaves.keys():
+        raise AssertionError(f"{what}: leaves {sorted(got_leaves)} against {sorted(want_leaves)}")
+    for path, value in want_leaves.items():
+        other = got_leaves[path].to(value.device)
+        if other.dtype != value.dtype or not torch.equal(other.reshape(-1).view(torch.uint8),
+                                                         value.reshape(-1).view(torch.uint8)):
+            raise AssertionError(f"{what}: {path} differs")
+    return len(want_leaves)
+
+
+def _resume_gate(name: str, form: dict, tmp: Path, device: str) -> dict:
+    """The form's device-sampled run saved after two calls and resumed in a
+    fresh Trainer equals four calls without a break, on every array, bit for
+    bit: the uninterrupted run on the form's own step, the interrupted one
+    through ``Trainer.train_step``, ``Trainer.save`` and ``load_checkpoint``.
+    The device sampler's batches are keyed by the call index, so the resumed
+    calls take ``next_key(2)`` and ``next_key(3)``."""
+    on_card = device == "cuda"
+    fn, sampler_state, dev, spc = form["fn"], form["sampler_state"], form["sampler"], form["spc"]
+    start = (trainer._clone(form["params"]), trainer._clone(form["state"]))
+    for i in range(4):
+        fn(form["params"], form["state"], sampler_state, dev.next_key(i))
+    sync(device)
+
+    def fresh(params):
+        return trainer.Trainer(form["module"], dev, form["opt"], params=params,
+                               entity_optimizer=form["ent"], steps_per_call=spc, device=device)
+
+    def calls(tr, keys):
+        for i in keys:
+            tr.params, tr.opt_state, _ = tr.train_step(tr.params, tr.opt_state, tr.sampler_state,
+                                                       dev.next_key(i))
+        sync(device)
+
+    first = fresh(start[0])
+    first.opt_state = start[1]
+    calls(first, range(2))
+    path = tmp / f"{name}.npz"
+    _, stats = _timed_io("save", lambda: first.save(str(path), step=2 * spc), path)
+    del first, start
+    if on_card:
+        torch.cuda.empty_cache()
+    (params, state, _, meta), load = _timed_io(
+        "load", lambda: checkpoint.load_checkpoint(path, interleave_entity=True))
+    stats.update(load)
+    if meta != {"step": 2 * spc}:
+        raise AssertionError(f"{name}: meta {meta}")
+    resumed = fresh(params)
+    del params
+    resumed.opt_state = _to(state, device)
+    for part in ("entity", "other"):
+        count = resumed.opt_state[part]["count"]
+        if count.dtype != torch.int32 or count.dim() or count.device.type != device \
+                or int(count) != 2 * spc:
+            raise AssertionError(f"{name}: restored {part} count {count!r}")
+    reset_counts()
+    calls(resumed, (2, 3))
+    counts = _launched()
+    if on_card:  # the first call's eager warm-up and capture, then a replay
+        expect_counts(f"{name} resumed calls", counts, {
+            k: 2 * n * spc for k, n in form["want"].items()})
+    n_leaves = _same_tree(f"{name} resumed", dict(params=resumed.params, state=resumed.opt_state),
+                          dict(params=form["params"], state=form["state"]))
+    say("checkpoint", f"{name}: 2 calls, Trainer.save ({stats['bytes']} bytes,"
+        f" {stats['save_s']:.2f} s), load_checkpoint ({stats['load_s']:.2f} s), a fresh Trainer,"
+        f" calls 2 and 3: all {n_leaves} arrays equal 4 uninterrupted calls bit for bit; host peak"
+        f" extra RSS save {stats['save_peak_extra_rss_bytes']}, load"
+        f" {stats['load_peak_extra_rss_bytes']} bytes; launches {counts}")
+    stats["launches"] = counts
+    return stats
+
+
+def _adagrad_round_trip(form: dict, tmp: Path, device: str) -> dict:
+    """One device-sampled call of RowAdagrad in the pair-major store (B3,
+    h = 2) from the form's current params, then ``Trainer.save`` (the
+    accumulator to ``opt/entity/acc``) and ``load_checkpoint`` with
+    ``interleave_entity="adagrad"``: the store comes back bit for bit."""
+    p, _ = optim.split_interleaved(form["params"]["entity_embedding"])
+    ada = optim.RowAdagrad(LR, interleaved=True)
+    tr = trainer.Trainer(form["module"], form["sampler"], form["opt"],
+                         params={"entity_embedding": p.contiguous(),
+                                 "relation_embedding": form["params"]["relation_embedding"].clone()},
+                         entity_optimizer=ada, steps_per_call=form["spc"], device=device)
+    reset_counts()
+    tr.params, tr.opt_state, out = tr.train_step(tr.params, tr.opt_state, tr.sampler_state,
+                                                 form["sampler"].next_key(4))
+    sync(device)
+    counts = _launched()
+    if device == "cuda":
+        expect_counts("RowAdagrad interleaved call", counts, {
+            k: 2 * n * form["spc"] for k, n in form["want"].items()})
+    path = tmp / "wikikg2_adagrad.npz"
+    _, stats = _timed_io("save", lambda: tr.save(str(path), step=form["spc"]), path)
+    with np.load(path) as data:
+        keys = sorted(k for k in data.files if k.startswith("opt/entity/"))
+    if keys != ["opt/entity/acc", "opt/entity/count"]:
+        raise AssertionError(f"RowAdagrad checkpoint keys {keys}")
+    (params, state, _, _), load = _timed_io(
+        "load", lambda: checkpoint.load_checkpoint(path, interleave_entity="adagrad"))
+    stats.update(load)
+    path.unlink()
+    table = params.pop("entity_embedding").to(device)
+    wide = tr.params["entity_embedding"]
+    _, acc = optim.split_interleaved(wide)
+    if not (torch.equal(table, wide) and (acc > 0).any() and torch.isfinite(acc).all()):
+        raise AssertionError("the RowAdagrad store did not come back bit for bit")
+    _same_tree("RowAdagrad state", _to(state, device), tr.opt_state)
+    say("checkpoint", f"RowAdagrad pair-major {tuple(wide.shape)} store after one call (loss"
+        f" {float(out['loss']):.4f}; launches {counts}): save {stats['bytes']} bytes in"
+        f" {stats['save_s']:.2f} s, load {stats['load_s']:.2f} s, bit for bit with"
+        f" opt/entity/acc in the file")
+    stats["launches"] = counts
+    return stats
+
+
+def _reshard_gate(tmp: Path, device: str) -> dict:
+    """The fp32 wikikg2 checkpoint re-sharded onto 4 shards, saved, and
+    re-sharded back onto its 1-shard sharding: the table and the momentum
+    come back bit for bit, and 512 top-10 queries (B7 chunk merge) over the
+    restored table give the original table's answers by global entity ID."""
+    path = tmp / "wikikg2.npz"
+    (params, state, sharding, meta), plain = _timed_io(
+        "load", lambda: checkpoint.load_checkpoint(path))
+    four = Sharding.create(N_ENTITY, 4, seed=SEED)
+    (p4, s4, sh4, _), to_four = _timed_io(
+        "load", lambda: checkpoint.load_checkpoint(path, new_sharding=four))
+    path.unlink()
+    path4 = tmp / "wikikg2_4shard.npz"
+    _, saved = _timed_io("save", lambda: checkpoint.save_checkpoint(path4, p4, s4, sh4,
+                                                                     step=meta["step"]), path4)
+    moved = not torch.equal(p4["entity_embedding"][:N_ENTITY], params["entity_embedding"])
+    del p4, s4
+    (back, back_state, back_sharding, _), to_one = _timed_io(
+        "load", lambda: checkpoint.load_checkpoint(path4, new_sharding=sharding))
+    path4.unlink()
+    _same_tree("1 -> 4 -> 1 params", back, params)
+    _same_tree("1 -> 4 -> 1 state", back_state, state)
+    if not moved or back_sharding is not sharding:
+        raise AssertionError("the 4-shard table did not move rows")
+
+    # Serve 512 queries from both tables.
+    score_fn = TransE(True, 1, sharding, N_RELATION, DIM, seed=SEED)
+    rng = np.random.default_rng(SEED + 1)
+    heads = rng.choice(N_ENTITY, size=SHARD_BS, replace=False).astype(np.int32)
+    rels = rng.integers(N_RELATION, size=SHARD_BS).astype(np.int32)
+    dataset = KGDataset(n_entity=N_ENTITY, n_relation_type=N_RELATION,
+                        triples={"test": np.zeros((1, 3), np.int32)},
+                        original_triple_ids={"test": np.arange(1)})
+    pts = PartitionedTripleSet.create_from_queries(dataset, sharding, np.stack([heads, rels], 1),
+                                                   "hr", ground_truth=heads)
+    ns = PlaceholderNegativeSampler(corruption_scheme="t", seed=SEED)
+    sampler = RigidShardedBatchSampler(pts, ns, shard_bs=SHARD_BS, batches_per_step=1, seed=SEED,
+                                       return_triple_idx=True)
+    batch = sampler.sample_batch(next(iter(sampler.epoch_index_blocks(shuffle=False))))
+    topk = TopKQueryBessKGE(k=K, candidate_sampler=ns, score_fn=score_fn, return_scores=True,
+                            merge_mode="chunk")
+    fwd = build_topk_forward(topk, device=device)
+    answers = {}
+    for what, tree in (("original", params), ("restored", back)):
+        tables = {k: v.to(device) for k, v in tree.items()}
+        reset_counts()
+        answers[what] = fwd(tables, batch)
+        sync(device)
+        counts = _launched()
+        if device == "cuda":
+            expect_counts(f"top-{K} over the {what} table", counts, {
+                "l1_scores_chunkmax": -(-sharding.max_entity_per_shard // topk.window_size)})
+        del tables
+    ids = {k: v["topk_global_id"] for k, v in answers.items()}
+    scores = {k: v["topk_scores"] for k, v in answers.items()}
+    if not (torch.equal(ids["original"], ids["restored"])
+            and torch.equal(scores["original"], scores["restored"])):
+        raise AssertionError("top-10 over the restored table differs from the original's")
+    stats = {"load_1_shard": plain, "load_1_to_4": to_four, "save_4_shard": saved,
+             "load_4_to_1": to_one, "topk_launches": counts}
+    say("checkpoint", f"reshard 1 -> 4 -> 1 ({tuple(back['entity_embedding'].shape)} table and"
+        f" its momentum bit for bit): load {plain['load_s']:.2f} s, load onto 4 shards"
+        f" {to_four['load_s']:.2f} s, save {saved['bytes']} bytes {saved['save_s']:.2f} s,"
+        f" load back {to_one['load_s']:.2f} s; top-{K} of {SHARD_BS} queries over the restored"
+        f" table equal the original's by global ID (launches {counts})")
+    return stats
+
+
+def checkpoint_phase(gen: torch.Generator, device: str = "cuda") -> dict:
+    """Checkpoints of bench.py's wikikg2 and wikikg2_bf16 device-sampled
+    steps at full width: resumed bit for bit, a RowAdagrad store round trip,
+    and a 1 -> 4 -> 1 reshard with top-10 serving from the restored table.
+    Files go to a temporary directory, deleted afterwards. ``device`` "cpu"
+    rehearses the phase without the card's launch gates."""
+    t = time.perf_counter()
+    forms = _packed_forms(gen, device, names=("wikikg2", "wikikg2_bf16"))
+    for form in forms.values():
+        form.pop("plain")
+    say("checkpoint", f"wikikg2 (fp32 pair-major) and wikikg2_bf16 (triplet store) at spc"
+        f" {WIKIKG2_SPC} built ({time.perf_counter() - t:.1f}s set-up)")
+    files = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        files["wikikg2_bf16"] = _resume_gate("wikikg2_bf16", forms.pop("wikikg2_bf16"), tmp, device)
+        (tmp / "wikikg2_bf16.npz").unlink()
+        files["wikikg2"] = _resume_gate("wikikg2", forms["wikikg2"], tmp, device)
+        files["wikikg2_adagrad"] = _adagrad_round_trip(forms.pop("wikikg2"), tmp, device)
+        files["reshard"] = _reshard_gate(tmp, device)
+    return files
+
+
 def profile_steps(step, params, state, batches, trace: str) -> dict:
     """Device time by kernel and the device's busy share over a few host-fed
     steps (``torch.profiler``); the trace goes to chiprun_out/."""
@@ -2100,6 +2501,7 @@ def main() -> int:
         results[name].update(run)
     train = training(gen, profile="training" in profile)
     step_ms = train.pop("step_ms")
+    train_adagrad = train.pop("adagrad")
     for name, run in train.items():
         results[name].update(run)
     dense = dense_training(gen, profile="dense" in profile)
@@ -2108,6 +2510,7 @@ def main() -> int:
         results[name].update(run)
     device = device_training(gen, profile="device" in profile)
     packed_run = packed_training(gen, profile="packed" in profile)
+    ckpt = checkpoint_phase(gen)
 
     kernels = []
     for name, spec in KERNELS.items():
@@ -2177,6 +2580,8 @@ def main() -> int:
         "busy_pct": {name: r["profile"]["busy_pct"] for name, r in packed_run.items()
                      if "profile" in r},
     }), flush=True)
+    print(json.dumps({"checkpoint": ckpt, "card": smi,
+                      "training_adagrad": train_adagrad}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

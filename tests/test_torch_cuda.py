@@ -24,7 +24,7 @@ import pytest
 import torch
 
 from besskge_tpu_torch import bess, loss, optim, trainer
-from besskge_tpu_torch.batch_sampler import RandomShardedBatchSampler
+from besskge_tpu_torch.batch_sampler import RandomShardedBatchSampler, RigidShardedBatchSampler
 from besskge_tpu_torch.bess import TopKQueryBessKGE, build_topk_forward
 from besskge_tpu_torch.dataset import KGDataset
 from besskge_tpu_torch.device_sampler import DeviceBatchSampler, split_key
@@ -34,6 +34,7 @@ from besskge_tpu_torch.negative_sampler import (
     TypeBasedShardedNegativeSampler,
 )
 from besskge_tpu_torch.ops import adamw_kernels, distance, l1_kernels, row_kernels
+from besskge_tpu_torch.packed import pack_table
 from besskge_tpu_torch.profiling import DISTANCE_EDGES, device_kernels
 from besskge_tpu_torch.scoring import RotatE, TransE
 from besskge_tpu_torch.sharding import PartitionedTripleSet, Sharding
@@ -752,3 +753,145 @@ def test_device_call_without_donation_leaves_the_inputs(cuda):
         ref_fn, ref_params, ref_state, _ = _device_setup(cuda, "fused", 2)
         ref_fn(ref_params, ref_state, sampler_state, dev.next_key(call))
         _assert_graph_like_eager("fused", got[:2], (ref_params, ref_state), 2)
+
+
+# RowAdagrad and checkpoints on the card: the twins, at a small size, of
+# chip_smoke.py's training-phase Adagrad gates and its checkpoint phase.
+
+
+@pytest.mark.parametrize("storage", ["fp32", "bf16", "fp16"])
+@pytest.mark.parametrize("interleaved", [False, True])
+def test_row_adagrad_on_the_card_equals_the_cpu(cuda, storage, interleaved):
+    """Dyadic gradients sum exactly in any order, so the card's update (B8
+    k = 2 separate, B3 h = 2 / h = 3 interleaved) equals the plain CPU one
+    bit for bit, stochastic rounding of the 16-bit tables included."""
+    rng = np.random.default_rng(11)
+    n, d, r = 600, 128, 900
+    table = torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32))
+    if storage != "fp32":
+        table = pack_table(table.to(
+            torch.bfloat16 if storage == "bf16" else torch.float16))
+    idx = torch.from_numpy(rng.integers(0, n, size=r).astype(np.int32))
+    g = torch.from_numpy((rng.integers(-8, 9, size=(r, d)) / 4).astype(np.float32))
+    opt = optim.RowAdagrad(0.05, interleaved=interleaved)
+    out = {}
+    for device in ("cpu", cuda):
+        t = opt.widen_table(table.clone()).to(device)
+        s = opt.init(t, n_logical=n)
+        row_kernels.reset_launch_counts()
+        for _ in range(2):
+            t, s = opt.update_rows(t, s, idx.to(device), g.to(device))
+        out[str(device)] = (t.cpu(), {k: v.cpu() for k, v in s.items()})
+    torch.cuda.synchronize()
+    want = (row_kernels.scatter_rows.launches, row_kernels.scatter_rows_multi.launches)
+    assert want == ((2, 0) if interleaved else (0, 2))
+    (tc, sc), (tg, sg) = out["cpu"], out["cuda"]
+    assert torch.equal(tg.view(torch.int32), tc.view(torch.int32))
+    assert sg.keys() == sc.keys() and all(torch.equal(sg[k], sc[k]) for k in sc)
+
+
+def _resume_setup(device, storage):
+    """A small wikikg2-like device-sampled step (TransE-L1 d = 128, bf16
+    scoring, RowSGDM interleaved) and the pieces of its Trainer."""
+    n_entity, n_rel = 3000, 13
+    rng = np.random.default_rng(0)
+    triples = np.stack([rng.integers(n_entity, size=6000), rng.integers(n_rel, size=6000),
+                        rng.integers(n_entity, size=6000)], 1).astype(np.int32)
+    ds = KGDataset(n_entity=n_entity, n_relation_type=n_rel, triples={"train": triples},
+                   original_triple_ids={"train": np.arange(6000)})
+    sharding = Sharding.create(n_entity, 1, seed=0)
+    pts = PartitionedTripleSet.create_from_dataset(ds, "train", sharding)
+    score_fn = TransE(True, 1, sharding, n_rel, 128, seed=0)
+    score_fn.compute_dtype = torch.bfloat16
+    if storage == "bf16":
+        score_fn.dtype = torch.bfloat16
+        score_fn.packed_entity_storage = True
+    ns = RandomShardedNegativeSampler(32, sharding, 0, "ht", False, flat_negative_format=True)
+    module = bess.EmbeddingMovingBessKGE(
+        ns, score_fn, loss.SampledSoftmaxCrossEntropyLoss(n_entity), augment_negative=True)
+    dev = DeviceBatchSampler(pts, ns, shard_bs=128, batches_per_step=4, seed=0,
+                             positive_mode="runs")
+    return module, dev, score_fn.initial_params(device=device)
+
+
+@pytest.mark.parametrize("storage", ["fp32", "bf16"])
+def test_resume_on_the_card_equals_the_uninterrupted_run(cuda, storage, tmp_path):
+    """Two graphed calls, ``Trainer.save``, a fresh Trainer from
+    ``load_checkpoint`` with the file's optimizer state, calls 2 and 3: every
+    array equals four calls without a break, bit for bit."""
+    from besskge_tpu_torch import checkpoint
+
+    module, dev, params = _resume_setup(cuda, storage)
+    opt, ent = optim.SGD(0.05, momentum=0.9), optim.RowSGDM(0.05, momentum=0.9, interleaved=True)
+
+    def fresh(p):
+        return trainer.Trainer(module, dev, opt, params=p, entity_optimizer=ent, steps_per_call=3,
+                               device=cuda)
+
+    def calls(tr, keys):
+        for i in keys:
+            tr.params, tr.opt_state, _ = tr.train_step(tr.params, tr.opt_state, tr.sampler_state,
+                                                       dev.next_key(i))
+        torch.cuda.synchronize()
+
+    whole = fresh(trainer._clone(params))
+    calls(whole, range(4))
+    first = fresh(trainer._clone(params))
+    calls(first, range(2))
+    first.save(str(tmp_path / "c.npz"), step=6)
+    loaded, state, _, meta = checkpoint.load_checkpoint(tmp_path / "c.npz", interleave_entity=True)
+    assert meta == {"step": 6}
+    resumed = fresh(loaded)
+    resumed.opt_state = checkpoint.load_checkpoint(
+        tmp_path / "c.npz", like=resumed.opt_state, interleave_entity=True)[1]
+    for part in ("entity", "other"):
+        count = resumed.opt_state[part]["count"]
+        assert count.dtype == torch.int32 and count.dim() == 0 and count.is_cuda
+    row_kernels.reset_launch_counts()
+    l1_kernels.reset_launch_counts()
+    calls(resumed, (2, 3))
+    assert row_kernels.scatter_rows.launches == 2 * 3  # warm-up and capture, then a replay
+    got = dict(trainer._leaves(dict(p=resumed.params, s=resumed.opt_state)))
+    want = dict(trainer._leaves(dict(p=whole.params, s=whole.opt_state)))
+    assert got.keys() == want.keys()
+    for name, value in want.items():
+        assert torch.equal(got[name].reshape(-1).view(torch.uint8),
+                           value.reshape(-1).view(torch.uint8)), name
+
+
+def test_reshard_on_the_card_keeps_table_and_topk(cuda, tmp_path):
+    """A card table saved, re-sharded onto 4 shards, saved and re-sharded
+    back comes back bit for bit, and its top-10 (B7 chunk merge) equals the
+    original's by global ID."""
+    from besskge_tpu_torch import checkpoint
+
+    _, _, params = _resume_setup(cuda, "fp32")
+    sharding = Sharding.create(3000, 1, seed=0)
+    checkpoint.save_checkpoint(tmp_path / "a.npz", params, None, sharding)
+    p4, _, sh4, _ = checkpoint.load_checkpoint(tmp_path / "a.npz",
+                                               new_sharding=Sharding.create(3000, 4, seed=1))
+    checkpoint.save_checkpoint(tmp_path / "b.npz", p4, None, sh4)
+    back, _, _, _ = checkpoint.load_checkpoint(tmp_path / "b.npz", new_sharding=sharding)
+    back = {k: v.to(cuda) for k, v in back.items()}
+    for k in params:
+        assert torch.equal(back[k], params[k]), k
+    score_fn = TransE(True, 1, sharding, 13, 128, seed=0)
+    rng = np.random.default_rng(2)
+    queries = np.stack([rng.choice(3000, 256, replace=False), rng.integers(13, size=256)], 1)
+    ds = KGDataset(n_entity=3000, n_relation_type=13, triples={"test": np.zeros((1, 3), np.int32)},
+                   original_triple_ids={"test": np.arange(1)})
+    pts = PartitionedTripleSet.create_from_queries(ds, sharding, queries.astype(np.int32), "hr",
+                                                   ground_truth=queries[:, 0].astype(np.int32))
+    ns = PlaceholderNegativeSampler(corruption_scheme="t", seed=0)
+    sampler = RigidShardedBatchSampler(pts, ns, shard_bs=256, batches_per_step=1, seed=0,
+                                       return_triple_idx=True)
+    batch = sampler.sample_batch(next(iter(sampler.epoch_index_blocks(shuffle=False))))
+    topk = TopKQueryBessKGE(k=10, candidate_sampler=ns, score_fn=score_fn, return_scores=True,
+                            merge_mode="chunk")
+    fwd = build_topk_forward(topk, device=cuda)
+    l1_kernels.reset_launch_counts()
+    got, want = fwd(back, batch), fwd(params, batch)
+    torch.cuda.synchronize()
+    assert l1_kernels.l1_scores_chunkmax.launches == 2 * -(-3000 // topk.window_size)
+    assert torch.equal(got["topk_global_id"], want["topk_global_id"])
+    assert torch.equal(got["topk_scores"], want["topk_scores"])

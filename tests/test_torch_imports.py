@@ -24,7 +24,7 @@ def _port_modules():
 def test_port_imports_without_jax():
     modules = ["besskge_tpu_torch", *_port_modules()]
     for name in ("bess", "native", "trainer", "optim", "loss", "scoring", "utils", "embedding",
-                 "convert", "ops.distance", "ops.l1_kernels", "ops.row_kernels",
+                 "convert", "checkpoint", "ops.distance", "ops.l1_kernels", "ops.row_kernels",
                  "ops.adamw_kernels"):
         assert f"besskge_tpu_torch.{name}" in modules, name
     code = (
@@ -58,6 +58,7 @@ def test_no_source_of_the_port_names_jax():
         roots = _imported_roots(path)
         assert not roots & {"jax", "jaxlib", "besskge_tpu", "ml_dtypes"}, (path, roots)
     assert _imported_roots(ROOT / "chip_smoke.py") <= {
-        "__future__", "json", "os", "subprocess", "sys", "time", "pathlib", "typing",
+        "__future__", "json", "os", "subprocess", "sys", "tempfile", "threading", "time",
+        "pathlib", "typing",
         "numpy", "torch", "besskge_tpu_torch",
     }

@@ -80,7 +80,16 @@ def test_the_scan_sees_the_ported_modules():
                  "besskge_tpu_torch.device_sampler.DeviceBatchSampler.state",
                  "besskge_tpu_torch.device_sampler.DeviceBatchSampler.slice_local",
                  "besskge_tpu_torch.trainer.build_device_train_step",
-                 "besskge_tpu_torch.negative_sampler.TypeBasedShardedNegativeSampler"):
+                 "besskge_tpu_torch.negative_sampler.TypeBasedShardedNegativeSampler",
+                 "besskge_tpu_torch.optim.RowAdagrad", "besskge_tpu_torch.optim.RowAdagrad.update_rows",
+                 "besskge_tpu_torch.checkpoint.save_checkpoint",
+                 "besskge_tpu_torch.checkpoint.load_checkpoint",
+                 "besskge_tpu_torch.checkpoint.save_checkpoint_sharded",
+                 "besskge_tpu_torch.checkpoint.load_checkpoint_sharded",
+                 "besskge_tpu_torch.trainer.Trainer.save", "besskge_tpu_torch.sharding.Sharding.save",
+                 "besskge_tpu_torch.dataset.KGDataset.save",
+                 "besskge_tpu_torch.scoring.BaseScoreFunction.update_sharding",
+                 "besskge_tpu_torch.embedding.refactor_embedding_sharding"):
         assert must in names, must
     assert len(SHARED) > 60
 
@@ -190,3 +199,139 @@ def test_sixteen_bit_tables_raise_for_row_optimizers():
         l1_kernels.l1_distance_matrix(half, half)
     with pytest.raises(NotImplementedError, match="A17"):
         l1_kernels.l1_distance_matrix_batched(half[None], half[None])
+
+
+#: The port's own trailing dataclass fields, beyond the reference's: none.
+PORT_EXTRA_FIELDS = {"RowSGDM": [], "RowAdamW": [], "RowAdagrad": [], "FusedDenseAdamW": []}
+
+
+@pytest.mark.parametrize("cls", sorted(PORT_EXTRA_FIELDS))
+def test_row_optimizer_fields_equal_the_reference(cls):
+    """C2: the field lists (names and defaults) equal the reference's, in
+    order, up to the port's own trailing extras; the prefix scan above lets
+    a port stop early, this does not. The layout a checkpoint de-interleaves
+    follows ``interleave_layout``, a field of RowAdamW and RowAdagrad and a
+    class attribute of the base."""
+    port = [(f.name, f.default) for f in dataclasses.fields(getattr(port_optim, cls))]
+    ref = [(f.name, f.default) for f in dataclasses.fields(getattr(jax_optim, cls))]
+    assert port == ref + [(name, port[len(ref) + i][1])
+                          for i, name in enumerate(PORT_EXTRA_FIELDS[cls])]
+    if cls in ("RowAdamW", "RowAdagrad"):
+        assert port[-2:] == ref[-2:] == [("interleaved", False),
+                                         ("interleave_layout", cls[3:].lower())]
+    assert (port_optim.EntityRowOptimizer.interleave_layout
+            == jax_optim.EntityRowOptimizer.interleave_layout == "momentum")
+    assert port_optim.RowSGDM(0.1, interleaved=True).interleave_layout == "momentum"
+
+
+#: Public members of the reference that the port lacks, each queued under its
+#: ROADMAP item. A gap that is not listed here fails the member scan, and so
+#: does a listed one that the port has closed.
+UNPORTED_MEMBERS = {
+    **{f"bess.{n}": "A14" for n in ("AllScoresBESS", "ScoreMovingBessKGE",
+                                     "build_allscores_forward", "build_bess_forward")},
+    **{f"bess.{c}.psum": "A15" for c in ("BessKGE", "EmbeddingMovingBessKGE",
+                                          "TopKQueryBessKGE")},
+    **{f"dataset.KGDataset.{n}": "A14" for n in ("build_ogbl_biokg", "build_ogbl_wikikg2",
+                                                 "build_openbiolink", "build_yago310",
+                                                 "from_dataframe")},
+    **{f"embedding.{n}": "A11" for n in ("init_KGE_normal", "init_uniform", "init_uniform_norm",
+                                          "init_xavier_norm", "init_zeros")},
+    "loss.MarginRankingLoss": "A11",
+    "negative_sampler.TripleBasedShardedNegativeSampler": "A14",
+    **{f"scoring.{c}.mesh_axis": "A11" for c in ("BaseScoreFunction",
+                                                  "DistanceBasedScoreFunction", "RotatE",
+                                                  "TransE")},
+    **{f"scoring.{n}": "A11" for n in ("BoxE", "ComplEx", "ConvE", "DistMult", "InterHT",
+                                        "MatrixDecompositionScoreFunction", "PairRE", "TranS",
+                                        "TripleRE")},
+    "utils.as_complex_pair": "A11",
+    "utils.interleaved_to_blocked": "A11",
+    "utils.get_entity_filter": "A14",
+}
+
+
+def _public(mod):
+    """A module's public names: its ``__all__`` and the public functions and
+    classes it defines; without an ``__all__``, every public name that is
+    not a module."""
+    names = set(getattr(mod, "__all__", []))
+    for name, value in vars(mod).items():
+        if name.startswith("_") or inspect.ismodule(value):
+            continue
+        if not hasattr(mod, "__all__"):
+            names.add(name)
+        elif (inspect.isfunction(value) or inspect.isclass(value)) and \
+                value.__module__ == mod.__name__:
+            names.add(name)
+    return names
+
+
+def _member_gaps():
+    """``module.name`` and ``module.Class.member`` of every public name the
+    reference has and the port lacks, over the modules both packages have."""
+    gaps = set()
+    for info in pkgutil.walk_packages(besskge_tpu_torch.__path__, "besskge_tpu_torch."):
+        try:
+            jax_mod = importlib.import_module(info.name.replace("besskge_tpu_torch", "besskge_tpu", 1))
+        except ModuleNotFoundError:
+            continue
+        mod = importlib.import_module(info.name)
+        short = info.name.split(".", 1)[1]
+        for name in _public(jax_mod):
+            if not hasattr(mod, name):
+                gaps.add(f"{short}.{name}")
+                continue
+            ref, port = getattr(jax_mod, name), getattr(mod, name)
+            if inspect.isclass(ref) and inspect.isclass(port):
+                gaps.update(f"{short}.{name}.{member}" for member in dir(ref)
+                            if not member.startswith("_") and not hasattr(port, member))
+    return gaps
+
+
+def test_member_scan_holds_the_gaps_to_the_roadmap():
+    """C3: the public members the port lacks are exactly the queued ones."""
+    assert set(UNPORTED_MEMBERS.values()) <= {"A11", "A14", "A15", "A16"}
+    gaps = _member_gaps()
+    assert gaps - set(UNPORTED_MEMBERS) == set(), "new gaps"
+    assert set(UNPORTED_MEMBERS) - gaps == set(), "closed gaps still listed"
+
+
+def test_the_c3_members():
+    """The members C3 closed behave as the reference's."""
+    from besskge_tpu import bess as jax_bess
+    from besskge_tpu import native as jax_native
+    from besskge_tpu import packed as jax_packed
+    from besskge_tpu_torch import bess as port_bess
+    from besskge_tpu_torch import native as port_native
+    from besskge_tpu_torch import packed as port_packed
+
+    assert port_native.available() is True
+    assert jax_native.available() is True
+    import jax.numpy as jnp
+    import torch
+
+    tab = np.zeros((4, 8), np.float32)
+    for table in (tab, tab.astype(np.float16)):
+        assert port_optim.is_packed_table(port_packed.pack_table(torch.from_numpy(table)))
+        assert jax_optim.is_packed_table(jax_packed.pack_table(jnp.asarray(table)))
+    assert not port_optim.is_packed_table(torch.from_numpy(tab))
+    assert not jax_optim.is_packed_table(jnp.asarray(tab))
+    ref_fn = _sampler_module(True)
+    port_fn = _sampler_module(False)
+    assert port_fn.n_embedding_parameters == ref_fn.n_embedding_parameters == 200 * 16 + 10 * 16
+    assert isinstance(port_bess.BessKGE.n_embedding_parameters, property)
+    assert isinstance(jax_bess.BessKGE.n_embedding_parameters, property)
+
+
+def _sampler_module(jax_side):
+    """An EmbeddingMovingBessKGE of either package: 200 entities, 5 relation
+    types with inverses, d = 16."""
+    if jax_side:
+        from besskge_tpu import bess, loss, negative_sampler, scoring, sharding
+    else:
+        from besskge_tpu_torch import bess, loss, negative_sampler, scoring, sharding
+    sh = sharding.Sharding.create(200, 1, seed=0)
+    ns = negative_sampler.RandomShardedNegativeSampler(3, sh, 0, "ht", False, True)
+    fn = scoring.TransE(True, 1, sh, 5, 16, inverse_relations=True)
+    return bess.EmbeddingMovingBessKGE(ns, fn, loss.SampledSoftmaxCrossEntropyLoss(200))

@@ -63,6 +63,7 @@ from besskge_tpu.ops import distance as jax_distance
 from besskge_tpu.ops import pallas_distance as jax_pd
 from besskge_tpu_torch import batch_sampler as port_bs
 from besskge_tpu_torch import bess as port_bess
+from besskge_tpu_torch import checkpoint as port_checkpoint
 from besskge_tpu_torch import convert
 from besskge_tpu_torch import dataset as port_ds
 from besskge_tpu_torch import loss as port_loss
@@ -383,9 +384,10 @@ def test_unported_training_paths_raise():
     packed = dict(plain, entity_embedding=plain["entity_embedding"].view(torch.int32))
     with pytest.raises(ValueError, match="packed"):
         dense(packed, port_trainer.init_optimizer_state(sgd, plain), _batches(sampler, 1)[0])
-    trainer = port_trainer.Trainer(module, sampler, sgd, entity_optimizer=row, device="cpu")
-    with pytest.raises(NotImplementedError, match="A10"):
-        trainer.fit(checkpoint_path="ckpt.npz")
+    # Checkpoints are ported (tests/test_torch_checkpoint.py); loading one
+    # onto a mesh is not.
+    with pytest.raises(NotImplementedError, match="A15"):
+        port_checkpoint.load_checkpoint_sharded("ckpt", mesh="mesh")
     with pytest.raises(NotImplementedError, match="A14"):
         port_bess.EmbeddingMovingBessKGE(module.negative_sampler, fn,
                                          port_loss.SampledSoftmaxCrossEntropyLoss(N_ENTITY),
