@@ -9,11 +9,13 @@ The port imports neither ``jax`` nor ``besskge_tpu``: the numpy-only modules
 it needs are copied. Entry points run on ``cuda`` unless the caller passes
 ``device="cpu"``, and raise when no card is there.
 
-Ported so far, on one device: TopK serving of TransE
-(``bess.TopKQueryBessKGE`` with ``build_topk_forward``), sparse training of
-TransE with every row optimizer (``RowSGDM``, ``RowAdamW``, ``RowAdagrad``;
-fp32, plain 16-bit and row-pair-packed tables) and dense training of RotatE
-(``AdamW``, ``FusedDenseAdamW``), through ``trainer.build_train_step`` and
+Ported so far, on one device: every scorer but ConvE (TransE, RotatE,
+DistMult, ComplEx, PairRE, TripleRE, BoxE, InterHT, TranS) and every loss;
+top-k serving of each (``bess.TopKQueryBessKGE`` with
+``build_topk_forward``), sparse training with every row optimizer
+(``RowSGDM``, ``RowAdamW``, ``RowAdagrad``; fp32, plain 16-bit and
+row-pair-packed tables) and dense training (``AdamW``, ``FusedDenseAdamW``),
+through ``trainer.build_train_step`` and
 ``trainer.Trainer``, on host batches or on batches drawn on the device
 (``device_sampler.DeviceBatchSampler``, ``trainer.build_device_train_step``:
 one CUDA graph per call of ``steps_per_call`` steps on a card); checkpoints

@@ -27,6 +27,12 @@ For TransE with L1 scoring the default chunk merge scores each window with
 one launch of the fused L1 kernel (scores + mask + 128-column chunk maxima,
 :func:`besskge_tpu_torch.ops.distance.l1_scores_chunkmax`); the sort merge
 scores it through ``score_tails``/``score_heads`` and the L1 distance kernel.
+DistMult and ComplEx score a window with one product. The scorers that
+broadcast each query against the pool (``score_fn.broadcasts_pool``: PairRE,
+TripleRE, BoxE, InterHT, TranS) would materialise (queries, window, row)
+intermediates, which XLA fuses away and eager PyTorch does not: a window is
+scored in blocks of queries, each intermediate at most
+:data:`BROADCAST_BUDGET` elements, with the same scores as one call.
 """
 
 from __future__ import annotations
@@ -68,6 +74,11 @@ __all__ = [
 BAD_NEGATIVE_SCORE = -50000.0
 #: Column chunk of the hierarchical merge: one block of the fused L1 kernel.
 CHUNK = 128
+#: Elements of one broadcast intermediate of a top-k window, for a scorer
+#: that broadcasts queries against the pool: 2^27 (512 MiB in fp32). BoxE
+#: holds about ten at once; one unblocked 512-query window of 32768 rows at
+#: d = 128 would take 8.6 GB (PairRE) to 17.2 GB (BoxE) per intermediate.
+BROADCAST_BUDGET = 2**27
 
 
 def _cast_gathered(emb: torch.Tensor, cd: Optional[torch.dtype]) -> torch.Tensor:
@@ -345,8 +356,8 @@ class TopKQueryBessKGE:
     :param window_size: entities scored per query per loop iteration, or
         ``None`` (default) to auto-size as the JAX package does:
         ``min(cap, local rows)`` rounded down to a 128-multiple, with
-        ``cap`` 131072 for pure-cdist L1 models (the fused window path) and
-        32768 otherwise.
+        ``cap`` 131072 for pure-cdist L1 models (TransE and RotatE: the
+        fused window path) and 32768 for every other scorer.
     :param merge_mode: ``"sort"`` takes the top-(k+1) of the whole window
         plus the running best; ``"chunk"`` first keeps only the k+1
         128-column chunks with the largest maxima (exact: a chunk holding a
@@ -530,10 +541,7 @@ class TopKQueryBessKGE:
                 idx = torch.where(valid, idx, n_candidate - 1)
                 rows = take_rows(table, idx, n_rows)
             emb = _cast_gathered(rows, cd)[None]
-            if scheme == "h":
-                score = self.score_fn.score_heads(params, emb, relation, known)
-            else:
-                score = self.score_fn.score_tails(params, known, relation, emb)
+            score = self._score_window(params, relation, known, emb, scheme)
             # fp32 merge regardless of the score dtype.
             score = score.to(torch.float32) + BAD_NEGATIVE_SCORE * (~valid).to(torch.float32)
             best = merge(score, idx[None], None, best)
@@ -568,6 +576,28 @@ class TopKQueryBessKGE:
                 out["ranks"] = ranks
             out["metrics"] = self.evaluation.stacked_metrics_from_ranks(ranks, triple_mask)
         return out
+
+    def _score_window(
+        self, params: Dict[str, torch.Tensor], relation: torch.Tensor, known: torch.Tensor,
+        emb: torch.Tensor, scheme: str,
+    ) -> torch.Tensor:
+        """(queries, window) scores of the window's rows ``emb`` (1, W, row):
+        one call, or, for a scorer that broadcasts queries against the pool,
+        one call per block of at most ``BROADCAST_BUDGET // (W · row)``
+        queries. Each (query, candidate) score is computed on its own, so
+        the blocks give the scores of one call."""
+        n_query = relation.shape[0]
+        block = n_query
+        if self.score_fn.broadcasts_pool:
+            block = max(1, BROADCAST_BUDGET // (emb.shape[1] * self.entity_embedding_size))
+        parts = []
+        for q in range(0, n_query, block):
+            rel, kn = relation[q : q + block], known[q : q + block]
+            if scheme == "h":
+                parts.append(self.score_fn.score_heads(params, emb, rel, kn))
+            else:
+                parts.append(self.score_fn.score_tails(params, kn, rel, emb))
+        return parts[0] if len(parts) == 1 else torch.cat(parts)
 
 
 #: Batch keys that :meth:`BessKGE.forward` takes.

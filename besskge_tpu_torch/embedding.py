@@ -18,8 +18,13 @@ from besskge_tpu_torch.sharding import Sharding
 from besskge_tpu_torch.utils import resolve_device
 
 __all__ = [
-    "init_KGE_uniform",
+    "init_uniform",
+    "init_zeros",
+    "init_uniform_norm",
+    "init_xavier_norm",
     "init_uniform_rotation",
+    "init_KGE_uniform",
+    "init_KGE_normal",
     "initialize_entity_embedding",
     "initialize_relation_embedding",
     "refactor_embedding_sharding",
@@ -28,6 +33,40 @@ __all__ = [
 
 #: An initializer fills a shape using the provided RNG.
 Initializer = Callable[[Sequence[int], np.random.Generator], NDArray[np.float32]]
+
+
+def init_uniform(
+    shape: Sequence[int], rng: np.random.Generator
+) -> NDArray[np.float32]:
+    """Plain uniform [0, 1) (the reference's ``torch.nn.init.uniform_``
+    default, used by BoxE)."""
+    return rng.random(size=tuple(shape), dtype=np.float32)
+
+
+def init_zeros(
+    shape: Sequence[int], rng: np.random.Generator
+) -> NDArray[np.float32]:
+    """All-zero initializer (ConvE tail biases)."""
+    return np.zeros(shape, dtype=np.float32)
+
+
+def init_uniform_norm(
+    shape: Sequence[int], rng: np.random.Generator
+) -> NDArray[np.float32]:
+    """Uniform [0,1) rows normalized to unit L2 norm
+    (reference ``besskge/embedding.py:15-28``)."""
+    x = rng.random(size=tuple(shape), dtype=np.float32)
+    norm = np.linalg.norm(x, axis=-1, keepdims=True).astype(np.float32)
+    return x / np.maximum(norm, np.float32(1e-12))
+
+
+def init_xavier_norm(
+    shape: Sequence[int], rng: np.random.Generator, gain: float = 1.0
+) -> NDArray[np.float32]:
+    """Xavier/Glorot normal over the last dimension
+    (reference ``besskge/embedding.py:31-47``)."""
+    std = gain * float(np.sqrt(2.0 / (shape[-1] + 1)))
+    return rng.standard_normal(tuple(shape), dtype=np.float32) * np.float32(std)
 
 
 def init_KGE_uniform(
@@ -48,6 +87,17 @@ def init_uniform_rotation(
     """Uniform rotation phases in [0, 2π)
     (reference ``besskge/embedding.py:50-62``)."""
     return rng.random(size=tuple(shape), dtype=np.float32) * np.float32(2.0 * np.pi)
+
+
+def init_KGE_normal(
+    shape: Sequence[int], rng: np.random.Generator, std: float = 1.0,
+    divide_by_embedding_size: bool = True,
+) -> NDArray[np.float32]:
+    """Normal with σ=std (optionally std/row_size)
+    (reference ``besskge/embedding.py:87-104``)."""
+    if divide_by_embedding_size:
+        std = std / shape[-1]
+    return rng.standard_normal(tuple(shape), dtype=np.float32) * np.float32(std)
 
 
 def _build_sliced(
@@ -189,10 +239,23 @@ def device_table_init(
     start = 0
     for fn, size in zip(initializer, row_sizes):
         part = out[..., start : start + size]
+        # The JAX package's device formulas, each slice scaled by its own
+        # width ``size``.
         if fn is init_KGE_uniform:
             part.uniform_(-1.0 / size, 1.0 / size, generator=generator)
         elif fn is init_uniform_rotation:
             part.uniform_(0.0, 2.0 * np.pi, generator=generator)
+        elif fn is init_uniform:
+            part.uniform_(0.0, 1.0, generator=generator)
+        elif fn is init_zeros:
+            part.zero_()
+        elif fn is init_uniform_norm:
+            part.uniform_(0.0, 1.0, generator=generator)
+            part.div_(torch.linalg.vector_norm(part, dim=-1, keepdim=True).clamp_min(1e-12))
+        elif fn is init_xavier_norm:
+            part.normal_(0.0, float(np.sqrt(2.0 / (size + 1))), generator=generator)
+        elif fn is init_KGE_normal:
+            part.normal_(0.0, 1.0 / size, generator=generator)
         else:
             raise ValueError(f"No device counterpart for initializer {fn}")
         start += size

@@ -2,10 +2,10 @@
 
 Counterpart of ``besskge_tpu/loss.py``. Losses are always computed in fp32 —
 the inputs are upcast here — with an optional ``loss_scale`` for
-low-precision training. Ported so far: the base classes,
-:class:`SampledSoftmaxCrossEntropyLoss` (the sparse TransE recipe) and
-:class:`LogSigmoidLoss` (the dense RotatE recipe); ``MarginRankingLoss`` is
-not ported yet (ROADMAP A11).
+low-precision training: the base classes,
+:class:`SampledSoftmaxCrossEntropyLoss` (the sparse TransE recipe),
+:class:`LogSigmoidLoss` (the dense RotatE and ComplEx recipes) and
+:class:`MarginRankingLoss`.
 """
 
 from __future__ import annotations
@@ -19,6 +19,7 @@ __all__ = [
     "BaseLossFunction",
     "LogSigmoidLoss",
     "MarginBasedLossFunction",
+    "MarginRankingLoss",
     "SampledSoftmaxCrossEntropyLoss",
 ]
 
@@ -95,6 +96,37 @@ class LogSigmoidLoss(MarginBasedLossFunction):
         neg_logs = -torch.nn.functional.softplus(neg + self.margin)
         neg_reduced = torch.sum(neg_w * neg_logs, dim=-1)
         return self.loss_scale * (-0.5) * torch.sum(w * (pos_logs + neg_reduced))
+
+
+class MarginRankingLoss(MarginBasedLossFunction):
+    """Pairwise hinge loss (reference ``besskge/loss.py:137-195``):
+    ``Σ w·Σ_neg weight·relu(neg − pos + margin)``."""
+
+    def __init__(
+        self,
+        margin: float,
+        negative_adversarial_sampling: bool,
+        negative_adversarial_scale: float = 1.0,
+        loss_scale: float = 1.0,
+        activation_function: str = "relu",
+    ) -> None:
+        super().__init__(
+            margin, negative_adversarial_sampling, negative_adversarial_scale, loss_scale
+        )
+        if activation_function != "relu":
+            raise ValueError(
+                f"Activation function {activation_function} not supported"
+                " for MarginRankingLoss"
+            )
+
+    def __call__(self, positive_score, negative_score, triple_weight):
+        pos = positive_score.float()
+        neg = negative_score.float()
+        w = triple_weight.float()
+        neg_w = self.get_negative_weights(neg)
+        combined = torch.relu(neg - pos[:, None] + self.margin)
+        reduced = torch.sum(neg_w * combined, dim=-1)
+        return self.loss_scale * torch.sum(w * reduced)
 
 
 class SampledSoftmaxCrossEntropyLoss(BaseLossFunction):

@@ -1,4 +1,5 @@
-"""Distance matrices and the fused top-k window op, dispatched by device.
+"""Distance and dot-product matrices and the fused top-k window op,
+dispatched by device.
 
 Counterpart of ``besskge_tpu/ops/distance.py``. p=2 is the
 ``|a|² + |b|² − 2ab`` decomposition through ``torch.matmul``, as the JAX
@@ -34,7 +35,7 @@ from besskge_tpu_torch.ops import l1_kernels
 #: and their per-128-column maxima (inference only).
 l1_scores_chunkmax = l1_kernels.l1_scores_chunkmax
 
-__all__ = ["p_distance_matrix", "l1_scores_chunkmax"]
+__all__ = ["dot_product_matrix", "p_distance_matrix", "l1_scores_chunkmax"]
 
 #: Softening for sqrt at zero distance.
 _EPS = 1e-12
@@ -100,22 +101,28 @@ class _L1(torch.autograd.Function):
 
 @contextlib.contextmanager
 def _full_fp32() -> Iterator[None]:
-    """fp32 matrix products in full precision (no TF32) inside the block; the
-    caller's setting is restored after it."""
+    """Matrix products accumulated in full fp32 inside the block: fp32 ones
+    without TF32, bf16 and fp16 ones without reduced-precision (split-K)
+    reductions. The caller's settings are restored after it."""
     prev = torch.get_float32_matmul_precision()
-    if prev == "highest":
-        yield
-        return
+    mm = torch.backends.cuda.matmul
+    prev16 = (mm.allow_bf16_reduced_precision_reduction,
+              mm.allow_fp16_reduced_precision_reduction)
     torch.set_float32_matmul_precision("highest")
+    mm.allow_bf16_reduced_precision_reduction = False
+    mm.allow_fp16_reduced_precision_reduction = False
     try:
         yield
     finally:
         torch.set_float32_matmul_precision(prev)
+        mm.allow_bf16_reduced_precision_reduction = prev16[0]
+        mm.allow_fp16_reduced_precision_reduction = prev16[1]
 
 
 class _Fp32MatMul(torch.autograd.Function):
-    """``a @ b.T`` of fp32 operands with full-fp32 products in the forward
-    and in the backward (which autograd runs outside the forward's scope)."""
+    """``a @ b.T`` accumulated in full fp32 (:func:`_full_fp32`), in the
+    operands' dtype, in the forward and in the backward (which autograd runs
+    outside the forward's scope)."""
 
     generate_vmap_rule = True
 
@@ -152,3 +159,17 @@ def p_distance_matrix(a: torch.Tensor, b: torch.Tensor, p: int) -> torch.Tensor:
     if p == 1:
         return _L1.apply(a, b)
     raise ValueError(f"Unsupported distance order p={p}")
+
+
+def dot_product_matrix(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """All-pairs dot products ``out[i, j] = <a[i], b[j]>``, accumulated in
+    fp32 and returned in the dtype of ``a``, as the JAX package's
+    ``jnp.dot(a, b.T, preferred_element_type=float32).astype(a.dtype)``:
+    fp32 operands without TF32 whatever the caller set, bf16 operands as a
+    bf16 product with fp32 accumulation.
+
+    :param a: (B, d) queries.
+    :param b: (N, d) candidates.
+    :return: (B, N).
+    """
+    return _Fp32MatMul.apply(a, b.to(a.dtype))

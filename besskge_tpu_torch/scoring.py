@@ -4,7 +4,16 @@ Counterpart of ``besskge_tpu/scoring.py``: a score function object holds the
 static configuration and builds the tables; the learnable state is an
 explicit ``params`` dict (``{"entity_embedding": (n_shard *
 max_entity_per_shard, row), "relation_embedding": (n_relation, row)}``)
-passed to every method. Ported so far: :class:`TransE` and :class:`RotatE`.
+passed to every method. Every scorer of the JAX package is ported but
+``ConvE`` (ROADMAP A11).
+
+With sample sharing, the bilinear scorers (:class:`DistMult`,
+:class:`ComplEx`) score the shared pool with one product accumulated in fp32
+(:func:`~besskge_tpu_torch.ops.distance.dot_product_matrix`) and TransE and
+RotatE with one p-distance matrix (the L1 kernels on a card); the other
+distance scorers broadcast the queries against the pool, as the JAX package
+does, and materialise a (queries, pool, row) intermediate
+(:attr:`BaseScoreFunction.broadcasts_pool`).
 
 Score-method shape contract (as in the JAX package):
 
@@ -25,13 +34,16 @@ import torch
 from besskge_tpu_torch.embedding import (
     Initializer,
     device_table_init,
+    init_KGE_normal,
     init_KGE_uniform,
+    init_uniform,
+    init_uniform_norm,
     init_uniform_rotation,
     initialize_entity_embedding,
     initialize_relation_embedding,
     refactor_embedding_sharding,
 )
-from besskge_tpu_torch.ops.distance import p_distance_matrix
+from besskge_tpu_torch.ops.distance import dot_product_matrix, p_distance_matrix
 from besskge_tpu_torch.packed import (
     _store_dtype,
     is_packed,
@@ -40,15 +52,35 @@ from besskge_tpu_torch.packed import (
     unpack_table_host,
 )
 from besskge_tpu_torch.sharding import Sharding
-from besskge_tpu_torch.utils import complex_rotation, resolve_device
+from besskge_tpu_torch.utils import complex_multiplication, complex_rotation, resolve_device
 
-__all__ = ["BaseScoreFunction", "DistanceBasedScoreFunction", "RotatE", "TransE"]
+__all__ = [
+    "BaseScoreFunction",
+    "DistanceBasedScoreFunction",
+    "MatrixDecompositionScoreFunction",
+    "TransE",
+    "RotatE",
+    "PairRE",
+    "TripleRE",
+    "DistMult",
+    "ComplEx",
+    "BoxE",
+    "InterHT",
+    "TranS",
+]
 
 Params = Dict[str, torch.Tensor]
 TableOrInit = Union[np.ndarray, List[Initializer]]
 
 #: Softening for norms at exactly zero.
 _NORM_EPS = 1e-12
+
+
+def _l2_normalize(v: torch.Tensor) -> torch.Tensor:
+    """Row-wise L2 normalization as the JAX package writes it:
+    ``v / sqrt(Σv² + 1e-12)`` (not ``F.normalize``, whose ``max(‖v‖, eps)``
+    gives other bits and other gradients)."""
+    return v / torch.sqrt(torch.sum(v * v, dim=-1, keepdim=True) + _NORM_EPS)
 
 
 class BaseScoreFunction(ABC):
@@ -69,6 +101,14 @@ class BaseScoreFunction(ABC):
     #: Optional compute precision for scoring (e.g. ``torch.bfloat16``):
     #: gathered rows are cast to it while storage stays in ``dtype``.
     compute_dtype: Optional[torch.dtype] = None
+    #: Mesh axis name set by a BESS module over a mesh (``None`` on one
+    #: device, the only case ported: ROADMAP A15); read by cross-shard ops
+    #: such as ConvE's SyncBN.
+    mesh_axis: Any = None
+    #: Scoring a shared pool broadcasts each query against it: one
+    #: (queries, pool, ≤ entity row) intermediate per elementwise op, which
+    #: top-k serving scores in blocks of queries.
+    broadcasts_pool: bool = False
     #: Store the entity table row-pair-packed (:mod:`besskge_tpu_torch.packed`):
     #: int32 words of bf16 pairs, or uint32 words of fp16 pairs when
     #: ``dtype`` is ``torch.float16``, at half the bytes of fp32; trained by
@@ -199,6 +239,12 @@ class BaseScoreFunction(ABC):
             r = r.to(self.compute_dtype)
         return r
 
+    def _pool(self, v: torch.Tensor) -> torch.Tensor:
+        """(b, n, d) -> (1, b*n, d) when sample sharing, else unchanged."""
+        if self.negative_sample_sharing:
+            return v.reshape(1, -1, v.shape[-1])
+        return v
+
     @abstractmethod
     def score_triple(
         self, params: Params, head_emb: torch.Tensor, relation_id: torch.Tensor,
@@ -259,6 +305,27 @@ class DistanceBasedScoreFunction(BaseScoreFunction, ABC):
         candidate pool equals ``−cdist_p(a, pool)``: the hook for the fused
         window kernel. ``None`` means the model has no pure-cdist form."""
         return None
+
+
+class MatrixDecompositionScoreFunction(BaseScoreFunction, ABC):
+    """Base for bilinear scorers: sum reduction + broadcasted dot product,
+    one product under sample sharing (reference
+    ``besskge/scoring.py:203-255``)."""
+
+    def __init__(self, negative_sample_sharing: bool) -> None:
+        self.negative_sample_sharing = negative_sample_sharing
+
+    def reduce_embedding(self, v: torch.Tensor) -> torch.Tensor:
+        """Sum along the last axis."""
+        return torch.sum(v, dim=-1)
+
+    def broadcasted_dot_product(self, v1: torch.Tensor, v2: torch.Tensor) -> torch.Tensor:
+        """Dot products of queries ``v1 (B, d)`` against ``v2 (b, n, d)``; with
+        sample sharing one product against the pool, accumulated in fp32 and
+        cast to ``v1.dtype``."""
+        if self.negative_sample_sharing:
+            return dot_product_matrix(v1, v2.reshape(-1, v2.shape[-1]))
+        return self.reduce_embedding(v1[:, None, :] * v2)
 
 
 class TransE(DistanceBasedScoreFunction):
@@ -358,3 +425,498 @@ class RotatE(DistanceBasedScoreFunction):
     def distance_query_vector(self, params, known_emb, relation_id, scheme):
         r = self.relation_embedding(params, relation_id)
         return complex_rotation(known_emb, -r if scheme == "h" else r)
+
+
+class PairRE(DistanceBasedScoreFunction):
+    """PairRE: ``-||h ∘ r_h − t ∘ r_t||_p``
+    (reference ``besskge/scoring.py:465-593``)."""
+
+    broadcasts_pool = True
+
+    def __init__(
+        self,
+        negative_sample_sharing: bool,
+        scoring_norm: int,
+        sharding: Sharding,
+        n_relation_type: int,
+        embedding_size: int,
+        entity_initializer: Optional[TableOrInit] = None,
+        relation_initializer: Optional[TableOrInit] = None,
+        normalize_entities: bool = True,
+        inverse_relations: bool = False,
+        seed: int = 0,
+        dtype: torch.dtype = torch.float32,
+    ) -> None:
+        super().__init__(negative_sample_sharing, scoring_norm)
+        self.embedding_size = embedding_size
+        self.normalize = normalize_entities
+        rel_init = relation_initializer if relation_initializer is not None else [init_KGE_uniform]
+        if isinstance(rel_init, list):
+            rel_init = 2 * rel_init
+        self._build_tables(
+            sharding,
+            n_relation_type,
+            inverse_relations,
+            entity_initializer if entity_initializer is not None else [init_KGE_uniform],
+            [embedding_size],
+            rel_init,
+            [embedding_size, embedding_size],
+            seed,
+            dtype,
+        )
+
+    def _split_rel(self, params, relation_id):
+        return torch.chunk(self.relation_embedding(params, relation_id), 2, dim=-1)
+
+    def _maybe_norm(self, v):
+        return _l2_normalize(v) if self.normalize else v
+
+    def score_triple(self, params, head_emb, relation_id, tail_emb):
+        r_h, r_t = self._split_rel(params, relation_id)
+        h = self._maybe_norm(head_emb)
+        t = self._maybe_norm(tail_emb)
+        return -self.reduce_embedding(h * r_h - t * r_t)
+
+    def score_heads(self, params, head_emb, relation_id, tail_emb):
+        r_h, r_t = self._split_rel(params, relation_id)
+        h = self._pool(self._maybe_norm(head_emb))
+        t = self._maybe_norm(tail_emb)
+        return -self.reduce_embedding(h * r_h[:, None, :] - (t * r_t)[:, None, :])
+
+    def score_tails(self, params, head_emb, relation_id, tail_emb):
+        r_h, r_t = self._split_rel(params, relation_id)
+        h = self._maybe_norm(head_emb)
+        t = self._pool(self._maybe_norm(tail_emb))
+        return -self.reduce_embedding(t * r_t[:, None, :] - (h * r_h)[:, None, :])
+
+
+class TripleRE(DistanceBasedScoreFunction):
+    """TripleRE(v2): ``-||h ∘ (r_h [+u]) − t ∘ (r_t [+u]) + r_m||_p``
+    (reference ``besskge/scoring.py:596-743``); v2 when ``u > 0``."""
+
+    broadcasts_pool = True
+
+    def __init__(
+        self,
+        negative_sample_sharing: bool,
+        scoring_norm: int,
+        sharding: Sharding,
+        n_relation_type: int,
+        embedding_size: int,
+        entity_initializer: Optional[TableOrInit] = None,
+        relation_initializer: Optional[TableOrInit] = None,
+        normalize_entities: bool = True,
+        u: float = 0.0,
+        inverse_relations: bool = False,
+        seed: int = 0,
+        dtype: torch.dtype = torch.float32,
+    ) -> None:
+        super().__init__(negative_sample_sharing, scoring_norm)
+        self.embedding_size = embedding_size
+        self.normalize = normalize_entities
+        self.u = float(u)
+        self.use_v2 = u > 0.0
+        rel_init = relation_initializer if relation_initializer is not None else [init_KGE_uniform]
+        if isinstance(rel_init, list):
+            rel_init = 3 * rel_init
+        self._build_tables(
+            sharding,
+            n_relation_type,
+            inverse_relations,
+            entity_initializer if entity_initializer is not None else [init_KGE_uniform],
+            [embedding_size],
+            rel_init,
+            [embedding_size] * 3,
+            seed,
+            dtype,
+        )
+
+    def _split_rel(self, params, relation_id):
+        r_h, r_m, r_t = torch.chunk(self.relation_embedding(params, relation_id), 3, dim=-1)
+        if self.use_v2:
+            r_h = r_h + self.u
+            r_t = r_t + self.u
+        return r_h, r_m, r_t
+
+    def _maybe_norm(self, v):
+        return _l2_normalize(v) if self.normalize else v
+
+    def score_triple(self, params, head_emb, relation_id, tail_emb):
+        r_h, r_m, r_t = self._split_rel(params, relation_id)
+        h = self._maybe_norm(head_emb)
+        t = self._maybe_norm(tail_emb)
+        return -self.reduce_embedding(h * r_h - t * r_t + r_m)
+
+    def score_heads(self, params, head_emb, relation_id, tail_emb):
+        r_h, r_m, r_t = self._split_rel(params, relation_id)
+        h = self._pool(self._maybe_norm(head_emb))
+        t = self._maybe_norm(tail_emb)
+        return -self.reduce_embedding(h * r_h[:, None, :] - (t * r_t - r_m)[:, None, :])
+
+    def score_tails(self, params, head_emb, relation_id, tail_emb):
+        r_h, r_m, r_t = self._split_rel(params, relation_id)
+        h = self._maybe_norm(head_emb)
+        t = self._pool(self._maybe_norm(tail_emb))
+        return -self.reduce_embedding(t * r_t[:, None, :] - (h * r_h + r_m)[:, None, :])
+
+
+class DistMult(MatrixDecompositionScoreFunction):
+    """DistMult: ``⟨h, r, t⟩`` (reference ``besskge/scoring.py:746-837``)."""
+
+    def __init__(
+        self,
+        negative_sample_sharing: bool,
+        sharding: Sharding,
+        n_relation_type: int,
+        embedding_size: int,
+        entity_initializer: Optional[TableOrInit] = None,
+        relation_initializer: Optional[TableOrInit] = None,
+        inverse_relations: bool = False,
+        seed: int = 0,
+        dtype: torch.dtype = torch.float32,
+    ) -> None:
+        super().__init__(negative_sample_sharing)
+        self.embedding_size = embedding_size
+        self._build_tables(
+            sharding,
+            n_relation_type,
+            inverse_relations,
+            entity_initializer if entity_initializer is not None else [init_KGE_uniform],
+            [embedding_size],
+            relation_initializer if relation_initializer is not None else [init_KGE_uniform],
+            [embedding_size],
+            seed,
+            dtype,
+        )
+
+    def score_triple(self, params, head_emb, relation_id, tail_emb):
+        r = self.relation_embedding(params, relation_id)
+        return self.reduce_embedding(head_emb * r * tail_emb)
+
+    def score_heads(self, params, head_emb, relation_id, tail_emb):
+        r = self.relation_embedding(params, relation_id)
+        return self.broadcasted_dot_product(r * tail_emb, head_emb)
+
+    def score_tails(self, params, head_emb, relation_id, tail_emb):
+        r = self.relation_embedding(params, relation_id)
+        return self.broadcasted_dot_product(head_emb * r, tail_emb)
+
+
+class ComplEx(MatrixDecompositionScoreFunction):
+    """ComplEx: ``Re⟨h, r, t̄⟩`` on blocked complex rows of ``2 ·
+    embedding_size`` values ``[re | im]`` (reference
+    ``besskge/scoring.py:840-946``)."""
+
+    def __init__(
+        self,
+        negative_sample_sharing: bool,
+        sharding: Sharding,
+        n_relation_type: int,
+        embedding_size: int,
+        entity_initializer: Optional[TableOrInit] = None,
+        relation_initializer: Optional[TableOrInit] = None,
+        inverse_relations: bool = False,
+        seed: int = 0,
+        dtype: torch.dtype = torch.float32,
+    ) -> None:
+        super().__init__(negative_sample_sharing)
+        self.embedding_size = embedding_size
+        self._build_tables(
+            sharding,
+            n_relation_type,
+            inverse_relations,
+            entity_initializer if entity_initializer is not None else [init_KGE_normal],
+            [2 * embedding_size],
+            relation_initializer if relation_initializer is not None else [init_KGE_normal],
+            [2 * embedding_size],
+            seed,
+            dtype,
+        )
+
+    def score_triple(self, params, head_emb, relation_id, tail_emb):
+        r = self.relation_embedding(params, relation_id)
+        return self.reduce_embedding(complex_multiplication(head_emb, r) * tail_emb)
+
+    def score_heads(self, params, head_emb, relation_id, tail_emb):
+        r = self.relation_embedding(params, relation_id)
+        re, im = torch.chunk(r, 2, dim=-1)
+        r_conj = torch.cat([re, -im], dim=-1)
+        return self.broadcasted_dot_product(complex_multiplication(r_conj, tail_emb), head_emb)
+
+    def score_tails(self, params, head_emb, relation_id, tail_emb):
+        r = self.relation_embedding(params, relation_id)
+        return self.broadcasted_dot_product(complex_multiplication(head_emb, r), tail_emb)
+
+
+class BoxE(DistanceBasedScoreFunction):
+    """BoxE: two-box distance with tanh bounding and a per-dimension in/out
+    switch (reference ``besskge/scoring.py:1149-1415``). Entity rows are
+    ``[base position | translational bump]`` (2d); relation rows ``[head
+    center, tail center, head width, tail width, head size, tail size]``
+    (4d + 2)."""
+
+    broadcasts_pool = True
+
+    def __init__(
+        self,
+        negative_sample_sharing: bool,
+        scoring_norm: int,
+        sharding: Sharding,
+        n_relation_type: int,
+        embedding_size: int,
+        entity_initializer: Optional[TableOrInit] = None,
+        relation_initializer: Optional[TableOrInit] = None,
+        apply_tanh: bool = True,
+        dist_func_per_dim: bool = True,
+        eps: float = 1e-6,
+        inverse_relations: bool = False,
+        seed: int = 0,
+        dtype: torch.dtype = torch.float32,
+    ) -> None:
+        super().__init__(negative_sample_sharing, scoring_norm)
+        self.embedding_size = embedding_size
+        self.apply_tanh = apply_tanh
+        self.dist_func_per_dim = dist_func_per_dim
+        self.eps = eps
+        ent_init = entity_initializer if entity_initializer is not None else [init_uniform]
+        if isinstance(ent_init, list):
+            ent_init = 2 * ent_init
+        rel_init = (
+            relation_initializer
+            if relation_initializer is not None
+            else [init_uniform, init_uniform_norm]
+        )
+        if isinstance(rel_init, list):
+            rel_init = 4 * [rel_init[0]] + 2 * [rel_init[1]]
+        self._build_tables(
+            sharding,
+            n_relation_type,
+            inverse_relations,
+            ent_init,
+            [embedding_size, embedding_size],
+            rel_init,
+            [embedding_size] * 4 + [1, 1],
+            seed,
+            dtype,
+        )
+
+    def boxe_score(self, bumped_ht, center_ht, width_ht, box_size):
+        """Negative sum of head and tail box distances; shapes as in
+        reference ``besskge/scoring.py:1253-1345``."""
+        width_ht = torch.abs(width_ht)
+        # Geometric-mean normalization of widths, softened by eps. The
+        # maxima are torch.maximum against a 0-dim fill (a kernel, not a
+        # host copy), whose gradient halves at a tie as jnp.maximum's does.
+        eps = width_ht.new_full((), self.eps)
+        log_w = torch.log(torch.maximum(width_ht, eps))
+        width_ht = width_ht / torch.maximum(torch.exp(torch.mean(log_w, dim=-1, keepdim=True)), eps)
+        scale = 1.0 + torch.nn.functional.elu(box_size[..., None].float()).to(width_ht.dtype)
+        width_ht = width_ht * scale
+
+        if self.apply_tanh:
+            box_low = torch.tanh(center_ht - 0.5 * width_ht)
+            box_up = torch.tanh(box_low + width_ht)
+            center_ht = 0.5 * (box_low + box_up)
+            width_ht = box_up - box_low
+            center_dist = torch.abs(torch.tanh(bumped_ht) - center_ht)
+        else:
+            center_dist = torch.abs(bumped_ht - center_ht)
+
+        width_p1 = 1.0 + width_ht
+        k = 0.5 * width_ht * (width_p1 - 1.0 / width_p1)
+        in_box = center_dist <= 0.5 * width_ht
+        if not self.dist_func_per_dim:
+            in_box = torch.all(in_box, dim=-1, keepdim=True)
+        final = torch.where(in_box, center_dist / width_p1, center_dist * width_p1 - k)
+        return -torch.sum(self.reduce_embedding(final), dim=-1)
+
+    def _split_rel(self, params, relation_id):
+        r = self.relation_embedding(params, relation_id)
+        d = self.embedding_size
+        return r[..., : 2 * d], r[..., 2 * d : 4 * d], r[..., 4 * d :]
+
+    def score_triple(self, params, head_emb, relation_id, tail_emb):
+        center, width, size = self._split_rel(params, relation_id)
+        d = self.embedding_size
+        # Element 0: head bumped by the tail's bump (against the head box);
+        # element 1: tail bumped by the head's bump (against the tail box).
+        bumped = head_emb.reshape(-1, 2, d) + tail_emb.reshape(-1, 2, d).flip(1)
+        return self.boxe_score(
+            bumped, center.reshape(-1, 2, d), width.reshape(-1, 2, d), size.reshape(-1, 2)
+        )
+
+    def score_heads(self, params, head_emb, relation_id, tail_emb):
+        center, width, size = self._split_rel(params, relation_id)
+        d = self.embedding_size
+        h = self._pool(head_emb)
+        bumped = h.reshape(h.shape[0], -1, 2, d) + tail_emb.reshape(-1, 1, 2, d).flip(2)
+        return self.boxe_score(
+            bumped, center.reshape(-1, 1, 2, d), width.reshape(-1, 1, 2, d),
+            size.reshape(-1, 1, 2),
+        )
+
+    def score_tails(self, params, head_emb, relation_id, tail_emb):
+        center, width, size = self._split_rel(params, relation_id)
+        d = self.embedding_size
+        t = self._pool(tail_emb)
+        bumped = head_emb.reshape(-1, 1, 2, d) + t.reshape(t.shape[0], -1, 2, d).flip(2)
+        return self.boxe_score(
+            bumped, center.reshape(-1, 1, 2, d), width.reshape(-1, 1, 2, d),
+            size.reshape(-1, 1, 2),
+        )
+
+
+class InterHT(DistanceBasedScoreFunction):
+    """InterHT: ``-||h ∘ (t̂+off) + r − t ∘ (ĥ+off)||_p`` on entity rows
+    ``[main | auxiliary]`` (reference ``besskge/scoring.py:1418-1572``)."""
+
+    broadcasts_pool = True
+
+    def __init__(
+        self,
+        negative_sample_sharing: bool,
+        scoring_norm: int,
+        sharding: Sharding,
+        n_relation_type: int,
+        embedding_size: int,
+        entity_initializer: Optional[TableOrInit] = None,
+        relation_initializer: Optional[TableOrInit] = None,
+        normalize_entities: bool = True,
+        offset: float = 1.0,
+        inverse_relations: bool = False,
+        seed: int = 0,
+        dtype: torch.dtype = torch.float32,
+    ) -> None:
+        super().__init__(negative_sample_sharing, scoring_norm)
+        self.embedding_size = embedding_size
+        self.normalize = normalize_entities
+        self.offset = float(offset)
+        ent_init = entity_initializer if entity_initializer is not None else [init_KGE_uniform]
+        if isinstance(ent_init, list):
+            ent_init = 2 * ent_init
+        self._build_tables(
+            sharding,
+            n_relation_type,
+            inverse_relations,
+            ent_init,
+            [embedding_size, embedding_size],
+            relation_initializer if relation_initializer is not None else [init_KGE_uniform],
+            [embedding_size],
+            seed,
+            dtype,
+        )
+
+    def _split_ent(self, v):
+        main, aux = torch.chunk(v, 2, dim=-1)
+        if self.normalize:
+            main, aux = _l2_normalize(main), _l2_normalize(aux)
+        return main, aux
+
+    def score_triple(self, params, head_emb, relation_id, tail_emb):
+        r = self.relation_embedding(params, relation_id)
+        h, h_aux = self._split_ent(head_emb)
+        t, t_aux = self._split_ent(tail_emb)
+        return -self.reduce_embedding(h * (t_aux + self.offset) + r - t * (h_aux + self.offset))
+
+    def score_heads(self, params, head_emb, relation_id, tail_emb):
+        r = self.relation_embedding(params, relation_id)
+        h, h_aux = self._split_ent(head_emb)
+        t, t_aux = self._split_ent(tail_emb)
+        h, h_aux = self._pool(h), self._pool(h_aux)
+        return -self.reduce_embedding(
+            h * (t_aux + self.offset)[:, None, :]
+            + r[:, None, :]
+            - t[:, None, :] * (h_aux + self.offset)
+        )
+
+    def score_tails(self, params, head_emb, relation_id, tail_emb):
+        r = self.relation_embedding(params, relation_id)
+        h, h_aux = self._split_ent(head_emb)
+        t, t_aux = self._split_ent(tail_emb)
+        t, t_aux = self._pool(t), self._pool(t_aux)
+        return -self.reduce_embedding(
+            h[:, None, :] * (t_aux + self.offset)
+            + r[:, None, :]
+            - t * (h_aux + self.offset)[:, None, :]
+        )
+
+
+class TranS(DistanceBasedScoreFunction):
+    """TranS: ``-||h ∘ (t̃+off+r̄) − t ∘ (h̃+off−r̂) + r||_p`` on entity rows
+    ``[main | tilde]`` and relation rows ``[r, r̄, r̂]`` (reference
+    ``besskge/scoring.py:1575-1751``)."""
+
+    broadcasts_pool = True
+
+    def __init__(
+        self,
+        negative_sample_sharing: bool,
+        scoring_norm: int,
+        sharding: Sharding,
+        n_relation_type: int,
+        embedding_size: int,
+        entity_initializer: Optional[TableOrInit] = None,
+        relation_initializer: Optional[TableOrInit] = None,
+        normalize_entities: bool = True,
+        offset: float = 1.0,
+        inverse_relations: bool = False,
+        seed: int = 0,
+        dtype: torch.dtype = torch.float32,
+    ) -> None:
+        super().__init__(negative_sample_sharing, scoring_norm)
+        self.embedding_size = embedding_size
+        self.normalize = normalize_entities
+        self.offset = float(offset)
+        ent_init = entity_initializer if entity_initializer is not None else [init_KGE_uniform]
+        if isinstance(ent_init, list):
+            ent_init = 2 * ent_init
+        rel_init = relation_initializer if relation_initializer is not None else [init_KGE_uniform]
+        if isinstance(rel_init, list):
+            rel_init = 3 * rel_init
+        self._build_tables(
+            sharding,
+            n_relation_type,
+            inverse_relations,
+            ent_init,
+            [embedding_size, embedding_size],
+            rel_init,
+            [embedding_size] * 3,
+            seed,
+            dtype,
+        )
+
+    def _split_ent(self, v):
+        main, tilde = torch.chunk(v, 2, dim=-1)
+        if self.normalize:
+            main, tilde = _l2_normalize(main), _l2_normalize(tilde)
+        return main, tilde
+
+    def score_triple(self, params, head_emb, relation_id, tail_emb):
+        r, r_bar, r_hat = torch.chunk(self.relation_embedding(params, relation_id), 3, dim=-1)
+        h, h_tilde = self._split_ent(head_emb)
+        t, t_tilde = self._split_ent(tail_emb)
+        return -self.reduce_embedding(
+            h * (t_tilde + self.offset + r_bar) - t * (h_tilde + self.offset - r_hat) + r
+        )
+
+    def score_heads(self, params, head_emb, relation_id, tail_emb):
+        r, r_bar, r_hat = torch.chunk(self.relation_embedding(params, relation_id), 3, dim=-1)
+        h, h_tilde = self._split_ent(head_emb)
+        t, t_tilde = self._split_ent(tail_emb)
+        h, h_tilde = self._pool(h), self._pool(h_tilde)
+        return -self.reduce_embedding(
+            h * (t_tilde + self.offset + r_bar)[:, None, :]
+            - t[:, None, :] * (h_tilde + self.offset - r_hat[:, None, :])
+            + r[:, None, :]
+        )
+
+    def score_tails(self, params, head_emb, relation_id, tail_emb):
+        r, r_bar, r_hat = torch.chunk(self.relation_embedding(params, relation_id), 3, dim=-1)
+        h, h_tilde = self._split_ent(head_emb)
+        t, t_tilde = self._split_ent(tail_emb)
+        t, t_tilde = self._pool(t), self._pool(t_tilde)
+        return -self.reduce_embedding(
+            h[:, None, :] * (t_tilde + self.offset + r_bar[:, None, :])
+            - t * (h_tilde + self.offset - r_hat)[:, None, :]
+            + r[:, None, :]
+        )

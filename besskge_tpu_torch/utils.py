@@ -2,7 +2,7 @@
 
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Optional, Tuple, Union
 
 import torch
 
@@ -10,8 +10,8 @@ import torch
 Word = Union[torch.Tensor, int]
 
 __all__ = [
-    "complex_multiplication", "complex_rotation", "gather_indices", "on_cuda",
-    "resolve_device",
+    "as_complex_pair", "complex_multiplication", "complex_rotation", "gather_indices",
+    "interleaved_to_blocked", "on_cuda", "resolve_device",
 ]
 
 
@@ -88,3 +88,13 @@ def complex_rotation(v: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
     """Rotate complex vectors ``v`` (``[re, im]``, last dim ``2k``) by the
     phases ``r`` (radians, last dim ``k``)."""
     return complex_multiplication(v, torch.cat([torch.cos(r), torch.sin(r)], dim=-1))
+
+
+def interleaved_to_blocked(x: torch.Tensor) -> torch.Tensor:
+    """(re, im, re, im, ...) -> (re..., im...) along the last axis."""
+    return torch.cat([x[..., 0::2], x[..., 1::2]], dim=-1)
+
+
+def as_complex_pair(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Split a blocked complex vector into (real, imaginary) halves."""
+    return tuple(torch.chunk(x, 2, dim=-1))  # type: ignore[return-value]

@@ -107,15 +107,41 @@ the CUDA toolkit. Phases, one line each with its elapsed seconds:
    a JSON line gives each file's bytes, save and load seconds and the
    host's peak extra RSS beside the card's name and power limit. The phase
    traces nothing (``--profile`` does not take it).
+11. yago: ComplEx at YAGO3-10 width (123,182 entities, 37 relation types,
+   ``embedding_size`` 128: rows of 256 fp32 values). Served as
+   ``bench.py``'s ``topk_yago`` serves it (``initial_params_device``, 512
+   queries, top-10, the default window 32768 and chunk merge; ms per batch
+   the best of 3 x 20): the top-10 of 32 queries against one full-fp32
+   product with the whole table (scores within 1e-5 x (|want| + max|want|),
+   IDs as sets where the 10th and 11th stand apart), the chunk merge equal
+   to the sort merge, 64 queries equal to the CPU's, planted answers MRR 1,
+   and the batch's peak memory. Trained as ``examples/yago_topk_prediction.py``
+   trains it, on one shard and at d = 128 (1,079,040 random triples, 8
+   shared "ht" negatives, ``LogSigmoidLoss(12, adversarial)``, 8 x 120
+   positives, ``FusedDenseAdamW`` (B10) on the table, ``AdamW`` on the
+   relations): one host-fed step against the CPU, a device-sampled call at
+   ``steps_per_call`` 10 (first call and two replays equal to the eager card
+   steps bit for bit, B10 10 times per call by name), ``Trainer.fit`` over
+   three calls, 2 x 5 timed calls; then the trained table served again.
+12. scorers: DistMult, PairRE, TripleRE, BoxE, InterHT and TranS, each in
+   TransE's place on the wikikg2 step of phase 6 (p = 1 for the distance
+   scorers, bf16 scoring math, ``RowSGDM`` interleaved, B3): one host-fed
+   step against the CPU (the sparse gate), one device-sampled call at
+   ``steps_per_call`` 8 (first call and two replays equal to the eager card
+   steps bit for bit, B3 8 times per call by name), 2 x 5 timed calls, the
+   capture's peak memory, and the top-10 of 64 queries against all
+   2,500,604 entities of the trained table, held against a full-table
+   reference through ``score_triple`` (scores within 2^-7 x (|want| +
+   max|want|), each returned ID's own reference score too).
 
 Each path is driven with every launch count set to 0 just before it and
 read just after. Then one JSON line describing each kernel, and the result
 line. Any failed check raises, so the script exits non-zero and prints no
 result; so it does when no CUDA card is available. ``--profile`` adds a
 ``torch.profiler`` trace of the training steps of each training phase
-(``training``, ``dense``, ``device``, ``packed``; ``--profile=packed``
-traces only the named ones): device time by kernel, and the device's busy
-share.
+(``training``, ``dense``, ``device``, ``packed``, ``yago``, ``scorers``;
+``--profile=yago,scorers`` traces only the named ones): device time by
+kernel, and the device's busy share.
 """
 
 from __future__ import annotations
@@ -135,7 +161,7 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
-from besskge_tpu_torch import _build, checkpoint, optim, packed, trainer  # noqa: E402
+from besskge_tpu_torch import _build, checkpoint, optim, packed, scoring, trainer  # noqa: E402
 from besskge_tpu_torch.batch_sampler import (  # noqa: E402
     RandomShardedBatchSampler,
     RigidShardedBatchSampler,
@@ -155,8 +181,9 @@ from besskge_tpu_torch.negative_sampler import (  # noqa: E402
 )
 from besskge_tpu_torch.ops import adamw_kernels, distance, l1_kernels, row_kernels  # noqa: E402
 from besskge_tpu_torch.profiling import DISTANCE_EDGES, device_kernels  # noqa: E402
-from besskge_tpu_torch.scoring import RotatE, TransE  # noqa: E402
+from besskge_tpu_torch.scoring import ComplEx, RotatE, TransE  # noqa: E402
 from besskge_tpu_torch.sharding import PartitionedTripleSet, Sharding  # noqa: E402
+from besskge_tpu_torch.utils import complex_multiplication  # noqa: E402
 
 # Serving configuration: ogbl-wikikg2's entity and relation counts on one
 # shard, the width of benchmarks/bench_topk.py --model transe-l1.
@@ -217,6 +244,35 @@ DEVICE_FIT_CALLS = 3
 # the entity table row-pair-packed (int32 bf16 pairs, uint32 fp16 pairs) in
 # the triplet store of RowSGDM interleaved, the relation table 16-bit too.
 PACKED = {"wikikg2_bf16": torch.bfloat16, "wikikg2_fp16": torch.float16}
+
+# YAGO3-10 at bench.py's topk_yago width (run_topk): ComplEx on one shard,
+# 123,182 entities, 37 relation types, embedding_size 128 (entity rows of
+# 256 fp32 values), 512 queries per batch, k = 10, the default window
+# (32768) and merge (chunk); ms per batch the best of 3 repeats of 20.
+YAGO_ENTITY, YAGO_RELATION, YAGO_EMB, YAGO_QUERIES = 123_182, 37, 128, 512
+YAGO_BATCHES, YAGO_REPEATS = 20, 3
+# ComplEx trained as examples/yago_topk_prediction.py trains it, on one
+# shard (the example: four) and at d = 128 as topk_yago serves it (the
+# example: 64): 8 shared "ht" negatives, LogSigmoidLoss(12, adversarial),
+# 8 x 120 positives per step, FusedDenseAdamW on the table and AdamW on the
+# relations at lr 1e-3 with optax.adamw's weight decay 1e-4; random triples
+# standing for YAGO3-10's 1,079,040 training triples; 10 steps per
+# device-sampled call, 2 sets of 5 timed calls.
+YAGO_TRIPLE, YAGO_NEGATIVE, YAGO_SHARD_BS, YAGO_BPS, YAGO_LR = 1_079_040, 8, 120, 8, 1e-3
+YAGO_SPC, YAGO_TIMED_CALLS = 10, 5
+# The other scorers on the wikikg2 step (_setup_wikikg2 with the scorer in
+# TransE's place, p = 1 for the distance scorers, each scorer's defaults
+# otherwise), and their top-10 of 64 queries against every entity.
+SCORERS = ("DistMult", "PairRE", "TripleRE", "BoxE", "InterHT", "TranS")
+# Scorers whose bf16 scores are too coarse for the sparse gate: BoxE sums
+# 2 x 128 box distances of order 1, so |score| ~ 10^2, one bf16 ulp of a
+# score is 0.5-1 and moves its softmax weight by up to e^0.5; the gate's
+# premise (one ulp of a score moves the loss by at most 2^-7) fails, and
+# the card's and the CPU's gradients differ past it where a score rounds
+# the other way. Their card-vs-CPU step is held with fp32 scoring math, the
+# same state and batch; the bf16 step's distance to the gate is reported.
+FP32_HELD = ("BoxE",)
+SCORER_QUERIES, SCORER_TIMED_CALLS = 64, 5
 
 L1_SOURCE = "besskge_tpu_torch/csrc/l1_distance.cu"
 ROW_SOURCE = "besskge_tpu_torch/csrc/row_update.cu"
@@ -1528,31 +1584,46 @@ def _hold_dense(what: str, got: tuple, want: tuple, count: int, lr: float) -> di
     return errs
 
 
-def _hold_sparse(what: str, got: tuple, want: tuple, rows=None) -> dict:
+def _sparse_arrays(got: tuple, want: tuple, rows=None, lr: float = 0.0) -> list:
+    """(name, got, want, extra) of each array :func:`_hold_sparse` holds."""
+    rel = "relation_embedding"
+    m_rel = [side[1]["other"]["trace"][rel].cpu().float() for side in (got, want)]
+    arrays = []
+    if rows is not None:
+        pairs = 2 * rows[:, None] + torch.arange(2)
+        ent = [side[0]["entity_embedding"] for side in (got, want)]
+        p_ent, m_ent = ([e[pairs[:, col].to(e.device)].cpu().float() for e in ent]
+                        for col in (0, 1))
+        arrays += [("momentum", *m_ent, 0.0),
+                   ("params", *p_ent, lr * (m_ent[0] - m_ent[1]).abs())]
+    return arrays + [("relation momentum", *m_rel, 0.0),
+                     ("relation", got[0][rel].cpu().float(), want[0][rel].cpu().float(),
+                      lr * (m_rel[0] - m_rel[1]).abs())]
+
+
+def _hold_sparse(what: str, got: tuple, want: tuple, rows=None, lr: float = 0.0) -> dict:
     """The sparse form's (params, state) against another's over the relation
     table and its momentum and, given ``rows``, at those logical rows of the
     entity table (params and momentum), within BF16_STEP_RTOL x (|want| +
-    max|want|)."""
-    errs = {}
-    if rows is not None:
-        pairs = 2 * rows[:, None] + torch.arange(2)
-        for sub, col in (("params", 0), ("momentum", 1)):
-            idx = pairs[:, col]
-            errs[sub] = _within(what, sub, got[0]["entity_embedding"][idx.to(
-                got[0]["entity_embedding"].device)].cpu(), want[0]["entity_embedding"][idx.to(
-                    want[0]["entity_embedding"].device)].cpu())
-    rel = "relation_embedding"
-    errs["relation"] = _within(what, "relation", got[0][rel].cpu(), want[0][rel].cpu())
-    errs["relation momentum"] = _within(what, "relation momentum",
-                                        got[1]["other"]["trace"][rel].cpu(),
-                                        want[1]["other"]["trace"][rel].cpu())
-    return errs
+    max|want|). Given the first step's ``lr``, each param also gets lr x
+    |m_got − m_want|: the step moved it by lr·m, and each side's m is held
+    to the gate itself (where a relation's gradient sums 10^3-sized terms
+    over the step's queries, as BoxE's do, lr·m outgrows the params)."""
+    return {name: _within(what, name, g, w, extra)
+            for name, g, w, extra in _sparse_arrays(got, want, rows, lr)}
 
 
-def _within(what: str, name: str, got: torch.Tensor, want: torch.Tensor) -> float:
+def _gate_ratios(got: tuple, want: tuple, rows=None, lr: float = 0.0) -> dict:
+    """Each array's max |got − want| over :func:`_hold_sparse`'s tolerance:
+    under 1 where the gate holds."""
+    return {name: float(((g - w).abs() / (BF16_STEP_RTOL * (w.abs() + w.abs().max()) + extra))
+                        .max()) for name, g, w, extra in _sparse_arrays(got, want, rows, lr)}
+
+
+def _within(what: str, name: str, got: torch.Tensor, want: torch.Tensor, extra=0.0) -> float:
     got, want = got.float(), want.float()
     err = (got - want).abs()
-    tol = BF16_STEP_RTOL * (want.abs() + want.abs().max())
+    tol = BF16_STEP_RTOL * (want.abs() + want.abs().max()) + extra
     if not (err <= tol).all() or not torch.isfinite(got).all():
         raise AssertionError(f"{what}: {name} off by {err.max().item()}")
     return err.max().item()
@@ -1658,18 +1729,19 @@ def _graph_equals_eager(name: str, form: dict) -> dict:
         bits = {path: torch.equal(g, e) for (path, g), (_, e) in zip(
             trainer._leaves({"params": graph[0], "state": graph[1]}),
             trainer._leaves({"params": eager[0], "state": eager[1]}))}
-        if form.get("all_bits"):
-            exact = list(bits)  # a packed form: every array
+        if sparse:
             errs = _hold_sparse(f"{name} call {call} (graph vs eager)", graph, eager)
+        else:
+            errs = _hold_dense(f"{name} call {call} (graph vs eager)", graph, eager,
+                               (call + 1) * spc, DENSE_LR)
+        if form.get("all_bits"):
+            exact = list(bits)  # every array
         elif sparse:
             # The entity table (params and momentum rows) and the step counts
             # come from sums without atomics: equal bits.
             exact = [p for p in bits if "entity" in p or p.endswith("count")]
-            errs = _hold_sparse(f"{name} call {call} (graph vs eager)", graph, eager)
         else:
             exact = [p for p in bits if p.endswith("count")]
-            errs = _hold_dense(f"{name} call {call} (graph vs eager)", graph, eager,
-                               (call + 1) * spc, DENSE_LR)
         if not all(bits[p] for p in exact):
             raise AssertionError(f"{name} call {call}: graph and eager differ in"
                                  f" {[p for p in exact if not bits[p]]}")
@@ -2370,6 +2442,421 @@ def checkpoint_phase(gen: torch.Generator, device: str = "cuda") -> dict:
     return files
 
 
+def _hold_topk(what: str, got: dict, ref: torch.Tensor, sharding: Sharding, rtol: float) -> int:
+    """A top-K output (``topk_scores``, ``topk_global_id``, (Q, K)) against
+    ``ref`` (Q, local rows), the full-table reference scores (padding rows
+    at -inf): the scores within rtol x (|want| + max|want|) of the
+    reference's top K, each returned ID's own reference score within that of
+    its returned score, and the IDs equal as sets wherever the K-th and
+    (K+1)-th reference scores stand further apart than twice the tolerance.
+    Returns the number of such queries."""
+    scores, ids = got["topk_scores"].float(), got["topk_global_id"].long()
+    want = torch.topk(ref, K + 1, dim=1)
+    top = want.values[:, :K]
+    tol = rtol * (top.abs() + top.abs().max())
+    own = ref.gather(1, torch.as_tensor(sharding.entity_to_idx, device=ref.device)[ids])
+    if not ((scores - top).abs() <= tol).all() or not ((own - scores).abs() <= tol).all():
+        raise AssertionError(f"{what}: top-{K} scores off the full-table reference by"
+                             f" {(scores - top).abs().max().item()} (own"
+                             f" {(own - scores).abs().max().item()})")
+    s2e = torch.as_tensor(sharding.shard_and_idx_to_entity[0], device=ref.device)
+    ref_ids = s2e[want.indices[:, :K]]
+    sure = (want.values[:, K - 1] - want.values[:, K]) > 2 * tol.max()
+    same = (ids.sort(1).values == ref_ids.sort(1).values).all(1)
+    if not same[sure].all():
+        raise AssertionError(f"{what}: top-{K} IDs differ from the full-table reference")
+    return int(sure.sum())
+
+
+def _same_topk(what: str, got: dict, want: dict, rtol: float) -> None:
+    """Two top-K outputs of the same queries: scores within rtol x (|want| +
+    max|want|) (0: equal bits), IDs equal at every position whose score
+    stands further than twice that from both neighbours."""
+    g, w = got["topk_scores"].float().cpu(), want["topk_scores"].float().cpu()
+    tol = rtol * (w.abs() + w.abs().max())
+    if not ((g - w).abs() <= tol).all():
+        raise AssertionError(f"{what}: top-{K} scores differ by {(g - w).abs().max().item()}")
+    gap = (w[:, :-1] - w[:, 1:]).abs() > 2 * tol.max()
+    alone = torch.ones_like(w, dtype=torch.bool)
+    alone[:, 1:] &= gap
+    alone[:, :-1] &= gap
+    if not torch.equal(got["topk_global_id"].cpu()[alone], want["topk_global_id"].cpu()[alone]):
+        raise AssertionError(f"{what}: top-{K} IDs differ away from ties")
+
+
+def _complex_reference(params: dict, sharding: Sharding, rel: torch.Tensor,
+                       head: torch.Tensor) -> torch.Tensor:
+    """ComplEx tail scores of (head, rel) queries against every local row:
+    one full-fp32 product against the whole table; padding rows at -inf."""
+    table, rel_table = params["entity_embedding"], params["relation_embedding"]
+    query = complex_multiplication(table[head.long()], rel_table[rel.long()])
+    ref = torch.matmul(query, table.T)  # main() turns TF32 off
+    ref[:, int(sharding.shard_counts[0]):] = -float("inf")
+    return ref
+
+
+def _yago_serving(what: str, params: dict, sharding: Sharding, score_fn, device: str) -> dict:
+    """bench.py's run_topk on ``params``: 512 queries, relations uniform in
+    37, heads uniform over the local rows, the default window and chunk
+    merge; gated against a full-table reference, the sort merge, planted
+    answers and the CPU. Returns times and the batch's peak memory."""
+    on_card = device == "cuda"
+    ns = PlaceholderNegativeSampler(corruption_scheme="t", seed=SEED)
+    rng = np.random.default_rng(SEED)
+    rel = torch.from_numpy(rng.integers(YAGO_RELATION, size=YAGO_QUERIES)).to(device)
+    head = torch.from_numpy(rng.integers(sharding.max_entity_per_shard,
+                                         size=YAGO_QUERIES)).to(device)
+    topk = TopKQueryBessKGE(K, ns, score_fn, return_scores=True)
+    sort = TopKQueryBessKGE(K, ns, score_fn, return_scores=True, merge_mode="sort")
+    with torch.inference_mode():
+        out = topk.forward(params, rel, head=head)  # warm-up
+        sync(device)
+        best = float("inf")
+        for _ in range(YAGO_REPEATS):
+            t = time.perf_counter()
+            for _ in range(YAGO_BATCHES):
+                out = topk.forward(params, rel, head=head)
+            sync(device)
+            best = min(best, (time.perf_counter() - t) / YAGO_BATCHES)
+        peak = None
+        if on_card:
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            topk.forward(params, rel, head=head)
+            sync(device)
+            peak = torch.cuda.max_memory_allocated() - base
+        if not torch.isfinite(out["topk_scores"]).all() or out["topk_global_id"].shape != (
+                YAGO_QUERIES, K):
+            raise AssertionError(f"{what}: top-{K} output {tuple(out['topk_global_id'].shape)}")
+        ref = _complex_reference(params, sharding, rel[:N_REFERENCE], head[:N_REFERENCE])
+        sure = _hold_topk(f"{what} vs the full-table reference",
+                          {k: v[:N_REFERENCE] for k, v in out.items()}, ref, sharding, DENSE_RTOL)
+        _same_topk(f"{what} chunk vs sort merge", out, sort.forward(params, rel, head=head), 0.0)
+        cpu = {k: v.cpu() for k, v in params.items()}
+        _same_topk(f"{what} card vs CPU", {k: v[:64] for k, v in out.items()},
+                   topk.forward(cpu, rel[:64].cpu(), head=head[:64].cpu()), DENSE_RTOL)
+        # Planted answers: each tail row set to c·q/|q|, q = h ∘ r, with c ten
+        # times the largest row norm: it scores c|q| against its query, more
+        # than any other planted row (c|q|cos) or any other row (< c|q|/10).
+        ents = rng.choice(YAGO_ENTITY, size=2 * YAGO_QUERIES, replace=False)
+        e2i = torch.as_tensor(sharding.entity_to_idx, device=device)
+        h_loc = e2i[torch.from_numpy(ents[:YAGO_QUERIES]).to(device)]
+        t_glob = torch.from_numpy(ents[YAGO_QUERIES:]).to(device)
+        planted = {k: v.clone() for k, v in params.items()}
+        table = planted["entity_embedding"]
+        q = complex_multiplication(table[h_loc], planted["relation_embedding"][rel])
+        c = 10 * torch.linalg.vector_norm(table, dim=-1).max()
+        table[e2i[t_glob]] = q * (c / torch.linalg.vector_norm(q, dim=-1, keepdim=True))
+        evaluation = Evaluation(["mrr", "hits@1", "hits@10"], worst_rank_infty=True,
+                                reduction="sum")
+        scored = TopKQueryBessKGE(K, ns, score_fn, evaluation=evaluation)
+        metrics = scored.forward(planted, rel, head=h_loc, tail=t_glob)["metrics"].reshape(-1)
+        mrr = float(metrics[0]) / YAGO_QUERIES
+        if mrr != 1.0:
+            raise AssertionError(f"{what}: MRR {mrr} of planted answers, expected 1")
+    say("yago", f"{what}: window {topk.window_size} (chunk merge): {best * 1e3:.3f} ms per"
+        f" {YAGO_QUERIES}-query batch (best of {YAGO_REPEATS} x {YAGO_BATCHES}), peak"
+        f" {peak if peak is None else f'{peak / 2**20:.1f} MiB'} above the tables; top-{K} of"
+        f" {N_REFERENCE} queries match a full-fp32 full-table product ({sure} with a clear"
+        f" 10th/11th gap), the chunk merge equals the sort merge, 64 queries equal the CPU's,"
+        f" planted answers MRR {mrr}")
+    return {"ms_per_batch": best * 1e3, "peak_bytes": peak, "window": topk.window_size}
+
+
+def _yago_module(triples: np.ndarray, sharding: Sharding, score_fn) -> tuple:
+    dataset = KGDataset(n_entity=YAGO_ENTITY, n_relation_type=YAGO_RELATION,
+                        triples={"train": triples},
+                        original_triple_ids={"train": np.arange(len(triples))})
+    pts = PartitionedTripleSet.create_from_dataset(dataset, "train", sharding)
+    ns = RandomShardedNegativeSampler(YAGO_NEGATIVE, sharding, SEED, "ht", local_sampling=False,
+                                      flat_negative_format=True)
+    return EmbeddingMovingBessKGE(ns, score_fn, LogSigmoidLoss(12.0, True)), pts
+
+
+def yago(gen: torch.Generator, profile: bool = False, device: str = "cuda") -> dict:
+    """ComplEx at YAGO3-10 width: served as bench.py's topk_yago serves it,
+    trained as the YAGO example trains it (host-fed and device-sampled, B10
+    on the table), then the trained table served again (``device`` "cpu"
+    rehearses the phase without the card's gates)."""
+    on_card = device == "cuda"
+    t = time.perf_counter()
+    sharding = Sharding.create(YAGO_ENTITY, 1, seed=SEED)
+    score_fn = ComplEx(True, sharding, YAGO_RELATION, YAGO_EMB, seed=SEED)
+    params = score_fn.initial_params_device(device=device)  # bench.py's call
+    say("yago", f"{YAGO_ENTITY} x {2 * YAGO_EMB} fp32 ComplEx table drawn on the device"
+        f" ({time.perf_counter() - t:.1f}s)")
+    result = {"serving": _yago_serving("initial table", params, sharding, score_fn, device)}
+    del params
+
+    rng = np.random.default_rng(SEED)
+    triples = np.stack([rng.integers(YAGO_ENTITY, size=YAGO_TRIPLE),
+                        rng.integers(YAGO_RELATION, size=YAGO_TRIPLE),
+                        rng.integers(YAGO_ENTITY, size=YAGO_TRIPLE)], 1).astype(np.int32)
+    module, pts = _yago_module(triples, sharding, score_fn)
+    ns = module.negative_sampler
+    adamw, fused = optim.AdamW(YAGO_LR), optim.FusedDenseAdamW(YAGO_LR, weight_decay=1e-4)
+    params = score_fn.initial_params_device(device=device, generator=gen)
+    state = trainer.init_optimizer_state(adamw, params, None, fused)
+    host = RigidShardedBatchSampler(pts, ns, shard_bs=YAGO_SHARD_BS, batches_per_step=YAGO_BPS,
+                                    seed=SEED)
+    batch = host.sample_batch(next(iter(host.epoch_index_blocks(shuffle=True))))
+    cpu_params, cpu_state = _to(params, "cpu"), _to(state, "cpu")
+    reset_counts()
+    params, state, out = trainer.build_train_step(module, adamw, None, fused, device=device)(
+        params, state, batch)
+    sync(device)
+    counts = read_counts()
+    if on_card:
+        expect_counts("yago training step", counts, {"dense_adamw_update": 1})
+    t = time.perf_counter()
+    cpu_params, cpu_state, cpu_out = trainer.build_train_step(
+        module, adamw, None, fused, device="cpu")(cpu_params, cpu_state, batch)
+    cpu_s = time.perf_counter() - t
+    loss, cpu_loss = float(out["loss"]), float(cpu_out["loss"])
+    if not np.isfinite(loss) or abs(loss - cpu_loss) > DENSE_RTOL * abs(cpu_loss):
+        raise AssertionError(f"yago step loss {loss} on the card, {cpu_loss} on the CPU")
+    errs = _hold_dense("yago step vs the CPU", (params, state), (cpu_params, cpu_state), 1,
+                       YAGO_LR)
+    say("yago", f"{len(triples)} triples, {YAGO_BPS} x {YAGO_SHARD_BS} positives per step; one"
+        f" host-fed step (FusedDenseAdamW, B10) on the card vs the CPU ({cpu_s:.1f}s): loss"
+        f" {loss:.6f} vs {cpu_loss:.6f}, max|err| {', '.join(f'{k} {v:.3g}' for k, v in errs.items())};"
+        f" launches {_launched()}")
+    result["host_step_vs_cpu"] = errs
+    result["host_step_launches"] = counts["dense_adamw_update"]
+    del cpu_params, cpu_state
+
+    dev = DeviceBatchSampler(pts, ns, shard_bs=YAGO_SHARD_BS, batches_per_step=YAGO_BPS,
+                             seed=SEED, positive_mode="runs")
+    form = dict(module=module, opt=adamw, ent=fused, spc=YAGO_SPC, params=params, state=state,
+                sampler=dev, pts=pts, want={"dense_adamw_update": 1},
+                kernels={"dense_adamw_kernel": 1}, phase="yago", all_bits=True)
+    form["fn"] = trainer.build_device_train_step(module, adamw, dev, None, fused,
+                                                 steps_per_call=YAGO_SPC, device=device)
+    form["sampler_state"] = dev.state(device)
+    fn, st = form["fn"], form["sampler_state"]
+    if on_card:
+        result["device"] = _graph_equals_eager("yago", form)
+    else:
+        reset_counts()
+        fn(params, state, st, dev.next_key(0))
+        result["device"] = {"first_call_wrapper_launches": _launched()}
+
+    # Trainer.fit over three device-sampled calls.
+    fit_triples = triples[: 3 * YAGO_SPC * dev.partition_sample_size]
+    fit_module, fit_pts = _yago_module(fit_triples, sharding, score_fn)
+    fit_dev = DeviceBatchSampler(fit_pts, fit_module.negative_sampler, shard_bs=YAGO_SHARD_BS,
+                                 batches_per_step=YAGO_BPS, seed=SEED, positive_mode="runs")
+    fit = trainer.Trainer(fit_module, fit_dev, adamw,
+                          params={k: v.clone() for k, v in params.items()},
+                          entity_optimizer=fused, steps_per_call=YAGO_SPC, device=device)
+    summary = fit.fit(n_epochs=1, log_every=1)
+    losses = [r["loss"] for r in fit.history]
+    if summary["steps"] != 3 or not np.isfinite(losses).all():
+        raise AssertionError(f"yago Trainer.fit: {summary}")
+    say("yago", f"Trainer.fit: {summary['steps']} calls of {YAGO_SPC} steps, loss {losses[0]:.3f}"
+        f" -> {losses[-1]:.3f}, {summary['triples_per_s']:.0f} positive triples/s, capture"
+        " included")
+    del fit
+
+    timed = []
+    for i in range(2):
+        fn(params, state, st, dev.next_key(100 + 10 * i))  # warm-up
+        sync(device)
+        t = time.perf_counter()
+        for j in range(YAGO_TIMED_CALLS):
+            _, _, out = fn(params, state, st, dev.next_key(101 + 10 * i + j))
+        sync(device)
+        timed.append((time.perf_counter() - t) / (YAGO_TIMED_CALLS * YAGO_SPC) * 1e3)
+    table_bytes = params["entity_embedding"].numel() * params["entity_embedding"].element_size()
+    positives = dev.partition_sample_size
+    say("yago", f"device-sampled ({YAGO_SPC} steps per call): {timed[0]:.4f} / {timed[1]:.4f} ms"
+        f" per step over {YAGO_TIMED_CALLS} calls each, {positives / timed[0] * 1e3:.0f} positive"
+        f" triples/s; table {table_bytes} B; final loss {float(out['loss']):.3f}")
+    result.update(ms_per_step=timed, table_bytes=table_bytes)
+    if profile and on_card:
+        result["profile"] = profile_run(
+            lambda: [fn(params, state, st, dev.next_key(200 + i)) for i in range(2)],
+            2 * YAGO_SPC, "yago_trace.json")
+    result["trained_serving"] = _yago_serving("trained table", params, sharding, score_fn, device)
+    return result
+
+
+def _scorer_fn(name: str, sharding: Sharding):
+    """A scorer of the wikikg2 step in TransE's place: p = 1 for a distance
+    scorer, its own defaults otherwise, bf16 scoring math."""
+    cls = getattr(scoring, name)
+    if issubclass(cls, scoring.MatrixDecompositionScoreFunction):
+        score_fn = cls(True, sharding, N_RELATION, DIM, seed=SEED)
+    else:
+        score_fn = cls(True, 1, sharding, N_RELATION, DIM, seed=SEED)
+    score_fn.compute_dtype = torch.bfloat16
+    return score_fn
+
+
+def _scorer_reference(score_fn, params: dict, sharding: Sharding, rel: torch.Tensor,
+                      head: torch.Tensor) -> torch.Tensor:
+    """Tail scores of (head, rel) queries against every local row of the
+    pair-major table, through ``score_triple`` over chunks of rows (the
+    plain per-triple form, not the broadcast one the top-k runs); padding
+    rows at -inf."""
+    table = params["entity_embedding"][0::2]
+    rows = table.shape[0]
+    cd = score_fn.compute_dtype
+    ref = torch.empty(len(rel), rows, dtype=torch.float32, device=table.device)
+    chunk = 1 << 19
+    with torch.inference_mode():
+        for i in range(len(rel)):
+            h = table[head[i].long()].to(cd)
+            for start in range(0, rows, chunk):
+                tails = table[start:start + chunk].to(cd)
+                n = tails.shape[0]
+                ref[i, start:start + n] = score_fn.score_triple(
+                    params, h.expand(n, -1), rel[i].expand(n), tails).float()
+    ref[:, int(sharding.shard_counts[0]):] = -float("inf")
+    return ref
+
+
+def _scorer_run(name: str, triples: np.ndarray, sharding: Sharding, gen: torch.Generator,
+                profile: bool, device: str) -> dict:
+    on_card = device == "cuda"
+    t = time.perf_counter()
+    score_fn = _scorer_fn(name, sharding)
+    module, sampler, pts = _training_setup(triples, sharding, score_fn)
+    params = score_fn.initial_params_device(device=device, generator=gen)
+    params["entity_embedding"] = optim.interleave_momentum(params["entity_embedding"])
+    sgd = optim.SGD(LR, momentum=MOMENTUM)
+    row = optim.RowSGDM(LR, momentum=MOMENTUM, interleaved=True)
+    state = trainer.init_optimizer_state(sgd, params, None, row,
+                                         n_logical=sharding.max_entity_per_shard)
+    batch = sampler.sample_batch(next(iter(sampler.epoch_index_blocks())))
+    cpu_params, cpu_state = _to(params, "cpu"), _to(state, "cpu")
+    if name in FP32_HELD:
+        initial = {"card": (trainer._clone(params), trainer._clone(state)),
+                   "cpu": (_to(params, "cpu"), _to(state, "cpu"))}
+    setup_s = time.perf_counter() - t
+    result = {"entity_row": score_fn.entity_row_size, "relation_row": score_fn.relation_row_size}
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated() if on_card else 0
+    reset_counts()
+    params, state, out = trainer.build_train_step(module, sgd, None, row, device=device)(
+        params, state, batch)
+    sync(device)
+    counts = read_counts()
+    if on_card:
+        expect_counts(f"{name} training step", counts, {"scatter_rows": 1})
+        result["host_step_peak_bytes"] = torch.cuda.max_memory_allocated() - base
+    result["host_step_launches"] = counts["scatter_rows"]
+    t = time.perf_counter()
+    cpu_params, cpu_state, cpu_out = trainer.build_train_step(module, sgd, None, row,
+                                                              device="cpu")(
+        cpu_params, cpu_state, batch)
+    cpu_s = time.perf_counter() - t
+    loss, cpu_loss = float(out["loss"]), float(cpu_out["loss"])
+    if not np.isfinite(loss) or abs(loss - cpu_loss) > 2.0**-8 * abs(cpu_loss):
+        raise AssertionError(f"{name} training loss {loss} on the card, {cpu_loss} on the CPU")
+    touched = torch.unique(torch.cat([torch.from_numpy(batch[k].reshape(-1).astype(np.int64))
+                                      for k in ("head", "tail", "negative")]))
+    held = "bf16"
+    if name in FP32_HELD:
+        result["bf16_step_gate_ratio"] = _gate_ratios(
+            (params, state), (cpu_params, cpu_state), touched, LR)
+        score_fn.compute_dtype = None
+        card32 = trainer.build_train_step(module, sgd, None, row, device=device)(
+            *initial["card"], batch)
+        cpu32 = trainer.build_train_step(module, sgd, None, row, device="cpu")(
+            *initial["cpu"], batch)
+        score_fn.compute_dtype = torch.bfloat16
+        errs = _hold_sparse(f"{name} fp32-scored step vs the CPU", card32[:2], cpu32[:2],
+                            touched, LR)
+        held = (f"fp32 scoring (bf16 step: max|err| / gate"
+                f" {', '.join(f'{k} {v:.3g}' for k, v in result['bf16_step_gate_ratio'].items())})")
+        del initial, card32, cpu32
+    else:
+        errs = _hold_sparse(f"{name} step vs the CPU", (params, state), (cpu_params, cpu_state),
+                            touched, LR)
+    del cpu_params, cpu_state
+    say("scorers", f"{name} (rows {score_fn.entity_row_size} / {score_fn.relation_row_size}):"
+        f" one host-fed step on the card vs the CPU ({cpu_s:.1f}s; set-up"
+        f" {setup_s:.1f}s): loss {loss:.6f} vs {cpu_loss:.6f}, held with {held}: max|err|"
+        f" {', '.join(f'{k} {v:.3g}' for k, v in errs.items())} over {len(touched)} touched rows;"
+        f" launches {counts['scatter_rows']} B3; peak"
+        f" {result.get('host_step_peak_bytes', 0) / 2**30:.2f} GiB above the tables")
+    result["host_step_vs_cpu"] = errs
+
+    dev = DeviceBatchSampler(pts, module.negative_sampler, shard_bs=SHARD_BS_TRAIN,
+                             batches_per_step=BPS, seed=SEED, positive_mode="runs")
+    form = dict(module=module, opt=sgd, ent=row, spc=WIKIKG2_SPC, params=params, state=state,
+                sampler=dev, pts=pts, want={"scatter_rows": 1},
+                kernels={"scatter_rows_kernel": 1}, phase="scorers", all_bits=True)
+    form["fn"] = trainer.build_device_train_step(module, sgd, dev, None, row,
+                                                 steps_per_call=WIKIKG2_SPC, device=device)
+    form["sampler_state"] = st = dev.state(device)
+    fn = form["fn"]
+    if on_card:
+        graph = _graph_equals_eager(name, form)
+        result.update(first_call_wrapper_launches=graph["first_call_wrapper_launches"],
+                      launches_per_call=graph["launches_per_call"],
+                      capture_s=graph["capture_s"], pool_bytes=graph["pool_bytes"],
+                      peak_bytes=graph["peak_bytes"])
+    else:
+        fn(params, state, st, dev.next_key(0))
+    timed = []
+    for i in range(2):
+        fn(params, state, st, dev.next_key(100 + 10 * i))  # warm-up
+        sync(device)
+        t = time.perf_counter()
+        for j in range(SCORER_TIMED_CALLS):
+            _, _, out = fn(params, state, st, dev.next_key(101 + 10 * i + j))
+        sync(device)
+        timed.append((time.perf_counter() - t) / (SCORER_TIMED_CALLS * WIKIKG2_SPC) * 1e3)
+    if not np.isfinite(float(out["loss"])):
+        raise AssertionError(f"{name}: loss {float(out['loss'])} after the timed calls")
+    result["ms_per_step"] = timed
+    if profile and on_card:
+        result["profile"] = profile_run(lambda: fn(params, state, st, dev.next_key(200)),
+                                        WIKIKG2_SPC, f"scorers_{name}_trace.json")
+
+    # Top-10 of 64 queries against every entity, served from the trained
+    # pair-major table.
+    rng = np.random.default_rng(SEED)
+    rel = torch.from_numpy(rng.integers(N_RELATION, size=SCORER_QUERIES)).to(device)
+    head = torch.from_numpy(rng.integers(sharding.max_entity_per_shard,
+                                         size=SCORER_QUERIES)).to(device)
+    topk = TopKQueryBessKGE(K, PlaceholderNegativeSampler("t"), score_fn, return_scores=True)
+    with torch.inference_mode():
+        got = topk.forward(params, rel, head=head)  # warm-up
+        sync(device)
+        t = time.perf_counter()
+        got = topk.forward(params, rel, head=head)
+        sync(device)
+        topk_ms = (time.perf_counter() - t) * 1e3
+    ref = _scorer_reference(score_fn, params, sharding, rel, head)
+    sure = _hold_topk(f"{name} top-{K}", got, ref, sharding, BF16_STEP_RTOL)
+    del ref
+    result.update(topk_ms=topk_ms, window=topk.window_size)
+    say("scorers", f"{name}: device-sampled ({WIKIKG2_SPC} steps per call) {timed[0]:.4f} /"
+        f" {timed[1]:.4f} ms per step over {SCORER_TIMED_CALLS} calls each; capture peak"
+        f" {result.get('peak_bytes', 0) / 2**30:.2f} GiB, graph pool"
+        f" {result.get('pool_bytes', 0) / 2**30:.2f} GiB; top-{K} of {SCORER_QUERIES} queries"
+        f" against {sharding.n_entity} entities {topk_ms:.1f} ms (window {topk.window_size}),"
+        f" equal to a score_triple full-table reference ({sure} with a clear 10th/11th gap)")
+    return result
+
+
+def scorers(gen: torch.Generator, profile: bool = False, device: str = "cuda") -> dict:
+    """DistMult, PairRE, TripleRE, BoxE, InterHT and TranS on the wikikg2
+    step at full width, one after another (``device`` "cpu" rehearses the
+    phase without the card's gates)."""
+    triples, sharding, _, _ = _wikikg2()
+    results = {}
+    for name in SCORERS:
+        results[name] = _scorer_run(name, triples, sharding, gen, profile, device)
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    return results
+
+
 def profile_steps(step, params, state, batches, trace: str) -> dict:
     """Device time by kernel and the device's busy share over a few host-fed
     steps (``torch.profiler``); the trace goes to chiprun_out/."""
@@ -2450,7 +2937,7 @@ def ptxas_report(names=("l1_distance", "dense_adamw")) -> None:
                 raise AssertionError(f"{k['name']} spills {k['spills']}")
 
 
-PHASES = ("training", "dense", "device", "packed")
+PHASES = ("training", "dense", "device", "packed", "yago", "scorers")
 
 
 def profiled_phases(argv) -> set:
@@ -2511,6 +2998,18 @@ def main() -> int:
     device = device_training(gen, profile="device" in profile)
     packed_run = packed_training(gen, profile="packed" in profile)
     ckpt = checkpoint_phase(gen)
+    torch.cuda.empty_cache()
+    yago_run = yago(gen, profile="yago" in profile)
+    torch.cuda.empty_cache()
+    scorer_runs = scorers(gen, profile="scorers" in profile)
+    results["dense_adamw_update"]["launches_yago"] = {
+        "host_step": yago_run["host_step_launches"],
+        "first_device_call": yago_run["device"]["first_call_wrapper_launches"],
+        "per_call_by_name": yago_run["device"]["launches_per_call"]}
+    results["scatter_rows"]["launches_scorers"] = {
+        name: {"host_step": r["host_step_launches"],
+               "first_device_call": r["first_call_wrapper_launches"],
+               "per_call_by_name": r["launches_per_call"]} for name, r in scorer_runs.items()}
 
     kernels = []
     for name, spec in KERNELS.items():
@@ -2536,6 +3035,9 @@ def main() -> int:
                          bound_ms_autograd_shape=t["bound"][0])
         if "library_kernel_ms" in r:
             entry["library_kernel_ms"] = r["library_kernel_ms"]
+        for key in ("launches_yago", "launches_scorers"):
+            if key in r:
+                entry[key] = r[key]
         if "ms_k2" in r:  # B8 at k = 2 beside the k = 3 numbers above
             entry.update(k=3, ms_k2=r["ms_k2"], plain_ms_k2=r["plain_ms_k2"],
                          library_ms_k2=r["library_ms_k2"], bound_ms_k2=r["bound_k2"][0],
@@ -2582,6 +3084,24 @@ def main() -> int:
     }), flush=True)
     print(json.dumps({"checkpoint": ckpt, "card": smi,
                       "training_adagrad": train_adagrad}), flush=True)
+    print(json.dumps({"yago": {
+        "serving_ms_per_batch": {k: yago_run[k]["ms_per_batch"]
+                                 for k in ("serving", "trained_serving")},
+        "serving_peak_bytes": {k: yago_run[k]["peak_bytes"] for k in ("serving", "trained_serving")},
+        "window": yago_run["serving"]["window"], "queries_per_batch": YAGO_QUERIES,
+        "training_ms_per_step": yago_run["ms_per_step"], "steps_per_call": YAGO_SPC,
+        "positives_per_step": YAGO_SHARD_BS * YAGO_BPS, "table_bytes": yago_run["table_bytes"],
+        "capture_s": yago_run["device"]["capture_s"],
+        "graph_pool_bytes": yago_run["device"]["pool_bytes"],
+        "graph_capture_peak_bytes": yago_run["device"]["peak_bytes"],
+        "host_step_vs_cpu": yago_run["host_step_vs_cpu"],
+        "busy_pct": yago_run.get("profile", {}).get("busy_pct"),
+        "deviations": ["one shard (the YAGO example: four)", "d = 128 (the example: 64)"],
+        "card": smi}}), flush=True)
+    print(json.dumps({"scorers": {name: {k: v for k, v in r.items() if k not in (
+        "first_call_wrapper_launches", "launches_per_call")} for name, r in scorer_runs.items()},
+        "steps_per_call": WIKIKG2_SPC, "positives_per_step": SHARD_BS_TRAIN * BPS,
+        "topk_queries": SCORER_QUERIES, "card": smi}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -895,3 +895,70 @@ def test_reshard_on_the_card_keeps_table_and_topk(cuda, tmp_path):
     assert l1_kernels.l1_scores_chunkmax.launches == 2 * -(-3000 // topk.window_size)
     assert torch.equal(got["topk_global_id"], want["topk_global_id"])
     assert torch.equal(got["topk_scores"], want["topk_scores"])
+
+
+# --------------------------------------------------------------------------
+# The scorers but ConvE (ROADMAP A11)
+
+BROADCAST_SCORERS = ("PairRE", "TripleRE", "BoxE", "InterHT", "TranS")
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("cls", BROADCAST_SCORERS)
+def test_blocked_window_scoring_on_the_card(cuda, monkeypatch, cls, bf16):
+    """Top-k of a broadcast scorer over windows scored in blocks of 5
+    queries equals, bit for bit, the top-k of one unblocked call per window
+    on the card (each score is computed on its own, whatever the block);
+    and the card's top-10 equals the CPU's, scores within 1e-5 (fp32) or
+    2^-7 (bf16 scores) x (|want| + max|want|), IDs away from ties."""
+    from besskge_tpu_torch import scoring
+
+    sharding = Sharding.create(3000, 1, seed=0)
+    score_fn = getattr(scoring, cls)(True, 1, sharding, 5, 64, seed=0)
+    if bf16:
+        score_fn.compute_dtype = torch.bfloat16
+    params = score_fn.initial_params(device=cuda)
+    rng = np.random.default_rng(3)
+    rel = torch.from_numpy(rng.integers(5, size=48)).to(cuda)
+    head = torch.from_numpy(rng.integers(3000, size=48)).to(cuda)
+    topk = TopKQueryBessKGE(10, PlaceholderNegativeSampler("t"), score_fn, return_scores=True,
+                            window_size=1024)
+    with torch.no_grad():
+        want = topk.forward(params, rel, head=head)
+        monkeypatch.setattr(bess, "BROADCAST_BUDGET", 5 * 1024 * score_fn.entity_row_size)
+        got = topk.forward(params, rel, head=head)
+        cpu = topk.forward({k: v.cpu() for k, v in params.items()}, rel.cpu(), head=head.cpu())
+    for key in want:
+        assert torch.equal(got[key], want[key]), key
+    scores, ids = want["topk_scores"].cpu(), want["topk_global_id"].cpu()
+    rtol = 2.0**-7 if bf16 else 1e-5
+    tol = rtol * (cpu["topk_scores"].abs() + cpu["topk_scores"].abs().max())
+    assert ((scores - cpu["topk_scores"]).abs() <= tol).all()
+    gap = (cpu["topk_scores"][:, :-1] - cpu["topk_scores"][:, 1:]).abs() > 2 * tol.max()
+    isolated = gap[:, 1:] & gap[:, :-1]  # positions 1..k-2 with a clear gap on both sides
+    assert torch.equal(ids[:, 1:-1][isolated], cpu["topk_global_id"][:, 1:-1][isolated])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pool_product_accumulates_in_fp32_on_the_card(cuda, dtype):
+    """DistMult's and ComplEx's shared-pool product keeps full fp32 on the
+    card whatever the caller set for TF32, and a bf16 product accumulates in
+    fp32: against a float64 product of the same operands, within 1e-5 of
+    the largest value (TF32 would miss by ~1e-3), or one bf16 rounding of
+    the result (2^-8 relative)."""
+    gen = torch.Generator(cuda).manual_seed(0)
+    a = torch.randn(512, 256, device=cuda, generator=gen).to(dtype)
+    b = torch.randn(4096, 256, device=cuda, generator=gen).to(dtype)
+    want = a.double() @ b.double().T
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        got = distance.dot_product_matrix(a, b)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    assert got.dtype == dtype and torch.backends.cuda.matmul.allow_tf32 == prev
+    err = (got.double() - want).abs()
+    if dtype == torch.float32:
+        assert err.max() <= 1e-5 * want.abs().max()
+    else:
+        assert (err <= 2.0**-8 * want.abs() + 1e-6 * want.abs().max()).all()

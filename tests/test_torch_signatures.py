@@ -235,18 +235,8 @@ UNPORTED_MEMBERS = {
     **{f"dataset.KGDataset.{n}": "A14" for n in ("build_ogbl_biokg", "build_ogbl_wikikg2",
                                                  "build_openbiolink", "build_yago310",
                                                  "from_dataframe")},
-    **{f"embedding.{n}": "A11" for n in ("init_KGE_normal", "init_uniform", "init_uniform_norm",
-                                          "init_xavier_norm", "init_zeros")},
-    "loss.MarginRankingLoss": "A11",
     "negative_sampler.TripleBasedShardedNegativeSampler": "A14",
-    **{f"scoring.{c}.mesh_axis": "A11" for c in ("BaseScoreFunction",
-                                                  "DistanceBasedScoreFunction", "RotatE",
-                                                  "TransE")},
-    **{f"scoring.{n}": "A11" for n in ("BoxE", "ComplEx", "ConvE", "DistMult", "InterHT",
-                                        "MatrixDecompositionScoreFunction", "PairRE", "TranS",
-                                        "TripleRE")},
-    "utils.as_complex_pair": "A11",
-    "utils.interleaved_to_blocked": "A11",
+    "scoring.ConvE": "A11",
     "utils.get_entity_filter": "A14",
 }
 
