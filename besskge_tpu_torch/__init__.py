@@ -20,14 +20,21 @@ through ``trainer.build_train_step`` and
 (``device_sampler.DeviceBatchSampler``, ``trainer.build_device_train_step``:
 one CUDA graph per call of ``steps_per_call`` steps on a card); checkpoints
 in the JAX package's formats, with resharding (``checkpoint``,
-``Trainer.save``).
+``Trainer.save``); evaluation and inference: candidate-set validation
+(``bess.ScoreMovingBessKGE`` with a
+``negative_sampler.TripleBasedShardedNegativeSampler``, through
+``bess.build_bess_forward`` or ``eval_loop.run_device_eval``), candidate-set
+top-k, and filtered all-scores evaluation (``pipeline.AllScoresPipeline``);
+the dataset builders (``dataset.KGDataset.build_*``).
 """
 
 __version__ = "0.1.0"
 
 from besskge_tpu_torch.checkpoint import load_checkpoint, save_checkpoint  # noqa: E402
 from besskge_tpu_torch.device_sampler import DeviceBatchSampler  # noqa: E402
+from besskge_tpu_torch.eval_loop import run_device_eval  # noqa: E402
 from besskge_tpu_torch.negative_sampler import TypeBasedShardedNegativeSampler  # noqa: E402
+from besskge_tpu_torch.pipeline import AllScoresPipeline  # noqa: E402
 from besskge_tpu_torch.trainer import (  # noqa: E402
     Trainer,
     build_device_train_step,
@@ -35,11 +42,13 @@ from besskge_tpu_torch.trainer import (  # noqa: E402
 )
 
 __all__ = [
+    "AllScoresPipeline",
     "DeviceBatchSampler",
     "Trainer",
     "TypeBasedShardedNegativeSampler",
     "build_device_train_step",
     "build_train_step",
     "load_checkpoint",
+    "run_device_eval",
     "save_checkpoint",
 ]

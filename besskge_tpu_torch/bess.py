@@ -1,37 +1,47 @@
-"""BESS modules on one device (torch): training forward and top-k serving.
+"""BESS modules on one device (torch): training and evaluation forwards,
+top-k serving and all-scores inference.
 
 Counterpart of ``besskge_tpu/bess.py``:
 
-* :class:`BessKGE` and :class:`EmbeddingMovingBessKGE` score one
-  micro-batch of positives against their (shared) negatives and return the
-  loss: the forward of the training step
-  (:func:`besskge_tpu_torch.trainer.build_train_step`);
+* :class:`BessKGE` scores one micro-batch of positives against their
+  negatives and returns the loss, the scores and, with an ``evaluation``,
+  ranks and metrics. :class:`EmbeddingMovingBessKGE` scores the negatives
+  where the queries are (the training forward,
+  :func:`besskge_tpu_torch.trainer.build_train_step`);
+  :class:`ScoreMovingBessKGE` where the negatives are, with the positives of
+  the home-scored halves riding back in an extra score column (candidate-set
+  evaluation); :func:`build_bess_forward` runs either over the
+  ``(bps, n_shard, ...)`` batches of the batch sampler, its micro-batches
+  fused with ``torch.func.vmap``;
 * :class:`TopKQueryBessKGE` completes (h, r, ?) / (?, r, t) queries against
-  every entity by sliding a window over the local entity table, keeping a
-  running top-(k+1), and :func:`build_topk_forward` runs it over the
-  ``(bps, n_shard, ...)`` batches of the batch sampler.
+  every entity, or against candidate sets, by sliding a window over the
+  local entity table (or the candidates), keeping a running top-(k+1), and
+  :func:`build_topk_forward` runs it over the batches;
+* :class:`AllScoresBESS` scores queries against one window of the entity
+  table, and :func:`build_allscores_forward` runs it over the batches
+  (:class:`besskge_tpu_torch.pipeline.AllScoresPipeline` stitches the
+  windows).
 
 Only the single-device semantics (``axis_name=None``, ``n_shard == 1``) are
 ported: every collective is the identity. A mesh raises
-``NotImplementedError`` (ROADMAP A15). ``ScoreMovingBessKGE``, candidate-set
-queries (a ``TripleBasedShardedNegativeSampler``) and ``AllScoresBESS`` are
-not ported yet (ROADMAP A14).
+``NotImplementedError`` (ROADMAP A15).
 
 The entity table may be in any layout the optimizers keep: plain, pair- or
 treble-major fp32, row-pair-packed 16-bit, or its triplet or quintuplet
 store (:mod:`besskge_tpu_torch.packed`); every read of it goes through
-``packed.take_rows``/``take_contiguous_rows``, and a top-k window over a
-packed table starts and ends on even rows (an odd window gathers).
+``packed.take_rows``/``take_contiguous_rows``, and a window over a packed
+table starts and ends on even rows (an odd window gathers).
 
 For TransE with L1 scoring the default chunk merge scores each window with
 one launch of the fused L1 kernel (scores + mask + 128-column chunk maxima,
-:func:`besskge_tpu_torch.ops.distance.l1_scores_chunkmax`); the sort merge
-scores it through ``score_tails``/``score_heads`` and the L1 distance kernel.
-DistMult and ComplEx score a window with one product. The scorers that
-broadcast each query against the pool (``score_fn.broadcasts_pool``: PairRE,
-TripleRE, BoxE, InterHT, TranS) would materialise (queries, window, row)
-intermediates, which XLA fuses away and eager PyTorch does not: a window is
-scored in blocks of queries, each intermediate at most
+:func:`besskge_tpu_torch.ops.distance.l1_scores_chunkmax`); the sort merge,
+candidate sets shared by all queries and the all-scores windows score
+through ``score_tails``/``score_heads`` and the L1 distance kernel. DistMult
+and ComplEx score a window with one product. The scorers that broadcast each
+query against the pool (``score_fn.broadcasts_pool``: PairRE, TripleRE,
+BoxE, InterHT, TranS) would materialise (queries, window, row)
+intermediates, which XLA fuses away and eager PyTorch does not: a top-k
+window is scored in blocks of queries, each intermediate at most
 :data:`BROADCAST_BUDGET` elements, with the same scores as one call.
 """
 
@@ -48,6 +58,7 @@ from besskge_tpu_torch.metric import Evaluation
 from besskge_tpu_torch.negative_sampler import (
     PlaceholderNegativeSampler,
     ShardedNegativeSampler,
+    TripleBasedShardedNegativeSampler,
 )
 from besskge_tpu_torch.ops.distance import l1_scores_chunkmax as ops_l1_scores_chunkmax
 from besskge_tpu_torch.packed import (
@@ -66,8 +77,12 @@ __all__ = [
     "BAD_NEGATIVE_SCORE",
     "BessKGE",
     "EmbeddingMovingBessKGE",
+    "ScoreMovingBessKGE",
     "TopKQueryBessKGE",
+    "AllScoresBESS",
+    "build_bess_forward",
     "build_topk_forward",
+    "build_allscores_forward",
 ]
 
 #: Sentinel added to masked-out negative scores (reference ``bess.py:31``).
@@ -88,6 +103,23 @@ def _cast_gathered(emb: torch.Tensor, cd: Optional[torch.dtype]) -> torch.Tensor
     return emb.to(cd)
 
 
+def _row_cap(t_flat: torch.Tensor, n_rows: int) -> int:
+    """Logical rows that a table of this layout backs: 2 per physical row of
+    a packed table (2 per 3 in the triplet store, 2 per 5 in the quintuplet
+    one), 1 per 2 or 3 of a pair- or treble-major one, else 1 per row."""
+    if is_tripled(t_flat, n_rows):
+        return 2 * (t_flat.shape[0] // 3)
+    if is_quintupled(t_flat, n_rows):
+        return 2 * (t_flat.shape[0] // 5)
+    if is_packed(t_flat):
+        return 2 * t_flat.shape[0]
+    if is_paired(t_flat, n_rows):
+        return t_flat.shape[0] // 2
+    if is_trebled(t_flat, n_rows):
+        return t_flat.shape[0] // 3
+    return t_flat.shape[0]
+
+
 def _no_mesh(axis_name: Optional[str]) -> None:
     if axis_name is not None:
         raise NotImplementedError(
@@ -103,8 +135,8 @@ class BessKGE(ABC):
     :param negative_sampler: sharded negative sampler (defines layouts).
     :param score_fn: scoring function (owns table shapes).
     :param loss_fn: loss, required for training.
-    :param evaluation: must be ``None``: metrics of training micro-batches
-        are not ported yet (ROADMAP A14).
+    :param evaluation: metrics of each micro-batch (ranks of the positive
+        among its negatives, computed without a gradient).
     :param return_scores: return positive/negative scores.
     :param augment_negative: use in-batch heads/tails as extra negatives.
     :param axis_name: must be ``None`` (one device; requires ``n_shard == 1``).
@@ -121,26 +153,33 @@ class BessKGE(ABC):
         axis_name: Optional[str] = None,
     ) -> None:
         _no_mesh(axis_name)
-        if evaluation is not None:
-            raise NotImplementedError(
-                "metrics in BessKGE.forward are not ported yet (ROADMAP A14)"
-            )
         self.sharding = score_fn.sharding
         self.negative_sampler = negative_sampler
         self.score_fn = score_fn
         self.loss_fn = loss_fn
+        self.evaluation = evaluation
         self.return_scores = return_scores
         self.augment_negative = augment_negative
         self.axis_name = axis_name
-        if not (loss_fn or return_scores):
+        if not (loss_fn or evaluation or return_scores):
             raise ValueError(
-                "Nothing to return. At least one of loss_fn or return_scores"
-                " needs to be != None"
+                "Nothing to return. At least one of loss_fn, evaluation or"
+                " return_scores needs to be != None"
             )
-        if augment_negative and not score_fn.negative_sample_sharing:
-            raise ValueError("Negative augmentation requires negative sample sharing")
-        if negative_sampler.flat_negative_format and not score_fn.negative_sample_sharing:
-            raise ValueError("Using flat negative format requires negative sample sharing")
+        if augment_negative:
+            if not score_fn.negative_sample_sharing:
+                raise ValueError("Negative augmentation requires negative sample sharing")
+            if isinstance(self, ScoreMovingBessKGE):
+                raise ValueError("ScoreMovingBessKGE does not support negative augmentation")
+        if negative_sampler.flat_negative_format:
+            if not score_fn.negative_sample_sharing:
+                raise ValueError("Using flat negative format requires negative sample sharing")
+        elif score_fn.negative_sample_sharing and isinstance(
+            negative_sampler, TripleBasedShardedNegativeSampler
+        ):
+            raise ValueError(
+                "Negative sample sharing cannot be used with non-flat triple-specific negatives"
+            )
         if self.sharding.n_shard != 1:
             raise ValueError("axis_name=None requires n_shard == 1")
         self.entity_embedding_size: int = score_fn.entity_row_size
@@ -169,14 +208,14 @@ class BessKGE(ABC):
         rng: Any = None,
         gathered_emb: Optional[torch.Tensor] = None,
     ) -> Dict[str, torch.Tensor]:
-        """One micro-batch: gather → score → loss (reference
+        """One micro-batch: gather → score → loss/metrics (reference
         ``bess.py:117-276``). Free of data-dependent Python branches, so it
         runs under ``torch.func.vmap`` over micro-batches.
 
         ``params["entity_embedding"]`` is the local table (plain or
         interleaved); ``gathered_emb`` optionally supplies the gathered
-        entity rows (see :meth:`gather_plan`). ``triple_mask`` is taken for
-        the batch layout's sake and not used: it only masks metrics.
+        entity rows (see :meth:`gather_plan`). ``triple_mask`` masks the
+        metrics (padding triples count 0).
         ``train`` and ``rng`` (a dropout stream) change nothing for the
         scorers ported so far, as in the JAX package; the one scorer with
         dropout, ConvE, waits on ROADMAP A11.
@@ -239,6 +278,15 @@ class BessKGE(ABC):
             out["loss"] = self.loss_fn(
                 positive_score.float(), negative_score.float(), triple_weight.float()
             )
+        if self.evaluation is not None:
+            t_mask = triple_mask.reshape(-1) if triple_mask is not None else None
+            # Ranks take no gradient (the JAX package's stop_gradient).
+            ranks = self.evaluation.ranks_from_scores(
+                positive_score.detach(), negative_score.detach()
+            )
+            if self.evaluation.return_ranks:
+                out["ranks"] = ranks
+            out["metrics"] = self.evaluation.stacked_metrics_from_ranks(ranks, t_mask)
         return out
 
     @abstractmethod
@@ -343,21 +391,161 @@ class EmbeddingMovingBessKGE(BessKGE):
         return positive_score, negative_score
 
 
+class ScoreMovingBessKGE(BessKGE):
+    """Score negatives on the shard that stores them: queries are replicated
+    with AllGathers, each shard scores its local negatives against all
+    queries, and an AllToAll returns the scores (reference
+    ``besskge/bess.py:471-603``). On one device every collective is the
+    identity, and the arithmetic is the JAX package's: the positives that
+    the JAX package scores on the tail's home shard ("t", and the
+    tail-corrupted half of "ht") are packed into a trailing column of the
+    score block, go through the (identity) AllToAll with it and are summed
+    back out of it, so they are cast to the scores' dtype on the way, as
+    there. No local sampling or augmentation.
+    """
+
+    def score_batch(self, params, head, relation, tail, negative, train=False, rng=None,
+                    gathered_emb=None):
+        n_shard, ppp = relation.shape
+        bs = n_shard * ppp
+        d = self.entity_embedding_size
+        scheme = self.negative_sampler.corruption_scheme
+        flat = self.negative_sampler.flat_negative_format
+        b_neg, n_neg = negative.shape[1], negative.shape[2]
+
+        if gathered_emb is None:
+            gathered_emb = take_rows(
+                params["entity_embedding"],
+                self.gather_plan(head, tail, negative),
+                n_logical=self.sharding.max_entity_per_shard,
+            )
+        emb = _cast_gathered(gathered_emb, self.score_fn.compute_dtype)
+        head_emb = emb[:, :ppp]
+        tail_emb = emb[:, ppp : 2 * ppp]
+        neg_emb = emb[:, 2 * ppp :].reshape(n_shard, b_neg, n_neg, d)
+        if isinstance(self.negative_sampler, TripleBasedShardedNegativeSampler) and flat:
+            # Candidate sets are replicated along the destination axis;
+            # score one copy only.
+            neg_emb = neg_emb[0:1]
+
+        # One device: the AllGathers add a unit query-shard axis, and this
+        # device is shard 0.
+        relation_all = relation[None]  # (S_q, S, ppp)
+        pos_local = None
+        pos_col = None
+
+        def home_pos_column(pos_home, col_offset, col_width):
+            """Home-shard positives (S_dest, col_width) in the (S_dest, bs, 1)
+            ride-along column, at this device's block (rows ``col_offset`` on)."""
+            zeros = pos_home.new_zeros
+            return torch.cat([
+                zeros((n_shard, col_offset, 1)),
+                pos_home.reshape(n_shard, col_width, 1),
+                zeros((n_shard, bs - col_offset - col_width, 1)),
+            ], dim=1)
+
+        if scheme == "h":
+            # (query shard, home shard, ...) order of the gathered tails.
+            tail_all = tail_emb[None].transpose(0, 1)
+            negative_score = self.score_fn.score_heads(
+                params, neg_emb.reshape(-1, n_neg, d), relation_all.reshape(-1),
+                tail_all.reshape(-1, d),
+            )
+            # This device's own tails sit at row 0 of the gathered tensor.
+            pos_local = self.score_fn.score_triple(
+                params, head_emb.reshape(bs, d), relation.reshape(bs),
+                tail_all[0].reshape(bs, d),
+            )
+        elif scheme == "t":
+            head_all = head_emb[None]  # (S_q, S_home, ppp, d)
+            negative_score = self.score_fn.score_tails(
+                params, head_all.reshape(-1, d), relation_all.reshape(-1),
+                neg_emb.reshape(-1, n_neg, d),
+            )
+            # Tails of every query device's block 0 live here; their heads
+            # and relations arrived with the AllGathers.
+            pos_home = self.score_fn.score_triple(
+                params, head_all[:, 0].reshape(bs, d), relation_all[:, 0].reshape(bs),
+                tail_emb.reshape(bs, d),
+            )
+            pos_col = home_pos_column(pos_home.reshape(n_shard, ppp), 0, ppp)
+        elif scheme == "ht":
+            cut = ppp // 2
+            rel1 = relation_all[:, :, :cut].reshape(-1)
+            rel2 = relation_all[:, :, cut:].reshape(-1)
+            tail_all = tail_emb[:, :cut][None].transpose(0, 1)  # (S_q, S_home, cut, d)
+            head_all = head_emb[:, cut:][None]  # (S_q, S_home, ppp - cut, d)
+            if flat:
+                neg_h = neg_emb[:, 0]
+                neg_t = neg_emb[:, 1]
+            else:
+                ne = neg_emb.reshape(n_shard, n_shard, ppp, n_neg, d)
+                neg_h = ne[:, :, :cut].reshape(-1, n_neg, d)
+                neg_t = ne[:, :, cut:].reshape(-1, n_neg, d)
+            ns_h = self.score_fn.score_heads(params, neg_h, rel1, tail_all.reshape(-1, d))
+            ns_t = self.score_fn.score_tails(params, head_all.reshape(-1, d), rel2, neg_t)
+            negative_score = torch.cat([
+                ns_h.reshape(n_shard, n_shard, cut, -1),
+                ns_t.reshape(n_shard, n_shard, ppp - cut, -1),
+            ], dim=2).reshape(n_shard * bs, -1)
+            # Head-corrupted half: own tails are in the gathered tensor.
+            pos_local = self.score_fn.score_triple(
+                params, head_emb[:, :cut].reshape(-1, d), relation[:, :cut].reshape(-1),
+                tail_all[0].reshape(-1, d),
+            ).reshape(n_shard, cut)
+            # Tail-corrupted half: scored here (the tails' home), shipped back.
+            pos_home = self.score_fn.score_triple(
+                params, head_all[:, 0].reshape(-1, d), relation_all[:, 0][:, cut:].reshape(-1),
+                tail_emb[:, cut:].reshape(-1, d),
+            )
+            pos_col = home_pos_column(pos_home.reshape(n_shard, ppp - cut), cut, ppp - cut)
+        else:
+            raise ValueError(f"Unsupported corruption scheme {scheme}")
+
+        # Scores back to the queries' device (source-shard-major columns),
+        # the home-scored positives in a trailing column; the AllToAll is
+        # the identity.
+        negative_score = negative_score.reshape(n_shard, bs, -1)
+        if pos_col is not None:
+            negative_score = torch.cat([negative_score, pos_col.to(negative_score.dtype)], dim=2)
+        negative_score = negative_score.transpose(0, 1)  # (bs, S_src, .)
+        if pos_col is not None:
+            # Each row's column is zero except at its tail's home shard.
+            pos_recv = negative_score[..., -1].sum(dim=1)  # (bs,)
+            negative_score = negative_score[..., :-1]
+        negative_score = negative_score.reshape(bs, -1)
+
+        if scheme == "h":
+            positive_score = pos_local
+        elif scheme == "t":
+            positive_score = pos_recv
+        else:  # "ht": the local head half and the received tail half
+            positive_score = torch.cat(
+                [pos_local, pos_recv.reshape(n_shard, ppp)[:, cut:].to(pos_local.dtype)], dim=1
+            ).reshape(bs)
+        return positive_score, negative_score
+
+
 class TopKQueryBessKGE:
-    """Top-k completion of (h, r, ?) / (?, r, t) queries against all entities
-    (reference ``besskge/bess.py:606-921``). Inference only.
+    """Top-k completion of (h, r, ?) / (?, r, t) queries against all
+    entities or candidate sets (reference ``besskge/bess.py:606-921``).
+    Inference only.
 
     :param k: number of completions to return per query.
-    :param candidate_sampler: :class:`PlaceholderNegativeSampler`: score
-        against every entity.
+    :param candidate_sampler: :class:`PlaceholderNegativeSampler` to score
+        against every entity, or a :class:`TripleBasedShardedNegativeSampler`
+        with ``mask_on_gather=True`` for candidate sets (shared by all
+        queries, ``N == 1``, with sample sharing; one per query without).
     :param score_fn: scoring function.
     :param evaluation: optional metrics (needs ground truth).
     :param return_scores: return the top-k scores too.
     :param window_size: entities scored per query per loop iteration, or
         ``None`` (default) to auto-size as the JAX package does:
         ``min(cap, local rows)`` rounded down to a 128-multiple, with
-        ``cap`` 131072 for pure-cdist L1 models (TransE and RotatE: the
-        fused window path) and 32768 for every other scorer.
+        ``cap`` 131072 for pure-cdist L1 models with sample sharing (TransE
+        and RotatE: the fused window path) and 32768 for every other
+        scorer. Over candidate sets the window is clamped to the candidate
+        width rounded up to 128.
     :param merge_mode: ``"sort"`` takes the top-(k+1) of the whole window
         plus the running best; ``"chunk"`` first keeps only the k+1
         128-column chunks with the largest maxima (exact: a chunk holding a
@@ -385,21 +573,6 @@ class TopKQueryBessKGE:
             raise NotImplementedError(
                 "n_shard > 1 needs the multi-device path (ROADMAP A15)"
             )
-        if not isinstance(candidate_sampler, PlaceholderNegativeSampler):
-            raise NotImplementedError(
-                "only the all-entities PlaceholderNegativeSampler is ported;"
-                " candidate sets follow with ROADMAP A14"
-            )
-        if not score_fn.negative_sample_sharing:
-            raise ValueError(
-                "Using flat negative format requires negative sample sharing"
-            )
-        if candidate_sampler.corruption_scheme not in ("h", "t"):
-            raise ValueError(
-                "TopKQueryBessKGE only supports 'h', 't' corruption scheme"
-            )
-        if merge_mode not in ("auto", "sort", "chunk"):
-            raise ValueError(f"Unknown merge_mode {merge_mode!r}")
         self.negative_sampler = candidate_sampler
         self.score_fn = score_fn
         self.evaluation = evaluation
@@ -409,15 +582,39 @@ class TopKQueryBessKGE:
             rows = self.sharding.max_entity_per_shard
             fused_l1 = (
                 getattr(score_fn, "scoring_norm", None) == 1
+                and score_fn.negative_sample_sharing
                 and type(score_fn).distance_query_vector
                 is not DistanceBasedScoreFunction.distance_query_vector
             )
             cap = 131072 if fused_l1 else 32768
             window_size = max(min(cap, rows) // CHUNK * CHUNK, min(rows, CHUNK))
         self.window_size = window_size
+        if merge_mode not in ("auto", "sort", "chunk"):
+            raise ValueError(f"Unknown merge_mode {merge_mode!r}")
         self.merge_mode = merge_mode
         self.axis_name = axis_name
+        if candidate_sampler.flat_negative_format:
+            if not score_fn.negative_sample_sharing:
+                raise ValueError(
+                    "Using flat negative format requires negative sample sharing"
+                )
+        elif score_fn.negative_sample_sharing:
+            raise ValueError(
+                "Negative sample sharing cannot be used with non-flat"
+                " triple-specific negatives"
+            )
+        if candidate_sampler.corruption_scheme not in ("h", "t"):
+            raise ValueError(
+                "TopKQueryBessKGE only supports 'h', 't' corruption scheme"
+            )
+        if isinstance(candidate_sampler, TripleBasedShardedNegativeSampler):
+            if not candidate_sampler.mask_on_gather:
+                raise ValueError(
+                    "TopKQueryBessKGE requires mask_on_gather=True in the"
+                    " candidate_sampler"
+                )
         self.entity_embedding_size = score_fn.entity_row_size
+        self._maps: Dict[torch.device, Tuple[torch.Tensor, torch.Tensor]] = {}
 
     def forward(
         self,
@@ -436,13 +633,12 @@ class TopKQueryBessKGE:
         :param relation: (shard_bs,) relation IDs.
         :param head/tail: (shard_bs,) local ID of the known entity; the other
             is the ground truth (global IDs) or absent.
-        :param negative: must be ``None`` (all entities): candidate sets,
-            with their ``negative_mask``, wait on ROADMAP A14.
+        :param negative: (n_shard_dest, B, pad) local candidate IDs (the
+            gathering layout), or ``None`` to score every local entity.
         :param triple_mask: (shard_bs,) real (non-padding) queries.
+        :param negative_mask: (n_shard_dest, B, pad) real candidates.
         :param train: unused by the scorers ported so far, as ``rng``.
         """
-        if negative is not None or negative_mask is not None:
-            raise NotImplementedError("candidate-set queries are not ported yet (ROADMAP A14)")
         sharding = self.sharding
         n_rows = sharding.max_entity_per_shard
         table = params["entity_embedding"]
@@ -452,7 +648,21 @@ class TopKQueryBessKGE:
         n_best = self.k + 1
         scheme = self.negative_sampler.corruption_scheme
         window = self.window_size
-        n_candidate = n_rows
+
+        candidate = mask_rows = None
+        if negative is None:
+            n_candidate = n_rows
+        else:
+            if negative_mask is None:
+                raise ValueError("Candidate sets require a negative_mask")
+            if self.negative_sampler.flat_negative_format:
+                negative, negative_mask = negative[0], negative_mask[0]
+            candidate = negative.reshape(-1, negative.shape[-1]).long()
+            mask_rows = negative_mask.reshape(-1, negative_mask.shape[-1])
+            n_candidate = candidate.shape[-1]
+            # Candidate sets are far narrower than the all-entities window:
+            # each iteration gathers and scores only real candidates.
+            window = min(window, max(-(-n_candidate // CHUNK) * CHUNK, 1))
 
         known = take_rows(table, tail if scheme == "h" else head, n_rows)
         cd = self.score_fn.compute_dtype
@@ -461,26 +671,13 @@ class TopKQueryBessKGE:
         # All-entities mode slides over contiguous local rows. The final
         # window clamps its start to stay in range; rows it re-reads from the
         # previous window are masked invalid (idx < i*W), so the merge never
-        # sees an entity twice. A window wider than the table, or an odd
-        # window over a packed table (whose windows start and end on packed
-        # rows), gathers instead. The logical row cap: a packed table backs
-        # 2 logical rows per physical row (2 per 3 in the triplet store, 2
-        # per 5 in the quintuplet one), a pair- or treble-major one 1 per 2
-        # or 3.
-        packed_tab = is_packed(t_flat)
-        if is_tripled(t_flat, n_rows):
-            row_cap = 2 * (t_flat.shape[0] // 3)
-        elif is_quintupled(t_flat, n_rows):
-            row_cap = 2 * (t_flat.shape[0] // 5)
-        elif packed_tab:
-            row_cap = 2 * t_flat.shape[0]
-        elif is_paired(t_flat, n_rows):
-            row_cap = t_flat.shape[0] // 2
-        elif is_trebled(t_flat, n_rows):
-            row_cap = t_flat.shape[0] // 3
-        else:
-            row_cap = t_flat.shape[0]
-        contiguous = window <= row_cap and not (packed_tab and window % 2)
+        # sees an entity twice. Candidate sets, a window wider than the
+        # table, or an odd window over a packed table (whose windows start
+        # and end on packed rows) gather instead.
+        row_cap = _row_cap(t_flat, n_rows)
+        contiguous = (
+            candidate is None and window <= row_cap and not (is_packed(t_flat) and window % 2)
+        )
         n_chunk = window // CHUNK
         use_chunk_merge = (
             self.merge_mode in ("auto", "chunk")
@@ -488,7 +685,8 @@ class TopKQueryBessKGE:
             and n_chunk > n_best
         )
         fused_query = None
-        if use_chunk_merge and contiguous and getattr(self.score_fn, "scoring_norm", None) == 1:
+        if (use_chunk_merge and contiguous and self.score_fn.negative_sample_sharing
+                and getattr(self.score_fn, "scoring_norm", None) == 1):
             fused_query = self.score_fn.distance_query_vector(params, known, relation, scheme)
             if fused_query is not None and cd is not None:
                 fused_query = fused_query.to(cd)
@@ -498,7 +696,7 @@ class TopKQueryBessKGE:
             best: Tuple[torch.Tensor, torch.Tensor],
         ) -> Tuple[torch.Tensor, torch.Tensor]:
             curr_score, curr_idx = best
-            idx = idx.expand_as(score)  # a view: the window's IDs are shared
+            idx = idx.expand_as(score)  # a view where the window's IDs are shared
             if use_chunk_merge:
                 rows = score.shape[0]
                 s3 = score.reshape(rows, n_chunk, CHUNK)
@@ -525,36 +723,42 @@ class TopKQueryBessKGE:
         for i in range(-(-n_candidate // window)):
             if contiguous:
                 start = min(i * window, row_cap - window)
-                idx = start + positions
+                idx = (start + positions)[None]
                 valid = (idx >= i * window) & (idx < n_candidate)
                 rows = take_contiguous_rows(table, start, window, n_rows)
                 if fused_query is not None:
                     score, chunk_max = ops_l1_scores_chunkmax(
-                        fused_query, _cast_gathered(rows, cd), valid,
+                        fused_query, _cast_gathered(rows, cd), valid[0],
                         chunk=CHUNK, bad=BAD_NEGATIVE_SCORE,
                     )
-                    best = merge(score, idx[None], chunk_max, best)
+                    best = merge(score, idx, chunk_max, best)
                     continue
+                rows = rows[None]
             else:
-                idx = i * window + positions
-                valid = idx < n_candidate
-                idx = torch.where(valid, idx, n_candidate - 1)
+                slide = (i * window + positions)[None]
+                valid = slide < n_candidate
+                slide = torch.where(valid, slide, n_candidate - 1)
+                if candidate is None:
+                    idx = slide
+                else:
+                    # (1 or queries, window) candidates of this iteration
+                    valid = valid & gather_indices(mask_rows, slide)
+                    idx = gather_indices(candidate, slide)
                 rows = take_rows(table, idx, n_rows)
-            emb = _cast_gathered(rows, cd)[None]
+            emb = _cast_gathered(rows, cd)
             score = self._score_window(params, relation, known, emb, scheme)
             # fp32 merge regardless of the score dtype.
             score = score.to(torch.float32) + BAD_NEGATIVE_SCORE * (~valid).to(torch.float32)
-            best = merge(score, idx[None], None, best)
+            best = merge(score, idx, None, best)
         best_score, best_idx = best
 
         # One shard: the return AllToAll is the identity.
         best_score = best_score.reshape(1, shard_bs, n_best)
         best_idx = best_idx.reshape(1, shard_bs, n_best)
         # Kill padding-entity scores.
-        counts = torch.as_tensor(sharding.shard_counts, device=device)[:, None, None]
+        counts, s2e = self._sharding_maps(device)
         best_score = best_score + BAD_NEGATIVE_SCORE * (best_idx >= counts).to(best_score.dtype)
         # Local -> global IDs through the sharding map.
-        s2e = torch.as_tensor(sharding.shard_and_idx_to_entity, device=device)
         safe_idx = torch.clamp(best_idx, max=n_rows - 1)
         best_global = gather_indices(s2e, safe_idx.reshape(1, -1)).reshape(1, shard_bs, n_best)
         best_global = best_global.transpose(0, 1).reshape(shard_bs, -1)
@@ -577,15 +781,28 @@ class TopKQueryBessKGE:
             out["metrics"] = self.evaluation.stacked_metrics_from_ranks(ranks, triple_mask)
         return out
 
+    def _sharding_maps(self, device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The shard row counts (n_shard, 1, 1) and the local -> global ID map
+        on ``device``, copied there once (the map has a row per entity:
+        10 MB at wikikg2's 2.5M, whose copy from pageable host memory would
+        otherwise wait on the device at every micro-batch)."""
+        if device not in self._maps:
+            self._maps[device] = (
+                torch.as_tensor(self.sharding.shard_counts, device=device)[:, None, None],
+                torch.as_tensor(self.sharding.shard_and_idx_to_entity, device=device),
+            )
+        return self._maps[device]
+
     def _score_window(
         self, params: Dict[str, torch.Tensor], relation: torch.Tensor, known: torch.Tensor,
         emb: torch.Tensor, scheme: str,
     ) -> torch.Tensor:
-        """(queries, window) scores of the window's rows ``emb`` (1, W, row):
-        one call, or, for a scorer that broadcasts queries against the pool,
-        one call per block of at most ``BROADCAST_BUDGET // (W · row)``
-        queries. Each (query, candidate) score is computed on its own, so
-        the blocks give the scores of one call."""
+        """(queries, window) scores of the window's rows ``emb``: (1, W, row)
+        shared by all queries, or (queries, W, row), one set per query. One
+        call, or, for a scorer that broadcasts queries against the pool, one
+        call per block of at most ``BROADCAST_BUDGET // (W · row)`` queries.
+        Each (query, candidate) score is computed on its own, so the blocks
+        give the scores of one call."""
         n_query = relation.shape[0]
         block = n_query
         if self.score_fn.broadcasts_pool:
@@ -593,11 +810,92 @@ class TopKQueryBessKGE:
         parts = []
         for q in range(0, n_query, block):
             rel, kn = relation[q : q + block], known[q : q + block]
+            emb_q = emb[q : q + block] if emb.shape[0] > 1 else emb
             if scheme == "h":
-                parts.append(self.score_fn.score_heads(params, emb, rel, kn))
+                parts.append(self.score_fn.score_heads(params, emb_q, rel, kn))
             else:
-                parts.append(self.score_fn.score_tails(params, kn, rel, emb))
+                parts.append(self.score_fn.score_tails(params, kn, rel, emb_q))
         return parts[0] if len(parts) == 1 else torch.cat(parts)
+
+
+class AllScoresBESS:
+    """Scores of (h, r, ?) / (?, r, t) queries against one window of the
+    entity table (reference ``besskge/bess.py:924-1062``), on one device;
+    :class:`besskge_tpu_torch.pipeline.AllScoresPipeline` stitches the
+    windows into the full score matrix. Inference only.
+
+    :param candidate_sampler: a :class:`PlaceholderNegativeSampler`.
+    :param score_fn: scoring function, with sample sharing.
+    :param window_size: entities scored per call.
+    :param axis_name: must be ``None`` (one device).
+    """
+
+    def __init__(
+        self,
+        candidate_sampler: PlaceholderNegativeSampler,
+        score_fn: BaseScoreFunction,
+        window_size: int = 1000,
+        axis_name: Optional[str] = None,
+    ) -> None:
+        _no_mesh(axis_name)
+        self.sharding = score_fn.sharding
+        self.score_fn = score_fn
+        self.negative_sampler = candidate_sampler
+        self.window_size = window_size
+        self.axis_name = axis_name
+        if not score_fn.negative_sample_sharing:
+            raise ValueError("AllScoresBESS requires negative sample sharing")
+        if candidate_sampler.corruption_scheme not in ("h", "t"):
+            raise ValueError("AllScoresBESS only supports 'h', 't' corruption")
+        if not isinstance(candidate_sampler, PlaceholderNegativeSampler):
+            raise ValueError("AllScoresBESS requires a PlaceholderNegativeSampler")
+        if self.sharding.n_shard != 1:
+            raise ValueError("axis_name=None requires n_shard == 1")
+        self.entity_embedding_size = score_fn.entity_row_size
+        self.n_step = -(-self.sharding.max_entity_per_shard // window_size)
+
+    def forward(
+        self,
+        params: Dict[str, torch.Tensor],
+        step: int,
+        relation: torch.Tensor,
+        head: Optional[torch.Tensor] = None,
+        tail: Optional[torch.Tensor] = None,
+    ) -> torch.Tensor:
+        """Scores (shard_bs, window) of this device's queries against window
+        ``step`` of the local entities.
+
+        The window is one contiguous read wherever it fits: the final window
+        clamps its start, re-scoring a prefix of the previous window (the
+        pipeline's column map keeps first occurrences, and the duplicated
+        columns carry identical scores). A window wider than the table, or
+        an odd window over a packed table, gathers its rows, the indices
+        past the table clamped to its last row.
+        """
+        table = params["entity_embedding"]
+        n_rows = self.sharding.max_entity_per_shard
+        scheme = self.negative_sampler.corruption_scheme
+        known = take_rows(table, tail if scheme == "h" else head, n_rows)
+        cd = self.score_fn.compute_dtype
+        known = _cast_gathered(known.reshape(-1, self.entity_embedding_size), cd)
+
+        t_flat = table[0] if table.dim() == 3 else table
+        row_cap = _row_cap(t_flat, n_rows)
+        w = self.window_size
+        if w <= row_cap and not (is_packed(t_flat) and w % 2):
+            start = min(step * w, row_cap - w)
+            rows = take_contiguous_rows(table, start, w, n_rows)
+        else:
+            ent = torch.arange(step * w, (step + 1) * w, dtype=torch.int64, device=t_flat.device)
+            rows = take_rows(table, ent.clamp(max=n_rows - 1), n_rows)
+        emb = _cast_gathered(rows, cd)[None]
+        if scheme == "h":
+            scores = self.score_fn.score_heads(params, emb, relation, known)
+        else:
+            scores = self.score_fn.score_tails(params, known, relation, emb)
+        # One shard: the AllToAll of the (n_shard, shard_bs, window) block is
+        # the identity.
+        return scores.reshape(relation.shape[0], w)
 
 
 #: Batch keys that :meth:`BessKGE.forward` takes.
@@ -612,20 +910,89 @@ _FORWARD_KEYS = (
 )
 
 
+def _batch_tensors(
+    batch: Dict[str, Any], keys: Tuple[str, ...], device: torch.device
+) -> Dict[str, torch.Tensor]:
+    """The batch's ``keys`` as tensors on ``device`` (numpy arrays or
+    tensors; a tensor already there is not copied)."""
+    return {
+        k: (v if torch.is_tensor(v) else torch.from_numpy(np.ascontiguousarray(v))).to(device)
+        for k, v in batch.items()
+        if k in keys
+    }
+
+
+def _check_device(params: Dict[str, torch.Tensor], device: torch.device) -> None:
+    where = params["entity_embedding"].device
+    if where.type != device.type:
+        raise ValueError(f"params on {where}, step built for {device}")
+
+
+def _device_step(
+    bess: BessKGE, params: Dict[str, torch.Tensor], batch: Dict[str, torch.Tensor],
+    train: bool = False, rng: Any = None,
+) -> Dict[str, torch.Tensor]:
+    """The ``bps`` micro-batches of a batch of ``(bps, 1, ...)`` tensors
+    through :meth:`BessKGE.forward`, fused with ``torch.func.vmap`` as the
+    JAX package fuses them with ``jax.vmap`` on one device: each output
+    ``(bps, ...)``. ``rng`` is accepted and unused until ConvE (ROADMAP
+    A11), as in the score methods."""
+    mbs = {k: v[:, 0] for k, v in batch.items() if k in _FORWARD_KEYS}
+    return torch.func.vmap(lambda mb: bess.forward(params, train=train, **mb))(mbs)
+
+
 def _format_outputs(bess: BessKGE, outs: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     """Stacked per-micro-batch outputs ``(bps, ...)`` -> step outputs: the
     loss summed over micro-batches, a unit shard axis inserted after ``bps``
-    (the cross-device sum is the identity on one device)."""
+    in the scores and ranks, and the metrics as they are, ``(bps, 1,
+    n_metric)`` sums or ``(bps, 1, n_metric, bs)`` (the cross-device sums
+    are the identity on one device)."""
     formatted = {}
     if "loss" in outs:
         formatted["loss"] = torch.sum(outs["loss"])
-    for key in ("positive_score", "negative_score"):
+    for key in ("positive_score", "negative_score", "ranks"):
         if key in outs:
             formatted[key] = outs[key][:, None]
+    if "metrics" in outs:
+        formatted["metrics"] = outs["metrics"]
     return formatted
 
 
-_TOPK_KEYS = ("head", "relation", "tail", "triple_mask")
+def build_bess_forward(
+    bess: BessKGE,
+    mesh: Any = None,
+    train: bool = False,
+    device: Optional[Union[str, torch.device]] = None,
+) -> Callable[..., Dict[str, torch.Tensor]]:
+    """Build the forward step ``fn(params, batch, rng=None) -> outputs``,
+    without gradients.
+
+    ``batch`` is a batch-sampler dict of ``(bps, 1, ...)`` numpy arrays or
+    tensors; ``params`` must already live on ``device`` (default ``cuda``).
+    ``mesh`` must be ``None`` (ROADMAP A15).
+
+    Outputs: ``loss`` () sum; ``positive_score`` (bps, 1, bs);
+    ``negative_score`` (bps, 1, bs, n_col); ``ranks`` as the positive
+    scores; ``metrics`` (bps, 1, n_metric) sums (sum reduction) or
+    (bps, 1, n_metric, bs).
+    """
+    if mesh is not None:
+        _no_mesh("shard")
+    _no_mesh(bess.axis_name)
+    device = resolve_device(device)
+
+    def fn(params: Dict[str, torch.Tensor], batch: Dict[str, Any],
+           rng: Any = None) -> Dict[str, torch.Tensor]:
+        _check_device(params, device)
+        with torch.no_grad():
+            outs = _device_step(bess, params, _batch_tensors(batch, _FORWARD_KEYS, device),
+                                train=train, rng=rng)
+            return _format_outputs(bess, outs)
+
+    return fn
+
+
+_TOPK_KEYS = ("head", "relation", "tail", "negative", "triple_mask", "negative_mask")
 
 
 def build_topk_forward(
@@ -637,6 +1004,8 @@ def build_topk_forward(
 
     ``batch`` is a batch-sampler dict of ``(bps, 1, ...)`` numpy arrays or
     tensors; ``params`` must already live on ``device`` (default ``cuda``).
+    The micro-batches run one after another, as the JAX package's
+    ``lax.scan`` runs them.
 
     Outputs: ``topk_global_id`` (bps, n_shard, shard_bs, k) int32 and
     optionally ``topk_scores`` (same, fp32), ``ranks`` (bps, n_shard,
@@ -649,16 +1018,8 @@ def build_topk_forward(
     device = resolve_device(device)
 
     def fn(params: Dict[str, torch.Tensor], batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-        if params["entity_embedding"].device.type != device.type:
-            raise ValueError(
-                f"params on {params['entity_embedding'].device}, step built for {device}"
-            )
-        mbs = {
-            key: torch.as_tensor(np.asarray(val) if not torch.is_tensor(val) else val)
-            .to(device)[:, 0]
-            for key, val in batch.items()
-            if key in _TOPK_KEYS
-        }
+        _check_device(params, device)
+        mbs = {k: v[:, 0] for k, v in _batch_tensors(batch, _TOPK_KEYS, device).items()}
         bps = next(iter(mbs.values())).shape[0]
         with torch.inference_mode():
             outs = [topk.forward(params, **{key: v[i] for key, v in mbs.items()}) for i in range(bps)]
@@ -671,5 +1032,34 @@ def build_topk_forward(
             # cross-device psum of the sums is the identity on one device.
             formatted["metrics"] = torch.stack([o["metrics"] for o in outs])
         return formatted
+
+    return fn
+
+
+_ALLSCORES_KEYS = ("relation", "head", "tail")
+
+
+def build_allscores_forward(
+    allscores: AllScoresBESS,
+    mesh: Any = None,
+    device: Optional[Union[str, torch.device]] = None,
+) -> Callable[[Dict[str, torch.Tensor], Dict[str, Any], int], torch.Tensor]:
+    """Build ``fn(params, batch, step) -> scores`` of window ``step``:
+    (bps, 1, shard_bs, window), the micro-batches one after another.
+    ``batch`` holds ``(bps, 1, ...)`` numpy arrays or tensors; ``params``
+    must already live on ``device`` (default ``cuda``)."""
+    if mesh is not None:
+        _no_mesh("shard")
+    _no_mesh(allscores.axis_name)
+    device = resolve_device(device)
+
+    def fn(params: Dict[str, torch.Tensor], batch: Dict[str, Any], step: int) -> torch.Tensor:
+        _check_device(params, device)
+        mbs = {k: v[:, 0] for k, v in _batch_tensors(batch, _ALLSCORES_KEYS, device).items()}
+        bps = mbs["relation"].shape[0]
+        with torch.no_grad():
+            outs = [allscores.forward(params, step, **{k: v[i] for k, v in mbs.items()})
+                    for i in range(bps)]
+        return torch.stack(outs)[:, None]
 
     return fn

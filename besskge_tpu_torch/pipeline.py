@@ -1,0 +1,246 @@
+"""High-level pipeline of BESS inference (torch): filtered all-scores
+evaluation.
+
+Counterpart of ``besskge_tpu/pipeline.py`` (reference
+``besskge/pipeline.py:23-320``): batched full-vocabulary scoring with triple
+filtering, candidate restriction, top-k extraction and metrics, around the
+window step of :class:`besskge_tpu_torch.bess.AllScoresBESS`. The JAX
+package copies every window's scores to the host and stitches, filters and
+ranks there; here the windows stay on the device, which stitches them,
+masks the filtered and non-candidate entries, ranks and takes the top-k,
+and only what the caller asked for is copied to the host. The filter pairs
+are found on the host (:func:`besskge_tpu_torch.utils.get_entity_filter`)
+and the outputs are numpy arrays, as the JAX package's.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional, Union
+
+import numpy as np
+import torch
+from numpy.typing import NDArray
+
+from besskge_tpu_torch.batch_sampler import ShardedBatchSampler
+from besskge_tpu_torch.bess import (
+    AllScoresBESS,
+    _batch_tensors,
+    _no_mesh,
+    build_allscores_forward,
+)
+from besskge_tpu_torch.metric import Evaluation
+from besskge_tpu_torch.negative_sampler import PlaceholderNegativeSampler
+from besskge_tpu_torch.packed import is_packed
+from besskge_tpu_torch.scoring import BaseScoreFunction
+from besskge_tpu_torch.utils import get_entity_filter, resolve_device
+
+__all__ = ["AllScoresPipeline"]
+
+
+class AllScoresPipeline:
+    """Score (h, r, ?) / (?, r, t) queries against all (or candidate)
+    entities, with filtered evaluation.
+
+    :param batch_sampler: based on an "h_shard"/"t_shard"-partitioned set,
+        with ``return_triple_idx=True`` when filtering.
+    :param corruption_scheme: "t" to complete (h, r, ?), "h" for (?, r, t).
+    :param score_fn: the trained scoring function.
+    :param mesh: must be ``None`` (one device; ROADMAP A15).
+    :param evaluation: metrics module.
+    :param filter_triples: list of triple arrays (GLOBAL IDs) whose
+        completions must be filtered out of the rankings.
+    :param candidate_ents: global IDs; restrict scoring to these entities.
+    :param return_scores: return the full (filtered) score matrix.
+    :param return_topk: return top-k most likely completions per query.
+    :param k: how many completions when ``return_topk``.
+    :param window_size: entities per shard scored per device call.
+    :param device: where the scores are computed (default ``cuda``).
+    """
+
+    def __init__(
+        self,
+        batch_sampler: ShardedBatchSampler,
+        corruption_scheme: str,
+        score_fn: BaseScoreFunction,
+        mesh: Any = None,
+        evaluation: Optional[Evaluation] = None,
+        filter_triples: Optional[List[NDArray[np.int32]]] = None,
+        candidate_ents: Optional[NDArray[np.int32]] = None,
+        return_scores: bool = False,
+        return_topk: bool = False,
+        k: int = 10,
+        window_size: int = 1000,
+        device: Optional[Union[str, torch.device]] = None,
+    ) -> None:
+        if mesh is not None:
+            _no_mesh("shard")
+        if not (evaluation or return_scores):
+            raise ValueError(
+                "Nothing to return. Provide `evaluation` or set"
+                " `return_scores=True`"
+            )
+        if corruption_scheme not in ("h", "t"):
+            raise ValueError("corruption_scheme needs to be either 'h' or 't'")
+        expected_mode = "t_shard" if corruption_scheme == "h" else "h_shard"
+        if batch_sampler.triple_partition_mode != expected_mode:
+            raise ValueError(
+                f"Corruption scheme '{corruption_scheme}' requires"
+                f" '{expected_mode}'-partitioned triples"
+            )
+        self.device = resolve_device(device)
+        self.batch_sampler = batch_sampler
+        self.score_fn = score_fn
+        self.evaluation = evaluation
+        self.return_scores = return_scores
+        self.return_topk = return_topk
+        self.k = k
+        self.corruption_scheme = corruption_scheme
+        self.candidate_sampler = PlaceholderNegativeSampler(corruption_scheme=corruption_scheme)
+        self.bess_module = AllScoresBESS(self.candidate_sampler, score_fn, window_size)
+        self.mesh = mesh
+        self._fwd = build_allscores_forward(self.bess_module, None, self.device)
+        sharding = self.bess_module.sharding
+
+        # The stitched-column -> global-entity map: columns are ordered
+        # (step, shard, window position); keep the first occurrence of each
+        # global ID, drop padding IDs (reference ``pipeline.py:243-247``).
+        # It mirrors AllScoresBESS.forward's window index math exactly: a
+        # contiguous window clamps its start (re-reading a prefix of the
+        # previous window: identical scores, deduplicated here), and a packed
+        # table may expose one zero pad row past max_entity_per_shard (its
+        # column aliases the last real index and loses the first-occurrence
+        # race to the real column, so it is always dropped).
+        ws = self.bess_module.window_size
+        max_e = sharding.max_entity_per_shard
+        packed_tab = bool(getattr(score_fn, "packed_entity_storage", False))
+        self._packed_tab = packed_tab
+        row_cap = max_e + (max_e % 2) if packed_tab else max_e
+        contiguous = ws <= row_cap and not (packed_tab and ws % 2)
+        col_ids = []
+        for i in range(self.bess_module.n_step):
+            if contiguous:
+                ent_slice = np.minimum(min(i * ws, row_cap - ws) + np.arange(ws), max_e - 1)
+            else:
+                ent_slice = np.minimum(i * ws + np.arange(ws), max_e - 1)
+            col_ids.append(sharding.shard_and_idx_to_entity[:, ent_slice].ravel())
+        self._col_select = np.unique(np.concatenate(col_ids), return_index=True)[1][
+            : sharding.n_entity
+        ]
+        self._col_select_t = torch.from_numpy(self._col_select).to(self.device)
+
+        self.filter_triples: Optional[NDArray] = None
+        if filter_triples:
+            # Reconstruct global IDs of the partitioned column.
+            local_col = 0 if batch_sampler.triple_partition_mode == "h_shard" else 2
+            offsets = np.concatenate([[0], np.cumsum(batch_sampler.triple_counts)])
+            parts = []
+            for s in range(len(offsets) - 1):
+                chunk = batch_sampler.triples[offsets[s] : offsets[s + 1]].copy()
+                chunk[:, local_col] = sharding.shard_and_idx_to_entity[s][chunk[:, local_col]]
+                parts.append(chunk)
+            self.triples = np.concatenate(parts, axis=0)
+            self.filter_triples = np.concatenate(
+                [np.asarray(tr) for tr in filter_triples], axis=0
+            )
+        self.candidate_mask: Optional[NDArray] = None
+        if candidate_ents is not None:
+            self.candidate_mask = np.setdiff1d(np.arange(sharding.n_entity), candidate_ents)
+            self._candidate_mask_t = torch.from_numpy(self.candidate_mask).to(self.device)
+
+    def forward(self, params: Dict[str, Any]) -> Dict[str, Any]:
+        """Run the full pipeline over one epoch of the batch sampler.
+
+        ``params`` are tensors (or arrays) of the score function's tables;
+        they are moved to the pipeline's device if they are not there.
+        Returns numpy arrays: ``scores`` (queries, n_entity) fp32,
+        ``topk_global_id``, ``triple_idx``, ``ranks``, ``metrics`` and
+        ``metrics_avg``, each where asked for.
+        """
+        device = self.device
+        params = {
+            k: (v if torch.is_tensor(v) else torch.from_numpy(np.asarray(v))).to(device)
+            for k, v in params.items()
+        }
+        if is_packed(params["entity_embedding"]) != self._packed_tab:
+            raise ValueError(
+                "entity table packedness changed after pipeline "
+                "construction — the stitched-column map was built for "
+                f"packed={self._packed_tab}; rebuild the AllScoresPipeline"
+            )
+        scores, ids, metrics, ranks, topk_ids = [], [], [], [], []
+        n_triple = 0
+        n_step = self.bess_module.n_step
+        gt_key = "head" if self.corruption_scheme == "h" else "tail"
+        for batch in self.batch_sampler.get_dataloader(shuffle=False):
+            triple_mask = batch["triple_mask"].reshape(-1)
+            keep = torch.from_numpy(np.flatnonzero(triple_mask)).to(device)
+            ground_truth = None
+            if gt_key in batch:
+                ground_truth = torch.from_numpy(
+                    batch[gt_key].reshape(-1)[triple_mask].astype(np.int64)
+                ).to(device)
+            triple_id = None
+            if self.batch_sampler.return_triple_idx:
+                triple_id = batch["triple_idx"].reshape(-1)
+                ids.append(triple_id[triple_mask])
+            n_triple += int(triple_mask.sum())
+
+            dbatch = _batch_tensors(batch, ("relation", "head", "tail"), device)
+            # (bps, 1, shard_bs, ws) x n_step -> (bs_total, n_step * ws),
+            # then the real queries' rows and the map's columns, in fp32.
+            batch_scores = torch.cat(
+                [self._fwd(params, dbatch, i).flatten(0, 2) for i in range(n_step)], dim=-1
+            )
+            filt = batch_scores[keep][:, self._col_select_t].float()
+            del batch_scores
+            if self.candidate_mask is not None:
+                filt[:, self._candidate_mask_t] = -np.inf
+            rows = torch.arange(filt.shape[0], device=device)
+            true_scores = None
+            if ground_truth is not None:
+                true_scores = filt[rows, ground_truth]
+            if self.filter_triples is not None:
+                if triple_id is None:
+                    raise ValueError(
+                        "Filtering requires return_triple_idx=True in the batch sampler"
+                    )
+                batch_filter = torch.from_numpy(get_entity_filter(
+                    self.triples[triple_id[triple_mask]],
+                    self.filter_triples,
+                    filter_mode=self.corruption_scheme,
+                )).to(device)
+                filt[batch_filter[:, 0], batch_filter[:, 1]] = -np.inf
+            if self.evaluation is not None:
+                if ground_truth is None:
+                    raise ValueError("Evaluation requires ground truth entities")
+                filt[rows, ground_truth] = -np.inf
+                batch_ranks = self.evaluation.ranks_from_scores(true_scores, filt)
+                metrics.append(self.evaluation.dict_metrics_from_ranks(batch_ranks))
+                if self.evaluation.return_ranks:
+                    ranks.append(batch_ranks)
+            if ground_truth is not None:
+                filt[rows, ground_truth] = true_scores
+            if self.return_scores:
+                scores.append(filt.cpu().numpy())
+            if self.return_topk:
+                topk_ids.append(torch.topk(filt, self.k, dim=-1).indices)
+
+        out: Dict[str, Any] = {}
+        if scores:
+            out["scores"] = np.concatenate(scores, axis=0)
+        if topk_ids:
+            out["topk_global_id"] = torch.cat(topk_ids).cpu().numpy()
+        if ids:
+            out["triple_idx"] = np.concatenate(ids, axis=0)
+        if self.evaluation is not None:
+            final = {
+                m: self.evaluation.reduction(torch.cat([met[m].reshape(-1) for met in metrics]))
+                for m in metrics[0]
+            }
+            out["metrics"] = {k: v.cpu().numpy() for k, v in final.items()}
+            out["metrics_avg"] = {
+                m: float(np.sum(v)) / n_triple for m, v in out["metrics"].items()
+            }
+            if ranks:
+                out["ranks"] = torch.cat(ranks).cpu().numpy()
+        return out

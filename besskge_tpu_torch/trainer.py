@@ -43,11 +43,10 @@ import time
 from collections import deque
 from typing import Any, Callable, Dict, Iterator, Optional, Tuple, Union
 
-import numpy as np
 import torch
 
 from besskge_tpu_torch.batch_sampler import ShardedBatchSampler
-from besskge_tpu_torch.bess import _FORWARD_KEYS, BessKGE, _format_outputs
+from besskge_tpu_torch.bess import _FORWARD_KEYS, BessKGE, _batch_tensors, _format_outputs
 from besskge_tpu_torch.checkpoint import save_checkpoint, save_checkpoint_sharded
 from besskge_tpu_torch.device_sampler import DeviceBatchSampler, split_key
 from besskge_tpu_torch.optim import AdamW, SGD, EntityRowOptimizer, FusedDenseAdamW
@@ -182,15 +181,6 @@ def _clone(tree: Any) -> Any:
     return tree.clone()
 
 
-def _to_device(batch: Dict[str, Any], device: torch.device) -> Dict[str, torch.Tensor]:
-    """The batch keys the forward takes, as tensors on ``device``."""
-    return {
-        k: (v if torch.is_tensor(v) else torch.from_numpy(np.ascontiguousarray(v))).to(device)
-        for k, v in batch.items()
-        if k in _FORWARD_KEYS
-    }
-
-
 def build_train_step(
     bess: BessKGE,
     optimizer: DenseOptimizer,
@@ -229,7 +219,7 @@ def build_train_step(
             )
         if not donate:
             params, opt_state = _clone(params), _clone(opt_state)
-        return step(params, opt_state, _to_device(batch, device))
+        return step(params, opt_state, _batch_tensors(batch, _FORWARD_KEYS, device))
 
     return fn
 
@@ -603,7 +593,7 @@ class Trainer:
         def put_ahead(it, depth=2):
             q: deque = deque()
             for b in it:
-                q.append(_to_device(b, self.device))
+                q.append(_batch_tensors(b, _FORWARD_KEYS, self.device))
                 if len(q) >= depth:
                     yield q.popleft()
             while q:

@@ -1,17 +1,21 @@
-"""Small tensor helpers shared across the port's modules."""
+"""Small tensor helpers shared across the port's modules, and the host-side
+filter of filtered evaluation (:func:`get_entity_filter`, numpy, copied from
+``besskge_tpu/utils.py``)."""
 
 from __future__ import annotations
 
 from typing import Optional, Tuple, Union
 
+import numpy as np
 import torch
+from numpy.typing import NDArray
 
 #: A 32-bit value held in an int64 tensor (or a Python int).
 Word = Union[torch.Tensor, int]
 
 __all__ = [
     "as_complex_pair", "complex_multiplication", "complex_rotation", "gather_indices",
-    "interleaved_to_blocked", "on_cuda", "resolve_device",
+    "get_entity_filter", "interleaved_to_blocked", "on_cuda", "resolve_device",
 ]
 
 
@@ -73,6 +77,56 @@ def gather_indices(x: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
     x_b = x.expand(rows + x.shape[1:])
     idx_b = index.expand(rows + index.shape[1:])
     return torch.gather(x_b, 1, idx_b.long())
+
+
+def get_entity_filter(
+    triples: NDArray[np.int32],
+    filter_triples: NDArray[np.int32],
+    filter_mode: str,
+) -> NDArray[np.int64]:
+    """Sparse filter pairs for filtered evaluation (host-side, numpy).
+
+    For each triple in ``triples``, find the entities that complete the same
+    query — same (h, r) when ``filter_mode == "t"``, same (r, t) when
+    ``filter_mode == "h"`` — in ``filter_triples``.
+
+    :param triples: (n, 3) triples to evaluate.
+    :param filter_triples: (m, 3) known true triples.
+    :param filter_mode: "h" to filter known heads, "t" for known tails.
+    :return: (k, 2) array of ``(triple_index, entity_to_filter)`` pairs.
+
+    Mirrors reference ``besskge/utils.py:36-69``.
+    """
+    if filter_mode == "t":
+        q_cols, ent_col = (0, 1), 2
+    elif filter_mode == "h":
+        q_cols, ent_col = (2, 1), 0
+    else:
+        raise ValueError(f"filter_mode must be 'h' or 't', got {filter_mode}")
+
+    base = np.int64(max(triples.max(), filter_triples.max())) + 1
+    q_key = triples[:, q_cols[0]].astype(np.int64) * base + triples[:, q_cols[1]]
+    f_key = (
+        filter_triples[:, q_cols[0]].astype(np.int64) * base
+        + filter_triples[:, q_cols[1]]
+    )
+
+    # Sort filter keys once; for each query key locate its matching span.
+    order = np.argsort(f_key, kind="stable")
+    f_sorted = f_key[order]
+    lo = np.searchsorted(f_sorted, q_key, side="left")
+    hi = np.searchsorted(f_sorted, q_key, side="right")
+    lengths = hi - lo
+    triple_idx = np.repeat(np.arange(triples.shape[0]), lengths)
+    if triple_idx.size == 0:
+        return np.empty((0, 2), dtype=np.int64)
+    # Positions within each span, flattened.
+    span_pos = np.arange(lengths.sum()) - np.repeat(
+        np.cumsum(lengths) - lengths, lengths
+    )
+    filter_rows = order[np.repeat(lo, lengths) + span_pos]
+    entities = filter_triples[filter_rows, ent_col]
+    return np.stack([triple_idx, entities.astype(np.int64)], axis=1)
 
 
 def complex_multiplication(v1: torch.Tensor, v2: torch.Tensor) -> torch.Tensor:

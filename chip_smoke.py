@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Build the port's kernels and drive its serving and training paths on one card.
+"""Build the port's kernels and drive its serving, training and evaluation paths on one card.
 
     python3 chip_smoke.py [--profile | --profile=PHASE[,PHASE...]]
 
@@ -133,14 +133,45 @@ the CUDA toolkit. Phases, one line each with its elapsed seconds:
    2,500,604 entities of the trained table, held against a full-table
    reference through ``score_triple`` (scores within 2^-7 x (|want| +
    max|want|), each returned ID's own reference score too).
+13. eval: ``bench.py``'s ``valid`` and ``allscores`` modes as it runs them,
+   on random data from the seed. Valid: TransE-L1 over 2,500,604 entities,
+   535 relation types, d = 128, bf16 scoring without sharing; 40,960 valid
+   triples (heads and tails distinct entities) with 500 random tail
+   candidates each, ``TripleBasedShardedNegativeSampler`` over an
+   "ht_shardpair" partition, ``RigidShardedBatchSampler`` (10 x 256),
+   ``ScoreMovingBessKGE`` with MRR and hits@10 sums, ``run_device_eval``
+   with 16 steps per block. Gates: two steps with fp32 scoring on the card
+   against the CPU (scores within 1e-5 x (|want| + max|want|), ranks equal
+   away from ties); with each true tail row set to head + relation, MRR 1.0
+   through ``run_device_eval`` and through the device-resident blocks, which
+   run under ``torch.cuda.set_sync_debug_mode("error")``; no kernel of ours
+   on the path. Times: queries/s with pre-staged blocks (median of 3), the
+   rate through ``run_device_eval`` once. Then candidate-set top-10
+   (``mask_on_gather=True``) over the same candidates (2,048 queries, no
+   sharing) and over one set of 4,096 entities shared by all queries
+   (sharing: B5, 4 launches per batch by name), each in fp32 and bf16
+   scoring against a plain ranking of each query's own candidates, the bf16
+   one timed. Allscores: TransE-L1 with sharing over 500,000 entities, 1,024
+   (h, r, ?) queries (4 x 256 per batch), ``AllScoresPipeline`` with windows
+   of 65,536 (8, the last clamped). Gates: a filtered pass (8 other known
+   tails per query) whose -inf entries are exactly the pairs of
+   ``get_entity_filter`` and whose ranks equal a numpy ranking of the
+   returned matrix; with planted answers, the returned matrix within 2^-7 x
+   (|want| + max|want|) of one full-table matrix of B5's plain version and
+   MRR 1.0, B5 32 launches per pass (wrappers) and per batch (by name);
+   every window of a batch swept under ``set_sync_debug_mode("error")``.
+   Times: the device sweep (median of 3 x 5 sweeps) as candidate-scores/s
+   and ms per batch, B5 per launch at (256, 65,536, 128) bf16 beside its
+   bound, the pipeline end to end once. A JSON line of these numbers.
 
 Each path is driven with every launch count set to 0 just before it and
 read just after. Then one JSON line describing each kernel, and the result
 line. Any failed check raises, so the script exits non-zero and prints no
 result; so it does when no CUDA card is available. ``--profile`` adds a
 ``torch.profiler`` trace of the training steps of each training phase
-(``training``, ``dense``, ``device``, ``packed``, ``yago``, ``scorers``;
-``--profile=yago,scorers`` traces only the named ones): device time by
+(``training``, ``dense``, ``device``, ``packed``, ``yago``, ``scorers``)
+and of the ``eval`` phase's device-resident valid blocks and all-scores
+sweep (``--profile=yago,eval`` traces only the named ones): device time by
 kernel, and the device's busy share.
 """
 
@@ -167,23 +198,30 @@ from besskge_tpu_torch.batch_sampler import (  # noqa: E402
     RigidShardedBatchSampler,
 )
 from besskge_tpu_torch.bess import (  # noqa: E402
+    _FORWARD_KEYS,
     EmbeddingMovingBessKGE,
+    ScoreMovingBessKGE,
     TopKQueryBessKGE,
+    _batch_tensors,
+    build_bess_forward,
     build_topk_forward,
 )
 from besskge_tpu_torch.dataset import KGDataset  # noqa: E402
 from besskge_tpu_torch.device_sampler import DeviceBatchSampler, split_key  # noqa: E402
+from besskge_tpu_torch.eval_loop import _stack_block, make_block_runner, run_device_eval  # noqa: E402
 from besskge_tpu_torch.loss import LogSigmoidLoss, SampledSoftmaxCrossEntropyLoss  # noqa: E402
 from besskge_tpu_torch.metric import Evaluation  # noqa: E402
 from besskge_tpu_torch.negative_sampler import (  # noqa: E402
     PlaceholderNegativeSampler,
     RandomShardedNegativeSampler,
+    TripleBasedShardedNegativeSampler,
 )
 from besskge_tpu_torch.ops import adamw_kernels, distance, l1_kernels, row_kernels  # noqa: E402
+from besskge_tpu_torch.pipeline import AllScoresPipeline  # noqa: E402
 from besskge_tpu_torch.profiling import DISTANCE_EDGES, device_kernels  # noqa: E402
 from besskge_tpu_torch.scoring import ComplEx, RotatE, TransE  # noqa: E402
 from besskge_tpu_torch.sharding import PartitionedTripleSet, Sharding  # noqa: E402
-from besskge_tpu_torch.utils import complex_multiplication  # noqa: E402
+from besskge_tpu_torch.utils import complex_multiplication, get_entity_filter  # noqa: E402
 
 # Serving configuration: ogbl-wikikg2's entity and relation counts on one
 # shard, the width of benchmarks/bench_topk.py --model transe-l1.
@@ -273,6 +311,20 @@ SCORERS = ("DistMult", "PairRE", "TripleRE", "BoxE", "InterHT", "TranS")
 # same state and batch; the bf16 step's distance to the gate is reported.
 FP32_HELD = ("BoxE",)
 SCORER_QUERIES, SCORER_TIMED_CALLS = 64, 5
+# Evaluation: bench.py's run_valid (TransE-L1 at wikikg2's counts, bf16
+# scoring, no sharing; 40,960 random valid triples with 500 random tail
+# candidates each; ScoreMoving through run_device_eval, 16 steps of 10 x 256
+# per block; rates the median of 3) and candidate-set top-10 over the same
+# candidates (2,048 queries, 4 x 256 per batch) and over one set of 4,096
+# shared by all queries (sharing: B5); bench.py's run_allscores (500,000
+# entities, sharing, 1,024 (h, r, ?) queries, 4 x 256 per batch, windows of
+# 65,536: 8, the last clamped), each query with 8 other known tails in the
+# filtered pass; the device sweep timed as the median of 3 x 5 sweeps.
+VALID_QUERIES, VALID_CANDIDATES, VALID_SHARD_BS, VALID_BPS = 40_960, 500, 256, 10
+VALID_SPB, VALID_REPEATS, VALID_CPU_STEPS = 16, 3, 2
+VALID_TOPK_QUERIES, TOPK_BPS, FLAT_CANDIDATES = 2048, 4, 4096
+AS_ENTITY, AS_QUERIES, AS_SHARD_BS, AS_BPS, AS_WINDOW = 500_000, 1024, 256, 4, 65_536
+AS_KNOWN, AS_REPEATS, AS_SWEEPS = 8, 3, 5
 
 L1_SOURCE = "besskge_tpu_torch/csrc/l1_distance.cu"
 ROW_SOURCE = "besskge_tpu_torch/csrc/row_update.cu"
@@ -2857,6 +2909,429 @@ def scorers(gen: torch.Generator, profile: bool = False, device: str = "cuda") -
     return results
 
 
+def _plant(params: dict, sharding: Sharding, triples: np.ndarray) -> None:
+    """Each triple's tail row set to its head row plus its relation row: the
+    true tail then scores -|h + r - t| = 0 in fp32 (a bf16 rounding of its
+    terms in bf16), far above any other entity's -O(10). Heads and tails must
+    be distinct entities."""
+    table, rel = params["entity_embedding"], params["relation_embedding"]
+    e2i = torch.as_tensor(sharding.entity_to_idx, device=table.device)
+    ids = torch.from_numpy(triples.astype(np.int64)).to(table.device)
+    table[e2i[ids[:, 2]]] = table[e2i[ids[:, 0]]] + rel[ids[:, 1]]
+
+
+def _distinct_queries(rng, n_entity: int, n_query: int) -> np.ndarray:
+    """(h, r, t) triples with every head and tail a different entity."""
+    ents = rng.choice(n_entity, size=2 * n_query, replace=False)
+    rels = rng.integers(N_RELATION, size=n_query)
+    return np.stack([ents[:n_query], rels, ents[n_query:]], 1).astype(np.int32)
+
+
+def _eval_fn(sharding: Sharding, sharing: bool, bf16: bool = True) -> TransE:
+    score_fn = TransE(sharing, 1, sharding, N_RELATION, DIM, seed=SEED)
+    if bf16:
+        score_fn.compute_dtype = torch.bfloat16
+    return score_fn
+
+
+def _hold_candidate_topk(what: str, out: dict, params: dict, score_fn: TransE,
+                         sharding: Sharding, triples: np.ndarray, cands: np.ndarray,
+                         batch: dict) -> int:
+    """A top-K output of candidate sets against a plain ranking of each
+    query's own candidates, scored apart from the windows, masks and merge of
+    the top-k path by the same formula: one set per query through
+    ``score_tails`` (PyTorch's elementwise ops: the same arithmetic, so the
+    dense gate); a set shared by all queries through the plain version of B5
+    (fp32 sums in another order, rounded to the compute dtype: the dense gate
+    plus a bf16 ulp of the score). The returned scores within that of the K
+    best, each returned ID a candidate of its query, the IDs equal to the K
+    best as sets where the K-th and (K+1)-th stand further apart than twice
+    it. Returns the number of such queries."""
+    device = params["entity_embedding"].device
+    keep = torch.from_numpy(batch["triple_mask"].reshape(-1)).to(device)
+    q = batch["triple_idx"].reshape(-1)[batch["triple_mask"].reshape(-1)]
+    e2i = torch.as_tensor(sharding.entity_to_idx, device=device)
+    h, r = (torch.from_numpy(triples[q, i].astype(np.int64)).to(device) for i in (0, 1))
+    shared = cands.shape[0] == 1
+    own = torch.from_numpy(cands[np.zeros_like(q) if shared else q].astype(np.int64)).to(device)
+    cd = score_fn.compute_dtype or torch.float32
+    table = params["entity_embedding"]
+    known = table[e2i[h]].to(cd)
+    if shared:
+        query = score_fn.distance_query_vector(params, known, r, "t").to(cd)
+        ref = -l1_kernels.l1_distance_matrix_plain(query, table[e2i[own[0]]].to(cd)).float()
+        ulp = 2.0**-8 if cd == torch.bfloat16 else 0.0
+    else:
+        ref = score_fn.score_tails(params, known, r, table[e2i[own]].to(cd)).float()
+        ulp = 0.0
+    want = torch.topk(ref, K + 1, dim=1)
+    scores = out["topk_scores"].reshape(-1, K)[keep].float()
+    ids = out["topk_global_id"].reshape(-1, K)[keep].long()
+    top = want.values[:, :K]
+    tol = DENSE_RTOL * (top.abs() + top.abs().max()) + ulp * top.abs()
+    if not ((scores - top).abs() <= tol).all():
+        raise AssertionError(f"{what}: top-{K} scores off the plain ranking by"
+                             f" {(scores - top).abs().max().item()}")
+    if not (ids[:, :, None] == own[:, None, :]).any(-1).all():
+        raise AssertionError(f"{what}: a returned ID is not a candidate of its query")
+    sure = (want.values[:, K - 1] - want.values[:, K]) > 2 * tol.max()
+    ref_ids = torch.gather(own, 1, want.indices[:, :K])
+    same = (ids.sort(1).values == ref_ids.sort(1).values).all(1)
+    if not same[sure].all():
+        raise AssertionError(f"{what}: top-{K} IDs differ from the plain ranking")
+    return int(sure.sum())
+
+
+def _valid(gen: torch.Generator, profile: bool, device: str, smi: str) -> dict:
+    """bench.py's run_valid: ScoreMoving candidate-set validation of random
+    triples, 500 tail candidates each, through run_device_eval; and
+    candidate-set top-k over the same candidates."""
+    on_card = device == "cuda"
+    t = time.perf_counter()
+    sharding = Sharding.create(N_ENTITY, 1, seed=SEED)
+    rng = np.random.default_rng(SEED)
+    triples = _distinct_queries(rng, N_ENTITY, VALID_QUERIES)
+    # Candidates never hold the triple's own tail, which would tie its score.
+    shift = 1 + rng.integers(N_ENTITY - 1, size=(VALID_QUERIES, VALID_CANDIDATES))
+    cands = ((triples[:, 2:3] + shift) % N_ENTITY).astype(np.int32)
+    dataset = KGDataset(n_entity=N_ENTITY, n_relation_type=N_RELATION, triples={"valid": triples},
+                        original_triple_ids={"valid": np.arange(VALID_QUERIES)},
+                        neg_tails={"valid": cands})
+    pts = PartitionedTripleSet.create_from_dataset(dataset, "valid", sharding,
+                                                   partition_mode="ht_shardpair")
+    ns = TripleBasedShardedNegativeSampler(None, pts.neg_tails, sharding, "t", seed=SEED)
+    sampler = RigidShardedBatchSampler(pts, ns, shard_bs=VALID_SHARD_BS,
+                                       batches_per_step=VALID_BPS, seed=SEED,
+                                       duplicate_batch=False)
+    score_fn = _eval_fn(sharding, sharing=False)
+    module = ScoreMovingBessKGE(ns, score_fn,
+                                evaluation=Evaluation(["mrr", "hits@10"], reduction="sum"))
+    params = score_fn.initial_params_device(device=device, generator=gen)
+    steps = [{k: v for k, v in b.items() if k in _FORWARD_KEYS}
+             for b in sampler.get_dataloader(shuffle=False)]
+    say("eval", f"valid: {VALID_QUERIES} triples x {VALID_CANDIDATES} tail candidates over"
+        f" {N_ENTITY} x {DIM} entities, {len(steps)} steps of {VALID_BPS} x {VALID_SHARD_BS}"
+        f" ({time.perf_counter() - t:.1f}s set-up)")
+
+    # Card against CPU with fp32 scoring, before the answers are planted.
+    check = ScoreMovingBessKGE(ns, _eval_fn(sharding, sharing=False, bf16=False),
+                               evaluation=Evaluation(["mrr"], return_ranks=True),
+                               return_scores=True)
+    cpu_params = _to(params, "cpu")
+    card_fwd, cpu_fwd = build_bess_forward(check, device=device), build_bess_forward(check, device="cpu")
+    n_clear = n_rows = 0
+    err = 0.0
+    for step in steps[:VALID_CPU_STEPS]:
+        got = {k: v.cpu() for k, v in card_fwd(params, step).items()}
+        want = cpu_fwd(cpu_params, step)
+        pos, neg = want["positive_score"].reshape(-1), want["negative_score"].reshape(-1, VALID_CANDIDATES)
+        scale = max(pos.abs().max().item(), neg.abs().max().item())
+        for key in ("positive_score", "negative_score"):
+            diff = (got[key] - want[key]).abs()
+            if not (diff <= DENSE_RTOL * (want[key].abs() + scale)).all():
+                raise AssertionError(f"valid card vs CPU: {key} off by {diff.max().item()}")
+            err = max(err, diff.max().item())
+        clear = ((neg - pos[:, None]).abs() > 2 * DENSE_RTOL * scale).all(1)
+        if not torch.equal(got["ranks"].reshape(-1)[clear], want["ranks"].reshape(-1)[clear]):
+            raise AssertionError("valid card vs CPU: ranks differ")
+        n_clear, n_rows = n_clear + int(clear.sum()), n_rows + clear.numel()
+    del cpu_params
+    say("eval", f"valid card vs CPU ({VALID_CPU_STEPS} steps, fp32 scoring): scores max|err|"
+        f" {err:.3g}, ranks equal for the {n_clear} of {n_rows} queries clear of ties")
+
+    _plant(params, sharding, triples)
+    # Device-resident blocks: staged beforehand, each run with no host sync.
+    blocks = [_stack_block(steps[i:i + VALID_SPB], VALID_SPB, torch.device(device))
+              for i in range(0, len(steps), VALID_SPB)]
+    run_block = make_block_runner(module, device=device)
+    run_block(params, blocks[0])  # warm-up
+    sync(device)
+    # The whole pass through run_device_eval, once: sampling, copies, blocks.
+    reset_counts()
+    t = time.perf_counter()
+    metrics, n_q = run_device_eval(module, params, sampler, steps_per_block=VALID_SPB,
+                                   device=device)
+    host_s = time.perf_counter() - t
+    if on_card:
+        expect_counts("valid (run_device_eval)", read_counts(), {})
+    if n_q != VALID_QUERIES or metrics["mrr"] != 1.0 or metrics["hits@10"] != 1.0:
+        raise AssertionError(f"valid: planted answers give {metrics} over {n_q} queries")
+    if on_card:
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        sums = sum(run_block(params, blk) for blk in blocks)
+    finally:
+        if on_card:
+            torch.cuda.set_sync_debug_mode("default")
+    if float(sums[0]) != VALID_QUERIES:
+        raise AssertionError(f"valid device blocks: MRR sum {float(sums[0])}")
+    times = []
+    for _ in range(VALID_REPEATS):
+        t = time.perf_counter()
+        for blk in blocks:
+            tot = run_block(params, blk)
+        float(tot[0])  # fetch = sync
+        times.append(time.perf_counter() - t)
+    med = float(np.median(times))
+    result = {
+        "queries_per_s": n_q / med, "spread_queries_per_s": [n_q / max(times), n_q / min(times)],
+        "host_pipeline_queries_per_s": n_q / host_s, "ms_per_step": med / len(steps) * 1e3,
+        "n_queries": n_q, "steps": len(steps), "steps_per_block": VALID_SPB,
+        "card_vs_cpu_max_abs_err": err, "metrics": metrics,
+    }
+    say("eval", f"valid ({smi}): {result['queries_per_s']:.1f} queries/s device-resident"
+        f" (median of {VALID_REPEATS}, {result['ms_per_step']:.4f} ms per step of"
+        f" {VALID_BPS * VALID_SHARD_BS} queries), {result['host_pipeline_queries_per_s']:.1f}"
+        f" queries/s through run_device_eval; planted MRR {metrics['mrr']}, no host sync in a"
+        f" block, no kernel of ours launched")
+    if profile and on_card:
+        result["profile"] = profile_run(lambda: [run_block(params, blk) for blk in blocks],
+                                        len(steps), "eval_valid_trace.json")
+
+    # Candidate-set top-k over the same candidates: one set per query
+    # (no sharing), and one shared set (sharing: B5).
+    n_top = VALID_TOPK_QUERIES
+    q_pts = PartitionedTripleSet.create_from_queries(
+        dataset, sharding, triples[:n_top, :2], "hr", ground_truth=triples[:n_top, 2],
+        negative=cands[:n_top])
+    flat = rng.choice(N_ENTITY, size=(1, FLAT_CANDIDATES), replace=False).astype(np.int32)
+    f_pts = PartitionedTripleSet.create_from_queries(
+        dataset, sharding, triples[:n_top, :2], "hr", ground_truth=triples[:n_top, 2],
+        negative=flat)
+    result["topk"] = {}
+    for name, p, sharing, own in (("per_query", q_pts, False, cands), ("shared", f_pts, True, flat)):
+        c_ns = TripleBasedShardedNegativeSampler(None, p.neg_tails, sharding, "t", seed=SEED,
+                                                 mask_on_gather=True)
+        c_sampler = RigidShardedBatchSampler(p, c_ns, shard_bs=VALID_SHARD_BS,
+                                             batches_per_step=TOPK_BPS, seed=SEED,
+                                             return_triple_idx=True)
+        batches = [c_sampler.sample_batch(b) for b in c_sampler.epoch_index_blocks(False)]
+        own_sorted = own if sharing else own[p.triple_sort_idx]
+        entry = {"queries_per_batch": TOPK_BPS * VALID_SHARD_BS, "sure": {}}
+        # fp32 scoring for the gate's sake (clear gaps between the 10th and
+        # 11th scores), then bf16 scoring as configured, gated and timed.
+        for bf16 in (False, True):
+            score_fn = _eval_fn(sharding, sharing, bf16)
+            topk = TopKQueryBessKGE(K, c_ns, score_fn, return_scores=True)
+            fwd = build_topk_forward(topk, device=device)
+            fwd(params, batches[0])  # warm-up
+            sync(device)
+            reset_counts()
+            t = time.perf_counter()
+            outs = [fwd(params, b) for b in batches]
+            sync(device)
+            ms = (time.perf_counter() - t) / len(batches) * 1e3
+            counts = read_counts()
+            if on_card:
+                expect_counts(f"candidate top-k {name}", counts,
+                              {"l1_distance_matrix": TOPK_BPS * len(batches)} if sharing else {})
+            entry["sure"]["bf16" if bf16 else "fp32"] = sum(
+                _hold_candidate_topk(f"candidate top-k {name}", o, params, score_fn, sharding,
+                                     triples[p.triple_sort_idx], own_sorted, b)
+                for o, b in zip(outs, batches))
+        entry.update(ms_per_batch=ms, wrapper_launches=counts["l1_distance_matrix"],
+                     window=min(topk.window_size, -(-own.shape[1] // 128) * 128))
+        if sharing and on_card:
+            kernels = device_kernels(lambda: fwd(params, batches[0]), 3)
+            entry["b5_per_batch_by_name"] = sum(
+                n for key, (_, n) in kernels.items() if "l1_distance_small_kernel" in key)
+            if entry["b5_per_batch_by_name"] != TOPK_BPS:
+                raise AssertionError(f"candidate top-k shared: {kernels}")
+        result["topk"][name] = entry
+        say("eval", f"candidate top-{K} {name} ({own.shape[1]} candidates, {smi}): {ms:.3f} ms per"
+            f" {TOPK_BPS * VALID_SHARD_BS}-query batch (bf16), window {entry['window']}, B5"
+            f" {entry['wrapper_launches']} launches over {len(batches)} batches"
+            f"{', ' + str(entry.get('b5_per_batch_by_name')) + ' per batch by name' if sharing else ''};"
+            f" top-{K} of {n_top} queries equal a plain ranking of their candidates"
+            f" ({entry['sure']['fp32']} fp32, {entry['sure']['bf16']} bf16 with a clear 10th/11th"
+            f" gap)")
+    return result
+
+
+def _allscores(gen: torch.Generator, profile: bool, device: str, smi: str) -> dict:
+    """bench.py's run_allscores: AllScoresPipeline of (h, r, ?) queries
+    against every entity, window by window, with a filtered pass."""
+    on_card = device == "cuda"
+    t = time.perf_counter()
+    sharding = Sharding.create(AS_ENTITY, 1, seed=SEED)
+    rng = np.random.default_rng(SEED + 1)
+    triples = _distinct_queries(rng, AS_ENTITY, AS_QUERIES)
+    dataset = KGDataset(n_entity=AS_ENTITY, n_relation_type=N_RELATION,
+                        triples={"test": np.zeros((1, 3), np.int32)},
+                        original_triple_ids={"test": np.arange(1)})
+    pts = PartitionedTripleSet.create_from_queries(dataset, sharding, triples[:, :2], "hr",
+                                                   ground_truth=triples[:, 2])
+    ns = PlaceholderNegativeSampler(corruption_scheme="t", seed=SEED)
+    sampler = RigidShardedBatchSampler(pts, ns, shard_bs=AS_SHARD_BS, batches_per_step=AS_BPS,
+                                       seed=SEED, return_triple_idx=True)
+    score_fn = _eval_fn(sharding, sharing=True)
+    params = score_fn.initial_params_device(device=device, generator=gen)
+    n_batches = len(list(sampler.epoch_index_blocks(False)))
+    # Filtered pass on the random table: every query has AS_KNOWN other known tails.
+    known = np.repeat(triples, AS_KNOWN, axis=0)
+    known[:, 2] = rng.integers(AS_ENTITY, size=len(known))
+    filtered = AllScoresPipeline(sampler, "t", score_fn,
+                                 evaluation=Evaluation(["mrr", "hits@10"], return_ranks=True),
+                                 filter_triples=[known], return_scores=True,
+                                 window_size=AS_WINDOW, device=device)
+    n_step = filtered.bess_module.n_step
+    say("eval", f"allscores: {AS_QUERIES} queries x {AS_ENTITY} entities, {n_batches} batches of"
+        f" {AS_BPS} x {AS_SHARD_BS}, {n_step} windows of {AS_WINDOW}"
+        f" ({time.perf_counter() - t:.1f}s set-up)")
+    t = time.perf_counter()
+    out = filtered.forward(params)
+    filtered_s = time.perf_counter() - t
+    scores = out["scores"]
+    tri = filtered.triples[out["triple_idx"]]
+    rows = np.arange(len(tri))
+    pairs = get_entity_filter(tri, known, "t")
+    expect = np.zeros(scores.shape, bool)
+    expect[pairs[:, 0], pairs[:, 1]] = True
+    expect[rows, tri[:, 2]] = False  # the true score is restored
+    if not np.array_equal(np.isneginf(scores), expect):
+        raise AssertionError("allscores filtered: -inf entries differ from get_entity_filter's")
+    ranked = scores.copy()
+    true = ranked[rows, tri[:, 2]].copy()
+    ranked[rows, tri[:, 2]] = -np.inf
+    n_opt = (ranked > true[:, None]).sum(1)
+    n_pess = (ranked >= true[:, None]).sum(1)
+    numpy_ranks = (1.0 + 0.5 * (n_opt + n_pess)).astype(np.float32)
+    if not np.array_equal(out["ranks"], numpy_ranks):
+        raise AssertionError("allscores filtered: ranks differ from a numpy ranking")
+    del ranked, scores, out
+    say("eval", f"allscores filtered pass ({filtered_s:.2f}s): {len(pairs)} filter pairs, -inf"
+        f" exactly there, ranks equal a numpy ranking of the returned matrix")
+
+    # Planted answers: scores against one full-table plain matrix, MRR 1.
+    _plant(params, sharding, triples)
+    pipe = AllScoresPipeline(sampler, "t", score_fn,
+                             evaluation=Evaluation(["mrr", "hits@10"], reduction="sum"),
+                             return_scores=True, window_size=AS_WINDOW, device=device)
+    reset_counts()
+    t = time.perf_counter()
+    out = pipe.forward(params)
+    sync(device)
+    scores_s = time.perf_counter() - t
+    counts = read_counts()
+    if on_card:
+        expect_counts("allscores pipeline", counts,
+                      {"l1_distance_matrix": n_step * AS_BPS * n_batches})
+    if out["metrics_avg"]["mrr"] != 1.0:
+        raise AssertionError(f"allscores: planted answers give {out['metrics_avg']}")
+    table, rel = params["entity_embedding"], params["relation_embedding"]
+    e2i = torch.as_tensor(sharding.entity_to_idx, device=table.device)
+    tri = triples[pts.triple_sort_idx[out["triple_idx"]]]
+    pool = table[e2i].to(torch.bfloat16)  # global order
+    err = 0.0
+    for i in range(0, len(tri), AS_SHARD_BS):
+        h, r = (torch.from_numpy(tri[i:i + AS_SHARD_BS, j].astype(np.int64)).to(table.device)
+                for j in (0, 1))
+        query = table[e2i[h]].to(torch.bfloat16) + rel[r].to(torch.bfloat16)
+        want = -l1_kernels.l1_distance_matrix_plain(query, pool).float()
+        got = torch.from_numpy(out["scores"][i:i + AS_SHARD_BS]).to(table.device)
+        diff = (got - want).abs()
+        if not (diff <= BF16_ULP * (want.abs() + want.abs().max())).all():
+            raise AssertionError(f"allscores: scores off the plain full-table matrix by"
+                                 f" {diff.max().item()}")
+        err = max(err, diff.max().item())
+    del pool, out
+    # The end-to-end pipeline as bench.py runs it: metrics only.
+    bench_pipe = AllScoresPipeline(sampler, "t", score_fn,
+                                   evaluation=Evaluation(["mrr", "hits@10"], reduction="sum"),
+                                   window_size=AS_WINDOW, device=device)
+    t = time.perf_counter()
+    e2e = bench_pipe.forward(params)
+    e2e_s = time.perf_counter() - t
+
+    # The device sweep: every window of a batch, no host sync between them.
+    fwd = pipe._fwd
+    dbatches = [_batch_tensors(sampler.sample_batch(b), ("relation", "head", "tail"),
+                               torch.device(device)) for b in sampler.epoch_index_blocks(False)]
+
+    def sweep():
+        return torch.stack([fwd(params, b, i).sum(dtype=torch.float32)
+                            for b in dbatches for i in range(n_step)]).sum()
+
+    float(sweep())  # warm-up
+    if on_card:
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        tot = sweep()
+    finally:
+        if on_card:
+            torch.cuda.set_sync_debug_mode("default")
+    float(tot)
+    times = []
+    for _ in range(AS_REPEATS):
+        t = time.perf_counter()
+        for _ in range(AS_SWEEPS):
+            tot = sweep()
+        float(tot)  # fetch = sync
+        times.append((time.perf_counter() - t) / AS_SWEEPS)
+    med = float(np.median(times))
+    result = {
+        "candidate_scores_per_s": AS_QUERIES * AS_ENTITY / med,
+        "spread_candidate_scores_per_s": [AS_QUERIES * AS_ENTITY / max(times),
+                                          AS_QUERIES * AS_ENTITY / min(times)],
+        "ms_per_batch": med / n_batches * 1e3, "n_queries": AS_QUERIES, "n_entity": AS_ENTITY,
+        "window": AS_WINDOW, "windows": n_step, "batches": n_batches,
+        "host_pipeline_candidate_scores_per_s": AS_QUERIES * AS_ENTITY / e2e_s,
+        "host_pipeline_s": e2e_s, "scores_pass_s": scores_s, "filtered_pass_s": filtered_s,
+        "metrics_mrr": e2e["metrics_avg"]["mrr"], "scores_max_abs_err": err,
+        "b5_wrapper_launches_per_pass": counts["l1_distance_matrix"],
+    }
+    if on_card:
+        kernels = device_kernels(sweep, 2)
+        result["b5_per_batch_by_name"] = sum(
+            n for key, (_, n) in kernels.items() if "l1_distance_small_kernel" in key) / n_batches
+        if result["b5_per_batch_by_name"] != n_step * AS_BPS:
+            raise AssertionError(f"allscores sweep: {kernels}")
+        # B5 alone at the window's shape.
+        a = uniform((AS_SHARD_BS, DIM), gen, DIM).to(torch.bfloat16)
+        b = uniform((AS_WINDOW, DIM), gen, DIM).to(torch.bfloat16)
+        dist = l1_kernels.l1_distance_matrix(a, b)
+        ref = l1_kernels.l1_distance_matrix_plain(a, b).float()
+        b5_err = (dist.float() - ref).abs()
+        if not (b5_err <= ATOL + (RTOL + BF16_ULP) * ref.abs()).all():
+            raise AssertionError(f"B5 at the allscores shape off by {b5_err.max().item()}")
+        a32, b32 = a.float(), b.float()
+        result["b5"] = {
+            "shape": [AS_SHARD_BS, AS_WINDOW, DIM, "bf16"], "max_abs_err": b5_err.max().item(),
+            "ms": cuda_ms(lambda: l1_kernels.l1_distance_matrix(a, b), 20),
+            "plain_ms": cuda_ms(lambda: l1_kernels.l1_distance_matrix_plain(a, b), 3),
+            "library_ms": cuda_ms(lambda: torch.cdist(a32, b32, p=1), 3),
+            "bound": bound_ms(AS_SHARD_BS, AS_WINDOW, DIM, (AS_SHARD_BS + AS_WINDOW) * DIM * 2,
+                              AS_SHARD_BS * AS_WINDOW * 2),
+        }
+        r5 = result["b5"]
+        say("eval", f"B5 at {AS_SHARD_BS} x {AS_WINDOW} x {DIM} bf16 ({smi}): kernel"
+            f" {r5['ms']:.4f} ms per launch, plain {r5['plain_ms']:.3f} ms, library (fp32 cdist)"
+            f" {r5['library_ms']:.3f} ms, bound {r5['bound'][0]:.4f} ms ({r5['bound'][1]}),"
+            f" max|err| {r5['max_abs_err']:.3g}")
+    say("eval", f"allscores ({smi}): {result['candidate_scores_per_s']:.4g} candidate-scores/s,"
+        f" {result['ms_per_batch']:.3f} ms per {AS_BPS * AS_SHARD_BS}-query batch (device sweep,"
+        f" median of {AS_REPEATS} x {AS_SWEEPS}, no host sync between windows); pipeline end to"
+        f" end {e2e_s:.2f} s ({result['host_pipeline_candidate_scores_per_s']:.4g}"
+        f" candidate-scores/s), with the score matrix returned {scores_s:.2f} s; scores within"
+        f" 2^-7 of a plain full-table matrix (max|err| {err:.3g}), planted MRR 1.0, B5"
+        f" {counts['l1_distance_matrix']} launches per pass"
+        f"{', ' + str(result.get('b5_per_batch_by_name')) + ' per batch by name' if on_card else ''}")
+    if profile and on_card:
+        result["profile"] = profile_run(sweep, n_batches, "eval_allscores_trace.json")
+    return result
+
+
+def eval_phase(gen: torch.Generator, profile: bool = False, device: str = "cuda",
+               smi: str = "") -> dict:
+    """Evaluation and inference as bench.py's valid and allscores modes run
+    them (``device`` "cpu" rehearses the phase without the card's gates)."""
+    result = {"valid": _valid(gen, profile, device, smi)}
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    result["allscores"] = _allscores(gen, profile, device, smi)
+    return result
+
+
 def profile_steps(step, params, state, batches, trace: str) -> dict:
     """Device time by kernel and the device's busy share over a few host-fed
     steps (``torch.profiler``); the trace goes to chiprun_out/."""
@@ -2937,7 +3412,7 @@ def ptxas_report(names=("l1_distance", "dense_adamw")) -> None:
                 raise AssertionError(f"{k['name']} spills {k['spills']}")
 
 
-PHASES = ("training", "dense", "device", "packed", "yago", "scorers")
+PHASES = ("training", "dense", "device", "packed", "yago", "scorers", "eval")
 
 
 def profiled_phases(argv) -> set:
@@ -3002,10 +3477,20 @@ def main() -> int:
     yago_run = yago(gen, profile="yago" in profile)
     torch.cuda.empty_cache()
     scorer_runs = scorers(gen, profile="scorers" in profile)
+    torch.cuda.empty_cache()
+    eval_run = eval_phase(gen, profile="eval" in profile, smi=smi)
     results["dense_adamw_update"]["launches_yago"] = {
         "host_step": yago_run["host_step_launches"],
         "first_device_call": yago_run["device"]["first_call_wrapper_launches"],
         "per_call_by_name": yago_run["device"]["launches_per_call"]}
+    b5 = eval_run["allscores"]["b5"]
+    results["l1_distance_matrix"]["launches_eval"] = {
+        "allscores_pipeline_wrapper": eval_run["allscores"]["b5_wrapper_launches_per_pass"],
+        "allscores_per_batch_by_name": eval_run["allscores"]["b5_per_batch_by_name"],
+        "shared_candidate_topk_per_batch_by_name":
+            eval_run["valid"]["topk"]["shared"]["b5_per_batch_by_name"],
+        "shared_candidate_topk_wrapper": eval_run["valid"]["topk"]["shared"]["wrapper_launches"]}
+    results["l1_distance_matrix"]["allscores_shape"] = b5
     results["scatter_rows"]["launches_scorers"] = {
         name: {"host_step": r["host_step_launches"],
                "first_device_call": r["first_call_wrapper_launches"],
@@ -3035,9 +3520,17 @@ def main() -> int:
                          bound_ms_autograd_shape=t["bound"][0])
         if "library_kernel_ms" in r:
             entry["library_kernel_ms"] = r["library_kernel_ms"]
-        for key in ("launches_yago", "launches_scorers"):
+        for key in ("launches_yago", "launches_scorers", "launches_eval"):
             if key in r:
                 entry[key] = r[key]
+        if "allscores_shape" in r:  # B5 at the all-scores window's shape too
+            t = r["allscores_shape"]
+            entry.update(allscores_shape=t["shape"], ms_allscores_shape=t["ms"],
+                         plain_ms_allscores_shape=t["plain_ms"],
+                         library_ms_allscores_shape=t["library_ms"],
+                         bound_ms_allscores_shape=t["bound"][0],
+                         bound_by_allscores_shape=t["bound"][1],
+                         max_abs_err_allscores_shape=t["max_abs_err"])
         if "ms_k2" in r:  # B8 at k = 2 beside the k = 3 numbers above
             entry.update(k=3, ms_k2=r["ms_k2"], plain_ms_k2=r["plain_ms_k2"],
                          library_ms_k2=r["library_ms_k2"], bound_ms_k2=r["bound_k2"][0],
@@ -3102,6 +3595,14 @@ def main() -> int:
         "first_call_wrapper_launches", "launches_per_call")} for name, r in scorer_runs.items()},
         "steps_per_call": WIKIKG2_SPC, "positives_per_step": SHARD_BS_TRAIN * BPS,
         "topk_queries": SCORER_QUERIES, "card": smi}), flush=True)
+    print(json.dumps({"eval": {
+        "valid": {k: v for k, v in eval_run["valid"].items() if k != "profile"},
+        "valid_busy_pct": eval_run["valid"].get("profile", {}).get("busy_pct"),
+        "allscores": {k: v for k, v in eval_run["allscores"].items() if k not in ("b5", "profile")},
+        "allscores_busy_pct": eval_run["allscores"].get("profile", {}).get("busy_pct"),
+        "deviations": ["heads and tails of the planted queries are distinct entities",
+                       "valid candidates never hold the triple's own tail"],
+        "card": smi}}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

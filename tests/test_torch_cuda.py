@@ -962,3 +962,128 @@ def test_pool_product_accumulates_in_fp32_on_the_card(cuda, dtype):
         assert err.max() <= 1e-5 * want.abs().max()
     else:
         assert (err <= 2.0**-8 * want.abs() + 1e-6 * want.abs().max()).all()
+
+
+# --------------------------------------------------------------------------
+# Evaluation and inference (ROADMAP A14)
+
+
+def _allscores_setup(n_entity=3000, window=1024, bf16=False):
+    from besskge_tpu_torch.bess import AllScoresBESS
+
+    sharding = Sharding.create(n_entity, 1, seed=0)
+    fn = TransE(True, 1, sharding, 7, 128, seed=0)
+    if bf16:
+        fn.compute_dtype = torch.bfloat16
+    ns = PlaceholderNegativeSampler("t")
+    rng = np.random.default_rng(0)
+    tri = np.stack([rng.integers(n_entity, size=200), rng.integers(7, size=200),
+                    rng.integers(n_entity, size=200)], 1).astype(np.int32)
+    ds = KGDataset(n_entity=n_entity, n_relation_type=7, triples={"test": tri},
+                   original_triple_ids={"test": np.arange(200)})
+    pts = PartitionedTripleSet.create_from_dataset(ds, "test", sharding, partition_mode="h_shard")
+    sampler = RigidShardedBatchSampler(pts, ns, shard_bs=64, batches_per_step=2, seed=0,
+                                       return_triple_idx=True)
+    return AllScoresBESS(ns, fn, window), fn, sampler, tri
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["fp32", "bf16"])
+def test_allscores_windows_on_the_card_match_the_cpu(cuda, bf16):
+    """Every window of AllScoresBESS (B5 on the card, one launch per
+    micro-batch) against the CPU's plain version: within 1e-5 (fp32) or
+    2^-7 (bf16 scores) x (|want| + max|want|); the last window clamped."""
+    module, fn, sampler, _ = _allscores_setup(bf16=bf16)
+    params = fn.initial_params(device="cpu")
+    card = {k: v.to(cuda) for k, v in params.items()}
+    batch = sampler.sample_batch(next(sampler.epoch_index_blocks(False)))
+    on_card = bess.build_allscores_forward(module)
+    on_cpu = bess.build_allscores_forward(module, device="cpu")
+    rtol = 2.0**-7 if bf16 else 1e-5
+    assert module.n_step == 3
+    for step in range(module.n_step):
+        l1_kernels.reset_launch_counts()
+        got = on_card(card, batch, step)
+        torch.cuda.synchronize()
+        assert l1_kernels.l1_distance_matrix.launches == 2  # one per micro-batch
+        want = on_cpu(params, batch, step).float()
+        assert got.shape == want.shape == (2, 1, 64, 1024)
+        tol = rtol * (want.abs() + want.abs().max())
+        assert ((got.float().cpu() - want).abs() <= tol).all(), step
+
+
+def test_pipeline_stitch_on_the_card_equals_a_host_stitch(cuda):
+    """AllScoresPipeline stitches, filters and ranks on the card; its score
+    matrix equals, bit for bit, the JAX package's host-side recipe applied to
+    the same windows copied to the host (stitch, column map, candidate and
+    filter masks, the true score restored)."""
+    from besskge_tpu_torch.metric import Evaluation
+    from besskge_tpu_torch.pipeline import AllScoresPipeline
+    from besskge_tpu_torch.utils import get_entity_filter
+
+    module, fn, sampler, tri = _allscores_setup(window=1280)
+    params = {k: v.to(cuda) for k, v in fn.initial_params(device="cpu").items()}
+    known = np.concatenate([tri, (tri + [0, 0, 1]) % [3000, 7, 3000]]).astype(np.int32)
+    cands = np.arange(0, 3000, 2, dtype=np.int32)
+    pipe = AllScoresPipeline(sampler, "t", fn, evaluation=Evaluation(["mrr"], return_ranks=True),
+                             filter_triples=[known], candidate_ents=cands, return_scores=True,
+                             window_size=1280)
+    out = pipe.forward(params)
+    rows = []
+    for batch in sampler.get_dataloader(shuffle=False):
+        mask = batch["triple_mask"].reshape(-1)
+        windows = [pipe._fwd(params, batch, i).cpu().numpy() for i in range(pipe.bess_module.n_step)]
+        scores = np.concatenate([w.reshape(-1, w.shape[-1]) for w in windows], axis=-1)
+        filt = scores[mask][:, pipe._col_select].astype(np.float32)
+        filt[:, pipe.candidate_mask] = -np.inf
+        gt = batch["tail"].reshape(-1)[mask]
+        true = filt[np.arange(len(gt)), gt]
+        pairs = get_entity_filter(pipe.triples[batch["triple_idx"].reshape(-1)[mask]], known, "t")
+        filt[pairs[:, 0], pairs[:, 1]] = -np.inf
+        filt[np.arange(len(gt)), gt] = true
+        rows.append(filt)
+    np.testing.assert_array_equal(out["scores"], np.concatenate(rows))
+    assert np.isneginf(out["scores"]).any() and np.isfinite(out["ranks"]).all()
+
+
+def test_device_eval_block_makes_no_host_sync(cuda):
+    """run_device_eval's block runner, on a block staged on the card, runs
+    under torch.cuda.set_sync_debug_mode("error"), and its sums equal the
+    stepwise build_bess_forward loop's."""
+    from besskge_tpu_torch.bess import ScoreMovingBessKGE, _FORWARD_KEYS, build_bess_forward
+    from besskge_tpu_torch.eval_loop import _stack_block, make_block_runner, run_device_eval
+    from besskge_tpu_torch.metric import Evaluation
+    from besskge_tpu_torch.negative_sampler import TripleBasedShardedNegativeSampler
+
+    rng = np.random.default_rng(1)
+    n = 4000
+    tri = np.stack([rng.integers(n, size=900), rng.integers(9, size=900),
+                    rng.integers(n, size=900)], 1).astype(np.int32)
+    ds = KGDataset(n_entity=n, n_relation_type=9, triples={"valid": tri},
+                   original_triple_ids={"valid": np.arange(900)},
+                   neg_tails={"valid": rng.integers(n, size=(900, 50)).astype(np.int32)})
+    sharding = Sharding.create(n, 1, seed=0)
+    pts = PartitionedTripleSet.create_from_dataset(ds, "valid", sharding,
+                                                   partition_mode="ht_shardpair")
+    ns = TripleBasedShardedNegativeSampler(None, pts.neg_tails, sharding, "t", seed=0)
+    sampler = RigidShardedBatchSampler(pts, ns, shard_bs=64, batches_per_step=3, seed=0,
+                                       duplicate_batch=False)
+    fn = TransE(False, 1, sharding, 9, 128, seed=0)
+    fn.compute_dtype = torch.bfloat16
+    module = ScoreMovingBessKGE(ns, fn, evaluation=Evaluation(["mrr", "hits@10"], reduction="sum"))
+    params = fn.initial_params(device=cuda)
+    steps = [{k: v for k, v in b.items() if k in _FORWARD_KEYS}
+             for b in sampler.get_dataloader(shuffle=False)]
+    block = _stack_block(steps[:4], 4, cuda)
+    run_block = make_block_runner(module)
+    run_block(params, block)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        sums = run_block(params, block)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    fwd = build_bess_forward(module)
+    want = sum(fwd(params, s)["metrics"].sum((0, 1)) for s in steps[:4])
+    torch.testing.assert_close(sums, want, rtol=1e-6, atol=0)
+    metrics, n_q = run_device_eval(module, params, sampler, steps_per_block=3)
+    assert n_q == 900 and 0 < metrics["mrr"] <= 1

@@ -59,6 +59,8 @@ def _shared():
             out.append((f"{info.name}.{name}", port_obj, jax_obj))
             if isinstance(port_obj, type):
                 for attr, val in vars(port_obj).items():
+                    if isinstance(val, (classmethod, staticmethod)):
+                        val = getattr(port_obj, attr)  # bound: no ``cls``
                     if not attr.startswith("_") and callable(val) and hasattr(jax_obj, attr):
                         out.append((f"{info.name}.{name}.{attr}", val, getattr(jax_obj, attr)))
     return out
@@ -89,7 +91,19 @@ def test_the_scan_sees_the_ported_modules():
                  "besskge_tpu_torch.trainer.Trainer.save", "besskge_tpu_torch.sharding.Sharding.save",
                  "besskge_tpu_torch.dataset.KGDataset.save",
                  "besskge_tpu_torch.scoring.BaseScoreFunction.update_sharding",
-                 "besskge_tpu_torch.embedding.refactor_embedding_sharding"):
+                 "besskge_tpu_torch.embedding.refactor_embedding_sharding",
+                 "besskge_tpu_torch.bess.ScoreMovingBessKGE", "besskge_tpu_torch.bess.AllScoresBESS",
+                 "besskge_tpu_torch.bess.AllScoresBESS.forward",
+                 "besskge_tpu_torch.bess.build_bess_forward",
+                 "besskge_tpu_torch.bess.build_allscores_forward",
+                 "besskge_tpu_torch.eval_loop.run_device_eval",
+                 "besskge_tpu_torch.eval_loop.make_block_runner",
+                 "besskge_tpu_torch.pipeline.AllScoresPipeline",
+                 "besskge_tpu_torch.pipeline.AllScoresPipeline.forward",
+                 "besskge_tpu_torch.negative_sampler.TripleBasedShardedNegativeSampler",
+                 "besskge_tpu_torch.utils.get_entity_filter",
+                 "besskge_tpu_torch.dataset.KGDataset.from_dataframe",
+                 "besskge_tpu_torch.dataset.KGDataset.build_ogbl_wikikg2"):
         assert must in names, must
     assert len(SHARED) > 60
 
@@ -228,16 +242,10 @@ def test_row_optimizer_fields_equal_the_reference(cls):
 #: ROADMAP item. A gap that is not listed here fails the member scan, and so
 #: does a listed one that the port has closed.
 UNPORTED_MEMBERS = {
-    **{f"bess.{n}": "A14" for n in ("AllScoresBESS", "ScoreMovingBessKGE",
-                                     "build_allscores_forward", "build_bess_forward")},
     **{f"bess.{c}.psum": "A15" for c in ("BessKGE", "EmbeddingMovingBessKGE",
-                                          "TopKQueryBessKGE")},
-    **{f"dataset.KGDataset.{n}": "A14" for n in ("build_ogbl_biokg", "build_ogbl_wikikg2",
-                                                 "build_openbiolink", "build_yago310",
-                                                 "from_dataframe")},
-    "negative_sampler.TripleBasedShardedNegativeSampler": "A14",
+                                          "ScoreMovingBessKGE", "TopKQueryBessKGE",
+                                          "AllScoresBESS")},
     "scoring.ConvE": "A11",
-    "utils.get_entity_filter": "A14",
 }
 
 
@@ -325,3 +333,47 @@ def _sampler_module(jax_side):
     ns = negative_sampler.RandomShardedNegativeSampler(3, sh, 0, "ht", False, True)
     fn = scoring.TransE(True, 1, sh, 5, 16, inverse_relations=True)
     return bess.EmbeddingMovingBessKGE(ns, fn, loss.SampledSoftmaxCrossEntropyLoss(200))
+
+
+def _topk_case(pkg, sampler, sharing, scheme, mask_on_gather, merge):
+    """Construct a TopKQueryBessKGE of either package; the error it raises,
+    as (type name, message), or None."""
+    if pkg == "jax":
+        from besskge_tpu import bess, negative_sampler as ns_mod, scoring, sharding
+        kw = {"axis_name": None}
+    else:
+        from besskge_tpu_torch import bess, negative_sampler as ns_mod, scoring, sharding
+        kw = {}
+    sh = sharding.Sharding.create(100, 1, seed=0)
+    fn = scoring.TransE(sharing, 1, sh, 3, 8)
+    if sampler == "placeholder":
+        ns = ns_mod.PlaceholderNegativeSampler(scheme)
+    else:
+        n = 1 if sampler == "shared" else 20
+        negs = np.arange(n * 6, dtype=np.int32).reshape(n, 6) % 100
+        ns = ns_mod.TripleBasedShardedNegativeSampler(
+            negs if scheme == "h" else None, negs if scheme != "h" else None, sh,
+            "t" if scheme == "ht" else scheme, 0, mask_on_gather=mask_on_gather)
+        ns.corruption_scheme = scheme
+    try:
+        bess.TopKQueryBessKGE(5, ns, fn, merge_mode=merge, **kw)
+    except (ValueError, NotImplementedError) as err:
+        return type(err).__name__, str(err)
+    return None
+
+
+@pytest.mark.parametrize("sampler", ["placeholder", "shared", "per_triple"])
+@pytest.mark.parametrize("sharing", [True, False])
+@pytest.mark.parametrize("scheme", ["t", "h", "ht"])
+@pytest.mark.parametrize("mask_on_gather,merge", [(True, "auto"), (False, "auto"),
+                                                  (True, "sideways")])
+def test_topk_constructor_raises_where_the_reference_does(sampler, sharing, scheme,
+                                                          mask_on_gather, merge):
+    """Candidate-set top-k (A14): the port's constructor takes and refuses
+    the same samplers and scorers as the reference's, with its words: a flat
+    candidate format needs sharing, a per-triple one forbids it, a
+    TripleBasedShardedNegativeSampler needs mask_on_gather=True, only "h"
+    and "t" are taken."""
+    want = _topk_case("jax", sampler, sharing, scheme, mask_on_gather, merge)
+    got = _topk_case("port", sampler, sharing, scheme, mask_on_gather, merge)
+    assert got == want

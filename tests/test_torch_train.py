@@ -388,10 +388,18 @@ def test_unported_training_paths_raise():
     # onto a mesh is not.
     with pytest.raises(NotImplementedError, match="A15"):
         port_checkpoint.load_checkpoint_sharded("ckpt", mesh="mesh")
-    with pytest.raises(NotImplementedError, match="A14"):
-        port_bess.EmbeddingMovingBessKGE(module.negative_sampler, fn,
-                                         port_loss.SampledSoftmaxCrossEntropyLoss(N_ENTITY),
-                                         evaluation=object())
+    # Metrics in the forward are ported (tests/test_torch_eval.py): a module
+    # with an evaluation no longer raises.
+    from besskge_tpu_torch.metric import Evaluation
+
+    evaluated = port_bess.EmbeddingMovingBessKGE(
+        module.negative_sampler, fn, port_loss.SampledSoftmaxCrossEntropyLoss(N_ENTITY),
+        evaluation=Evaluation(["mrr"], reduction="sum"))
+    separate = port_optim.RowSGDM(LR, momentum=0.9)
+    out = port_trainer.build_train_step(evaluated, sgd, None, separate, device="cpu")(
+        dict(plain), port_trainer.init_optimizer_state(sgd, dict(plain), None, separate),
+        _batches(sampler, 1)[0])[2]
+    assert out["metrics"].shape == (BPS, 1, 1)
     with pytest.raises(TypeError, match="ShardedBatchSampler or a DeviceBatchSampler"):
         port_trainer.Trainer(module, object(), sgd, entity_optimizer=row, device="cpu")
     with pytest.raises(ValueError, match="steps_per_call requires a DeviceBatchSampler"):
