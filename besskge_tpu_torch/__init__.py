@@ -9,8 +9,10 @@ The port imports neither ``jax`` nor ``besskge_tpu``: the numpy-only modules
 it needs are copied. Entry points run on ``cuda`` unless the caller passes
 ``device="cpu"``, and raise when no card is there.
 
-Ported so far, on one device: every scorer but ConvE (TransE, RotatE,
-DistMult, ComplEx, PairRE, TripleRE, BoxE, InterHT, TranS) and every loss;
+Ported so far, on one device: every scorer (TransE, RotatE, DistMult,
+ComplEx, PairRE, TripleRE, BoxE, InterHT, TranS, and ConvE with its nested
+trunk params, dropout keys drawn from a counter hash, in CUDA graphs too,
+and the in-step BatchNorm EMA) and every loss;
 top-k serving of each (``bess.TopKQueryBessKGE`` with
 ``build_topk_forward``), sparse training with every row optimizer
 (``RowSGDM``, ``RowAdamW``, ``RowAdagrad``; fp32, plain 16-bit and

@@ -53,6 +53,7 @@ from typing import Any, Callable, Dict, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from besskge_tpu_torch.device_sampler import _as_key, split_key
 from besskge_tpu_torch.loss import BaseLossFunction
 from besskge_tpu_torch.metric import Evaluation
 from besskge_tpu_torch.negative_sampler import (
@@ -216,14 +217,18 @@ class BessKGE(ABC):
         interleaved); ``gathered_emb`` optionally supplies the gathered
         entity rows (see :meth:`gather_plan`). ``triple_mask`` masks the
         metrics (padding triples count 0).
-        ``train`` and ``rng`` (a dropout stream) change nothing for the
-        scorers ported so far, as in the JAX package; the one scorer with
-        dropout, ConvE, waits on ROADMAP A11.
+        ``train`` and ``rng`` (a dropout key, as the device sampler's keys)
+        go to every score call of the micro-batch: ConvE's BatchNorm takes
+        batch statistics with ``train``, and its dropout draws from ``rng``
+        (the positive's query gets the same masks in ``score_triple`` and in
+        ``score_tails``, as in the JAX package); the other scorers ignore
+        both.
         """
         if triple_weight is None:
             triple_weight = torch.ones((), dtype=torch.float32, device=relation.device)
         positive_score, negative_score = self.score_batch(
-            params, head, relation, tail, negative, gathered_emb=gathered_emb
+            params, head, relation, tail, negative, train=train, rng=rng,
+            gathered_emb=gathered_emb
         )
         n_shard, ppp = relation.shape
         bs = n_shard * ppp
@@ -346,21 +351,22 @@ class EmbeddingMovingBessKGE(BessKGE):
             .reshape(b_neg, n_shard * n_neg, d)
         )
 
+        kw = {"train": train, "rng": rng}
         positive_score = self.score_fn.score_triple(
-            params, head_emb.reshape(bs, d), relation.reshape(bs), tail_emb.reshape(bs, d)
+            params, head_emb.reshape(bs, d), relation.reshape(bs), tail_emb.reshape(bs, d), **kw
         )
 
         if scheme == "h":
             if self.augment_negative:
                 neg_emb = torch.cat([head_emb.reshape(neg_emb.shape[0], -1, d), neg_emb], dim=1)
             negative_score = self.score_fn.score_heads(
-                params, neg_emb, relation.reshape(bs), tail_emb.reshape(bs, d)
+                params, neg_emb, relation.reshape(bs), tail_emb.reshape(bs, d), **kw
             )
         elif scheme == "t":
             if self.augment_negative:
                 neg_emb = torch.cat([tail_emb.reshape(neg_emb.shape[0], -1, d), neg_emb], dim=1)
             negative_score = self.score_fn.score_tails(
-                params, head_emb.reshape(bs, d), relation.reshape(bs), neg_emb
+                params, head_emb.reshape(bs, d), relation.reshape(bs), neg_emb, **kw
             )
         elif scheme == "ht":
             # First half of each partition: head-corrupted; second: tail-
@@ -379,8 +385,8 @@ class EmbeddingMovingBessKGE(BessKGE):
             if self.augment_negative:
                 neg_h = torch.cat([h1.reshape(neg_h.shape[0], -1, d), neg_h], dim=1)
                 neg_t = torch.cat([t2.reshape(neg_t.shape[0], -1, d), neg_t], dim=1)
-            ns_h = self.score_fn.score_heads(params, neg_h, rel1, t1.reshape(-1, d))
-            ns_t = self.score_fn.score_tails(params, h2.reshape(-1, d), rel2, neg_t)
+            ns_h = self.score_fn.score_heads(params, neg_h, rel1, t1.reshape(-1, d), **kw)
+            ns_t = self.score_fn.score_tails(params, h2.reshape(-1, d), rel2, neg_t, **kw)
             negative_score = torch.cat(
                 [ns_h.reshape(n_shard, cut, -1), ns_t.reshape(n_shard, ppp - cut, -1)],
                 dim=1,
@@ -431,6 +437,7 @@ class ScoreMovingBessKGE(BessKGE):
         # One device: the AllGathers add a unit query-shard axis, and this
         # device is shard 0.
         relation_all = relation[None]  # (S_q, S, ppp)
+        kw = {"train": train, "rng": rng}
         pos_local = None
         pos_col = None
 
@@ -449,24 +456,24 @@ class ScoreMovingBessKGE(BessKGE):
             tail_all = tail_emb[None].transpose(0, 1)
             negative_score = self.score_fn.score_heads(
                 params, neg_emb.reshape(-1, n_neg, d), relation_all.reshape(-1),
-                tail_all.reshape(-1, d),
+                tail_all.reshape(-1, d), **kw
             )
             # This device's own tails sit at row 0 of the gathered tensor.
             pos_local = self.score_fn.score_triple(
                 params, head_emb.reshape(bs, d), relation.reshape(bs),
-                tail_all[0].reshape(bs, d),
+                tail_all[0].reshape(bs, d), **kw
             )
         elif scheme == "t":
             head_all = head_emb[None]  # (S_q, S_home, ppp, d)
             negative_score = self.score_fn.score_tails(
                 params, head_all.reshape(-1, d), relation_all.reshape(-1),
-                neg_emb.reshape(-1, n_neg, d),
+                neg_emb.reshape(-1, n_neg, d), **kw
             )
             # Tails of every query device's block 0 live here; their heads
             # and relations arrived with the AllGathers.
             pos_home = self.score_fn.score_triple(
                 params, head_all[:, 0].reshape(bs, d), relation_all[:, 0].reshape(bs),
-                tail_emb.reshape(bs, d),
+                tail_emb.reshape(bs, d), **kw
             )
             pos_col = home_pos_column(pos_home.reshape(n_shard, ppp), 0, ppp)
         elif scheme == "ht":
@@ -482,8 +489,8 @@ class ScoreMovingBessKGE(BessKGE):
                 ne = neg_emb.reshape(n_shard, n_shard, ppp, n_neg, d)
                 neg_h = ne[:, :, :cut].reshape(-1, n_neg, d)
                 neg_t = ne[:, :, cut:].reshape(-1, n_neg, d)
-            ns_h = self.score_fn.score_heads(params, neg_h, rel1, tail_all.reshape(-1, d))
-            ns_t = self.score_fn.score_tails(params, head_all.reshape(-1, d), rel2, neg_t)
+            ns_h = self.score_fn.score_heads(params, neg_h, rel1, tail_all.reshape(-1, d), **kw)
+            ns_t = self.score_fn.score_tails(params, head_all.reshape(-1, d), rel2, neg_t, **kw)
             negative_score = torch.cat([
                 ns_h.reshape(n_shard, n_shard, cut, -1),
                 ns_t.reshape(n_shard, n_shard, ppp - cut, -1),
@@ -491,12 +498,12 @@ class ScoreMovingBessKGE(BessKGE):
             # Head-corrupted half: own tails are in the gathered tensor.
             pos_local = self.score_fn.score_triple(
                 params, head_emb[:, :cut].reshape(-1, d), relation[:, :cut].reshape(-1),
-                tail_all[0].reshape(-1, d),
+                tail_all[0].reshape(-1, d), **kw
             ).reshape(n_shard, cut)
             # Tail-corrupted half: scored here (the tails' home), shipped back.
             pos_home = self.score_fn.score_triple(
                 params, head_all[:, 0].reshape(-1, d), relation_all[:, 0][:, cut:].reshape(-1),
-                tail_emb[:, cut:].reshape(-1, d),
+                tail_emb[:, cut:].reshape(-1, d), **kw
             )
             pos_col = home_pos_column(pos_home.reshape(n_shard, ppp - cut), cut, ppp - cut)
         else:
@@ -637,7 +644,9 @@ class TopKQueryBessKGE:
             gathering layout), or ``None`` to score every local entity.
         :param triple_mask: (shard_bs,) real (non-padding) queries.
         :param negative_mask: (n_shard_dest, B, pad) real candidates.
-        :param train: unused by the scorers ported so far, as ``rng``.
+        :param train: accepted and unused, as ``rng``: the windows score
+            with ``train=False`` (ConvE's BatchNorm on its running stats, no
+            dropout), as the JAX package's.
         """
         sharding = self.sharding
         n_rows = sharding.max_entity_per_shard
@@ -812,9 +821,9 @@ class TopKQueryBessKGE:
             rel, kn = relation[q : q + block], known[q : q + block]
             emb_q = emb[q : q + block] if emb.shape[0] > 1 else emb
             if scheme == "h":
-                parts.append(self.score_fn.score_heads(params, emb_q, rel, kn))
+                parts.append(self.score_fn.score_heads(params, emb_q, rel, kn, train=False))
             else:
-                parts.append(self.score_fn.score_tails(params, kn, rel, emb_q))
+                parts.append(self.score_fn.score_tails(params, kn, rel, emb_q, train=False))
         return parts[0] if len(parts) == 1 else torch.cat(parts)
 
 
@@ -890,9 +899,9 @@ class AllScoresBESS:
             rows = take_rows(table, ent.clamp(max=n_rows - 1), n_rows)
         emb = _cast_gathered(rows, cd)[None]
         if scheme == "h":
-            scores = self.score_fn.score_heads(params, emb, relation, known)
+            scores = self.score_fn.score_heads(params, emb, relation, known, train=False)
         else:
-            scores = self.score_fn.score_tails(params, known, relation, emb)
+            scores = self.score_fn.score_tails(params, known, relation, emb, train=False)
         # One shard: the AllToAll of the (n_shard, shard_bs, window) block is
         # the identity.
         return scores.reshape(relation.shape[0], w)
@@ -935,10 +944,16 @@ def _device_step(
     """The ``bps`` micro-batches of a batch of ``(bps, 1, ...)`` tensors
     through :meth:`BessKGE.forward`, fused with ``torch.func.vmap`` as the
     JAX package fuses them with ``jax.vmap`` on one device: each output
-    ``(bps, ...)``. ``rng`` is accepted and unused until ConvE (ROADMAP
-    A11), as in the score methods."""
+    ``(bps, ...)``. A dropout key ``rng`` (a 0-dim int64 tensor on the
+    batch's device) is split into one key per micro-batch
+    (:func:`~besskge_tpu_torch.device_sampler.split_key`, as the JAX package
+    splits its key), a batched input of the ``vmap``."""
     mbs = {k: v[:, 0] for k, v in batch.items() if k in _FORWARD_KEYS}
-    return torch.func.vmap(lambda mb: bess.forward(params, train=train, **mb))(mbs)
+    if rng is None:
+        return torch.func.vmap(lambda mb: bess.forward(params, train=train, **mb))(mbs)
+    rngs = split_key(rng, next(iter(mbs.values())).shape[0])
+    return torch.func.vmap(lambda mb, r: bess.forward(params, train=train, rng=r, **mb))(
+        mbs, rngs)
 
 
 def _format_outputs(bess: BessKGE, outs: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
@@ -965,7 +980,9 @@ def build_bess_forward(
     device: Optional[Union[str, torch.device]] = None,
 ) -> Callable[..., Dict[str, torch.Tensor]]:
     """Build the forward step ``fn(params, batch, rng=None) -> outputs``,
-    without gradients.
+    without gradients. ``train`` and a dropout key ``rng`` (an int or a
+    0-dim int64 tensor) reach the scorer (ConvE) as in
+    :meth:`BessKGE.forward`.
 
     ``batch`` is a batch-sampler dict of ``(bps, 1, ...)`` numpy arrays or
     tensors; ``params`` must already live on ``device`` (default ``cuda``).
@@ -986,7 +1003,7 @@ def build_bess_forward(
         _check_device(params, device)
         with torch.no_grad():
             outs = _device_step(bess, params, _batch_tensors(batch, _FORWARD_KEYS, device),
-                                train=train, rng=rng)
+                                train=train, rng=_as_key(rng, device))
             return _format_outputs(bess, outs)
 
     return fn

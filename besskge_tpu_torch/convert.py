@@ -18,7 +18,11 @@ __all__ = ["opt_state_from_jax", "opt_state_to_numpy", "params_from_jax", "param
 Device = Optional[Union[str, torch.device]]
 
 
-def _tensor(value: Any, device: torch.device) -> torch.Tensor:
+def _tensor(value: Any, device: torch.device) -> Any:
+    """A tensor of an array, kept by its bits; a dict (ConvE's trunk, its
+    moments) leaf by leaf."""
+    if isinstance(value, dict):
+        return {k: _tensor(v, device) for k, v in value.items()}
     arr = np.array(value)  # a writable copy: torch.from_numpy shares memory
     if arr.dtype.name == "bfloat16":
         return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16).to(device)
@@ -27,7 +31,7 @@ def _tensor(value: Any, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(arr).to(device)
 
 
-def params_from_jax(params: Dict[str, Any], device: Device = None) -> Dict[str, torch.Tensor]:
+def params_from_jax(params: Dict[str, Any], device: Device = None) -> Dict[str, Any]:
     """The port's params from the JAX package's, given as numpy arrays
     (``{k: np.asarray(v) for k, v in jax_params.items()}``), on ``device``
     (default ``cuda``). Values and dtypes are kept bit for bit — a plain
@@ -35,9 +39,10 @@ def params_from_jax(params: Dict[str, Any], device: Device = None) -> Dict[str, 
     one, a row-pair-packed table (int32 bf16 pairs, uint32 fp16 pairs) or its
     triplet ``(3P, D)`` or quintuplet ``(5P, D)`` store, and their
     ``(1, ·, D)`` blocks alike; float16 arrays as they are, bfloat16 arrays
-    (numpy dtype ``bfloat16`` from ``ml_dtypes``) by their bits."""
+    (numpy dtype ``bfloat16`` from ``ml_dtypes``) by their bits. Nested
+    dicts (ConvE's ``bn0``/``bn1``/``bn2``) stay nested."""
     device = resolve_device(device)
-    return {key: _tensor(value, device) for key, value in params.items()}
+    return _tensor(dict(params), device)
 
 
 def _dense_state(parts: Any, device: torch.device, count: Optional[torch.Tensor]) -> Dict[str, Any]:
@@ -48,10 +53,10 @@ def _dense_state(parts: Any, device: torch.device, count: Optional[torch.Tensor]
     for part in parts if isinstance(parts, (tuple, list)) else (parts,):
         fields = getattr(part, "_fields", ())
         if "trace" in fields:
-            out["trace"] = {k: _tensor(v, device) for k, v in part.trace.items()}
+            out["trace"] = _tensor(dict(part.trace), device)
         if "mu" in fields:
-            out["mu"] = {k: _tensor(v, device) for k, v in part.mu.items()}
-            out["nu"] = {k: _tensor(v, device) for k, v in part.nu.items()}
+            out["mu"] = _tensor(dict(part.mu), device)
+            out["nu"] = _tensor(dict(part.nu), device)
         if "count" in fields:
             out["count"] = _tensor(part.count, device).to(torch.int32)
     if "count" not in out:
@@ -102,11 +107,12 @@ def _numpy(value: Any) -> Any:
     return value.numpy()
 
 
-def params_to_numpy(params: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
-    """The port's params as numpy arrays: a packed table (or its triplet or
-    quintuplet store) as its int32 or uint32 words and float16 as float16,
-    bit for bit as the JAX package holds them; a plain bfloat16 table
-    widened to float32 (exact: numpy has no bfloat16)."""
+def params_to_numpy(params: Dict[str, Any]) -> Dict[str, Any]:
+    """The port's params as numpy arrays (nested dicts nested): a packed
+    table (or its triplet or quintuplet store) as its int32 or uint32 words
+    and float16 as float16, bit for bit as the JAX package holds them; a
+    plain bfloat16 table widened to float32 (exact: numpy has no
+    bfloat16)."""
     return _numpy(params)
 
 

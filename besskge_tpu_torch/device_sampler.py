@@ -69,6 +69,14 @@ def split_key(key: torch.Tensor, n: int) -> torch.Tensor:
     return _mix32((_mix32(key ^ _SPLIT_SALT) + _mul32(j, _GOLDEN)) & _M32)
 
 
+def _as_key(key: Optional[Key], device: torch.device) -> Optional[torch.Tensor]:
+    """A key (an int or a 0-dim integer tensor) as a 0-dim int64 tensor on
+    ``device``; ``None`` stays ``None``."""
+    if key is None:
+        return None
+    return torch.as_tensor(key, dtype=torch.int64, device=device)
+
+
 def _uniform(key: torch.Tensor, stream: int, shape) -> torch.Tensor:
     """float32 uniforms in [0, 1) of ``shape`` on the key's device: the
     draws ``i = 0, 1, ...`` of ``stream`` hash ``seed + i·golden`` (mod

@@ -101,22 +101,24 @@ class _L1(torch.autograd.Function):
 
 @contextlib.contextmanager
 def _full_fp32() -> Iterator[None]:
-    """Matrix products accumulated in full fp32 inside the block: fp32 ones
-    without TF32, bf16 and fp16 ones without reduced-precision (split-K)
-    reductions. The caller's settings are restored after it."""
-    prev = torch.get_float32_matmul_precision()
+    """Matrix products on the card accumulated in full fp32 inside the
+    block: fp32 ones without TF32, bf16 and fp16 ones without
+    reduced-precision (split-K) reductions. cuBLAS's own three flags are
+    read and restored: the generic ``torch.get_float32_matmul_precision()``
+    raises (torch 2.9 on) once the per-backend settings disagree, as after
+    ``set_float32_matmul_precision("high")`` and ``allow_tf32 = False``, and
+    its setter would write every backend's precision on the way out."""
     mm = torch.backends.cuda.matmul
-    prev16 = (mm.allow_bf16_reduced_precision_reduction,
-              mm.allow_fp16_reduced_precision_reduction)
-    torch.set_float32_matmul_precision("highest")
+    prev = (mm.allow_tf32, mm.allow_bf16_reduced_precision_reduction,
+            mm.allow_fp16_reduced_precision_reduction)
+    mm.allow_tf32 = False
     mm.allow_bf16_reduced_precision_reduction = False
     mm.allow_fp16_reduced_precision_reduction = False
     try:
         yield
     finally:
-        torch.set_float32_matmul_precision(prev)
-        mm.allow_bf16_reduced_precision_reduction = prev16[0]
-        mm.allow_fp16_reduced_precision_reduction = prev16[1]
+        (mm.allow_tf32, mm.allow_bf16_reduced_precision_reduction,
+         mm.allow_fp16_reduced_precision_reduction) = prev
 
 
 class _Fp32MatMul(torch.autograd.Function):

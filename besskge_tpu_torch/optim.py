@@ -63,7 +63,7 @@ from besskge_tpu_torch.packed import (
     merge_packed_row_writes,
     take_rows,
 )
-from besskge_tpu_torch.utils import _mix32, _mul32
+from besskge_tpu_torch.utils import _first_leaf, _mix32, _mul32, _tree_map
 
 __all__ = [
     "AdamW",
@@ -723,28 +723,31 @@ class SGD:
     learning_rate: LearningRate
     momentum: float = 0.0
 
-    def init(self, params: Dict[str, torch.Tensor]) -> Dict[str, Any]:
-        device = next(iter(params.values())).device
+    def init(self, params: Dict[str, Any]) -> Dict[str, Any]:
+        device = _first_leaf(params).device
         state: Dict[str, Any] = {"count": torch.zeros((), dtype=torch.int32, device=device)}
         if self.momentum:
-            state["trace"] = {k: torch.zeros_like(v) for k, v in params.items()}
+            state["trace"] = _tree_map(torch.zeros_like, params)
         return state
 
     def update_(
         self,
-        grads: Dict[str, torch.Tensor],
+        grads: Dict[str, Any],
         state: Dict[str, Any],
-        params: Dict[str, torch.Tensor],
+        params: Dict[str, Any],
     ) -> Dict[str, Any]:
-        """Update ``params`` (and the momentum in ``state``) in place;
-        returns the new state."""
+        """Update ``params`` (and the momentum in ``state``) in place, leaf by
+        leaf of ``grads`` (nested dicts, as ConvE's trunk, like
+        ``optax``'s trees); returns the new state."""
         lr = _lr_at(self.learning_rate, state["count"])
-        for key, g in grads.items():
-            if self.momentum:
-                m = state["trace"][key]
-                m.mul_(self.momentum).add_(g)
-                g = m
-            params[key].sub_(lr * g)
+
+        def leaf(g: torch.Tensor, p: torch.Tensor, m: torch.Tensor) -> None:
+            p.sub_(lr * m.mul_(self.momentum).add_(g))
+
+        if self.momentum:
+            _tree_map(leaf, grads, params, state["trace"])
+        else:
+            _tree_map(lambda g, p: p.sub_(lr * g), grads, params)
         return {**state, "count": state["count"] + 1}
 
 
@@ -767,33 +770,36 @@ class AdamW:
     eps: float = 1e-8
     weight_decay: float = 1e-4
 
-    def init(self, params: Dict[str, torch.Tensor]) -> Dict[str, Any]:
-        device = next(iter(params.values())).device
+    def init(self, params: Dict[str, Any]) -> Dict[str, Any]:
         return {
-            "count": torch.zeros((), dtype=torch.int32, device=device),
-            "mu": {k: torch.zeros_like(v) for k, v in params.items()},
-            "nu": {k: torch.zeros_like(v) for k, v in params.items()},
+            "count": torch.zeros((), dtype=torch.int32, device=_first_leaf(params).device),
+            "mu": _tree_map(torch.zeros_like, params),
+            "nu": _tree_map(torch.zeros_like, params),
         }
 
     def update_(
         self,
-        grads: Dict[str, torch.Tensor],
+        grads: Dict[str, Any],
         state: Dict[str, Any],
-        params: Dict[str, torch.Tensor],
+        params: Dict[str, Any],
     ) -> Dict[str, Any]:
-        """Update ``params`` and the moments in ``state`` in place; returns
-        the new state."""
+        """Update ``params`` and the moments in ``state`` in place, leaf by
+        leaf of ``grads`` (nested dicts, as ConvE's trunk, whose moments
+        mirror them as ``optax``'s ``mu``/``nu`` trees); returns the new
+        state."""
         lr = _lr_at(self.learning_rate, state["count"])
         count = state["count"] + 1
         t = count.to(torch.float32)
         bc1 = 1 - torch.pow(self.b1, t)
         bc2 = 1 - torch.pow(self.b2, t)
-        for key, g in grads.items():
-            mu, nu = state["mu"][key], state["nu"][key]
+
+        def leaf(g: torch.Tensor, p: torch.Tensor, mu: torch.Tensor, nu: torch.Tensor) -> None:
             mu.copy_((1 - self.b1) * g + self.b1 * mu)
             nu.copy_((1 - self.b2) * (g * g) + self.b2 * nu)
-            u = (mu / bc1) / (torch.sqrt(nu / bc2) + self.eps) + self.weight_decay * params[key]
-            params[key].sub_(lr * u)
+            u = (mu / bc1) / (torch.sqrt(nu / bc2) + self.eps) + self.weight_decay * p
+            p.sub_(lr * u)
+
+        _tree_map(leaf, grads, params, state["mu"], state["nu"])
         return {**state, "count": count}
 
 

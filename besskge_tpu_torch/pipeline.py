@@ -32,7 +32,7 @@ from besskge_tpu_torch.metric import Evaluation
 from besskge_tpu_torch.negative_sampler import PlaceholderNegativeSampler
 from besskge_tpu_torch.packed import is_packed
 from besskge_tpu_torch.scoring import BaseScoreFunction
-from besskge_tpu_torch.utils import get_entity_filter, resolve_device
+from besskge_tpu_torch.utils import _tree_map, get_entity_filter, resolve_device
 
 __all__ = ["AllScoresPipeline"]
 
@@ -150,17 +150,18 @@ class AllScoresPipeline:
     def forward(self, params: Dict[str, Any]) -> Dict[str, Any]:
         """Run the full pipeline over one epoch of the batch sampler.
 
-        ``params`` are tensors (or arrays) of the score function's tables;
-        they are moved to the pipeline's device if they are not there.
+        ``params`` are tensors (or arrays) of the score function's tables,
+        and nested dicts of them (ConvE's trunk); they are moved to the
+        pipeline's device if they are not there.
         Returns numpy arrays: ``scores`` (queries, n_entity) fp32,
         ``topk_global_id``, ``triple_idx``, ``ranks``, ``metrics`` and
         ``metrics_avg``, each where asked for.
         """
         device = self.device
-        params = {
-            k: (v if torch.is_tensor(v) else torch.from_numpy(np.asarray(v))).to(device)
-            for k, v in params.items()
-        }
+        params = _tree_map(
+            lambda v: (v if torch.is_tensor(v) else torch.from_numpy(np.asarray(v))).to(device),
+            params,
+        )
         if is_packed(params["entity_embedding"]) != self._packed_tab:
             raise ValueError(
                 "entity table packedness changed after pipeline "

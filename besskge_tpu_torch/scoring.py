@@ -3,9 +3,9 @@
 Counterpart of ``besskge_tpu/scoring.py``: a score function object holds the
 static configuration and builds the tables; the learnable state is an
 explicit ``params`` dict (``{"entity_embedding": (n_shard *
-max_entity_per_shard, row), "relation_embedding": (n_relation, row)}``)
-passed to every method. Every scorer of the JAX package is ported but
-``ConvE`` (ROADMAP A11).
+max_entity_per_shard, row), "relation_embedding": (n_relation, row)}``, and
+:class:`ConvE`'s nested trunk params) passed to every method. Every scorer
+of the JAX package is ported.
 
 With sample sharing, the bilinear scorers (:class:`DistMult`,
 :class:`ComplEx`) score the shared pool with one product accumulated in fp32
@@ -21,16 +21,21 @@ Score-method shape contract (as in the JAX package):
 * ``score_heads(params, heads (b, n, r_e), rel_id (B,), tail (B, r_e))
   -> (B, b*n)`` if sample sharing, else ``(B, n)`` with ``b == B``.
 * ``score_tails`` symmetric.
+
+Every score method takes the JAX package's keywords ``train`` and ``rng``
+(a dropout key); only :class:`ConvE` reads them.
 """
 
 from __future__ import annotations
 
+import contextlib
 from abc import ABC, abstractmethod
-from typing import Any, Dict, List, Optional, Union
+from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
+from besskge_tpu_torch.device_sampler import _uniform, split_key
 from besskge_tpu_torch.embedding import (
     Initializer,
     device_table_init,
@@ -39,6 +44,8 @@ from besskge_tpu_torch.embedding import (
     init_uniform,
     init_uniform_norm,
     init_uniform_rotation,
+    init_xavier_norm,
+    init_zeros,
     initialize_entity_embedding,
     initialize_relation_embedding,
     refactor_embedding_sharding,
@@ -52,7 +59,12 @@ from besskge_tpu_torch.packed import (
     unpack_table_host,
 )
 from besskge_tpu_torch.sharding import Sharding
-from besskge_tpu_torch.utils import complex_multiplication, complex_rotation, resolve_device
+from besskge_tpu_torch.utils import (
+    _tree_map,
+    complex_multiplication,
+    complex_rotation,
+    resolve_device,
+)
 
 __all__ = [
     "BaseScoreFunction",
@@ -64,12 +76,14 @@ __all__ = [
     "TripleRE",
     "DistMult",
     "ComplEx",
+    "ConvE",
     "BoxE",
     "InterHT",
     "TranS",
 ]
 
-Params = Dict[str, torch.Tensor]
+#: A params dict: tensors, and nested dicts of tensors (ConvE's trunk).
+Params = Dict[str, Any]
 TableOrInit = Union[np.ndarray, List[Initializer]]
 
 #: Softening for norms at exactly zero.
@@ -139,9 +153,9 @@ class BaseScoreFunction(ABC):
         self._relation_spec = (relation_initializer, list(relation_slices))
 
     def initial_params(self, device: Optional[Union[str, torch.device]] = None) -> Params:
-        """The initial tables, drawn on the host with numpy exactly as the
-        JAX package's ``initial_params`` draws them, then moved to ``device``
-        (default ``cuda``)."""
+        """The initial tables and non-table params, drawn on the host with
+        numpy exactly as the JAX package's ``initial_params`` draws them, then
+        moved to ``device`` (default ``cuda``)."""
         device = resolve_device(device)
         ent_init, ent_slices = self._entity_spec
         rel_init, rel_slices = self._relation_spec
@@ -166,6 +180,7 @@ class BaseScoreFunction(ABC):
         return {
             "entity_embedding": entity.to(device),
             "relation_embedding": torch.from_numpy(rel).to(device, self.dtype),
+            **self._extra_params(device),
         }
 
     def initial_params_device(
@@ -176,8 +191,9 @@ class BaseScoreFunction(ABC):
     ) -> Params:
         """The initial tables drawn directly on ``device`` (default ``cuda``)
         from ``generator`` (default: a generator on ``device`` seeded with
-        :attr:`seed`). Values differ from :meth:`initial_params`. ``mesh``
-        must be ``None``: one device only (ROADMAP A15)."""
+        :attr:`seed`). Values differ from :meth:`initial_params`; the
+        non-table params (:meth:`_extra_params`) equal its, as in the JAX
+        package. ``mesh`` must be ``None``: one device only (ROADMAP A15)."""
         if mesh is not None:
             raise NotImplementedError("tables sharded over a mesh are not ported yet (ROADMAP A15)")
         device = resolve_device(device)
@@ -201,7 +217,14 @@ class BaseScoreFunction(ABC):
                 *self._relation_spec, (n_rel, self.relation_row_size), self.seed + 1,
                 self.dtype, None, device, generator,
             ),
+            **self._extra_params(device),
         }
+
+    def _extra_params(self, device: torch.device) -> Params:
+        """Non-table learnable params on ``device``, drawn on the host in
+        both ``initial_params`` forms as the JAX package draws them (ConvE's
+        trunk); none by default."""
+        return {}
 
     def update_sharding(self, params: Params, new_sharding: Sharding) -> Params:
         """Re-shard a (trained) entity table to ``new_sharding`` on the host
@@ -248,7 +271,7 @@ class BaseScoreFunction(ABC):
     @abstractmethod
     def score_triple(
         self, params: Params, head_emb: torch.Tensor, relation_id: torch.Tensor,
-        tail_emb: torch.Tensor,
+        tail_emb: torch.Tensor, **kwargs: Any,
     ) -> torch.Tensor:
         """Score a batch of (h, r, t) triples; see module docstring."""
         raise NotImplementedError
@@ -256,7 +279,7 @@ class BaseScoreFunction(ABC):
     @abstractmethod
     def score_heads(
         self, params: Params, head_emb: torch.Tensor, relation_id: torch.Tensor,
-        tail_emb: torch.Tensor,
+        tail_emb: torch.Tensor, **kwargs: Any,
     ) -> torch.Tensor:
         """Score head candidates against fixed (r, t) queries."""
         raise NotImplementedError
@@ -264,7 +287,7 @@ class BaseScoreFunction(ABC):
     @abstractmethod
     def score_tails(
         self, params: Params, head_emb: torch.Tensor, relation_id: torch.Tensor,
-        tail_emb: torch.Tensor,
+        tail_emb: torch.Tensor, **kwargs: Any,
     ) -> torch.Tensor:
         """Score tail candidates against fixed (h, r) queries."""
         raise NotImplementedError
@@ -358,15 +381,15 @@ class TransE(DistanceBasedScoreFunction):
             dtype,
         )
 
-    def score_triple(self, params, head_emb, relation_id, tail_emb):
+    def score_triple(self, params, head_emb, relation_id, tail_emb, **kw):
         r = self.relation_embedding(params, relation_id)
         return -self.reduce_embedding(head_emb + r - tail_emb)
 
-    def score_heads(self, params, head_emb, relation_id, tail_emb):
+    def score_heads(self, params, head_emb, relation_id, tail_emb, **kw):
         r = self.relation_embedding(params, relation_id)
         return -self.broadcasted_distance(tail_emb - r, head_emb)
 
-    def score_tails(self, params, head_emb, relation_id, tail_emb):
+    def score_tails(self, params, head_emb, relation_id, tail_emb, **kw):
         r = self.relation_embedding(params, relation_id)
         return -self.broadcasted_distance(head_emb + r, tail_emb)
 
@@ -410,15 +433,15 @@ class RotatE(DistanceBasedScoreFunction):
             dtype,
         )
 
-    def score_triple(self, params, head_emb, relation_id, tail_emb):
+    def score_triple(self, params, head_emb, relation_id, tail_emb, **kw):
         r = self.relation_embedding(params, relation_id)
         return -self.reduce_embedding(complex_rotation(head_emb, r) - tail_emb)
 
-    def score_heads(self, params, head_emb, relation_id, tail_emb):
+    def score_heads(self, params, head_emb, relation_id, tail_emb, **kw):
         r = self.relation_embedding(params, relation_id)
         return -self.broadcasted_distance(complex_rotation(tail_emb, -r), head_emb)
 
-    def score_tails(self, params, head_emb, relation_id, tail_emb):
+    def score_tails(self, params, head_emb, relation_id, tail_emb, **kw):
         r = self.relation_embedding(params, relation_id)
         return -self.broadcasted_distance(complex_rotation(head_emb, r), tail_emb)
 
@@ -471,19 +494,19 @@ class PairRE(DistanceBasedScoreFunction):
     def _maybe_norm(self, v):
         return _l2_normalize(v) if self.normalize else v
 
-    def score_triple(self, params, head_emb, relation_id, tail_emb):
+    def score_triple(self, params, head_emb, relation_id, tail_emb, **kw):
         r_h, r_t = self._split_rel(params, relation_id)
         h = self._maybe_norm(head_emb)
         t = self._maybe_norm(tail_emb)
         return -self.reduce_embedding(h * r_h - t * r_t)
 
-    def score_heads(self, params, head_emb, relation_id, tail_emb):
+    def score_heads(self, params, head_emb, relation_id, tail_emb, **kw):
         r_h, r_t = self._split_rel(params, relation_id)
         h = self._pool(self._maybe_norm(head_emb))
         t = self._maybe_norm(tail_emb)
         return -self.reduce_embedding(h * r_h[:, None, :] - (t * r_t)[:, None, :])
 
-    def score_tails(self, params, head_emb, relation_id, tail_emb):
+    def score_tails(self, params, head_emb, relation_id, tail_emb, **kw):
         r_h, r_t = self._split_rel(params, relation_id)
         h = self._maybe_norm(head_emb)
         t = self._pool(self._maybe_norm(tail_emb))
@@ -541,19 +564,19 @@ class TripleRE(DistanceBasedScoreFunction):
     def _maybe_norm(self, v):
         return _l2_normalize(v) if self.normalize else v
 
-    def score_triple(self, params, head_emb, relation_id, tail_emb):
+    def score_triple(self, params, head_emb, relation_id, tail_emb, **kw):
         r_h, r_m, r_t = self._split_rel(params, relation_id)
         h = self._maybe_norm(head_emb)
         t = self._maybe_norm(tail_emb)
         return -self.reduce_embedding(h * r_h - t * r_t + r_m)
 
-    def score_heads(self, params, head_emb, relation_id, tail_emb):
+    def score_heads(self, params, head_emb, relation_id, tail_emb, **kw):
         r_h, r_m, r_t = self._split_rel(params, relation_id)
         h = self._pool(self._maybe_norm(head_emb))
         t = self._maybe_norm(tail_emb)
         return -self.reduce_embedding(h * r_h[:, None, :] - (t * r_t - r_m)[:, None, :])
 
-    def score_tails(self, params, head_emb, relation_id, tail_emb):
+    def score_tails(self, params, head_emb, relation_id, tail_emb, **kw):
         r_h, r_m, r_t = self._split_rel(params, relation_id)
         h = self._maybe_norm(head_emb)
         t = self._pool(self._maybe_norm(tail_emb))
@@ -589,15 +612,15 @@ class DistMult(MatrixDecompositionScoreFunction):
             dtype,
         )
 
-    def score_triple(self, params, head_emb, relation_id, tail_emb):
+    def score_triple(self, params, head_emb, relation_id, tail_emb, **kw):
         r = self.relation_embedding(params, relation_id)
         return self.reduce_embedding(head_emb * r * tail_emb)
 
-    def score_heads(self, params, head_emb, relation_id, tail_emb):
+    def score_heads(self, params, head_emb, relation_id, tail_emb, **kw):
         r = self.relation_embedding(params, relation_id)
         return self.broadcasted_dot_product(r * tail_emb, head_emb)
 
-    def score_tails(self, params, head_emb, relation_id, tail_emb):
+    def score_tails(self, params, head_emb, relation_id, tail_emb, **kw):
         r = self.relation_embedding(params, relation_id)
         return self.broadcasted_dot_product(head_emb * r, tail_emb)
 
@@ -633,19 +656,333 @@ class ComplEx(MatrixDecompositionScoreFunction):
             dtype,
         )
 
-    def score_triple(self, params, head_emb, relation_id, tail_emb):
+    def score_triple(self, params, head_emb, relation_id, tail_emb, **kw):
         r = self.relation_embedding(params, relation_id)
         return self.reduce_embedding(complex_multiplication(head_emb, r) * tail_emb)
 
-    def score_heads(self, params, head_emb, relation_id, tail_emb):
+    def score_heads(self, params, head_emb, relation_id, tail_emb, **kw):
         r = self.relation_embedding(params, relation_id)
         re, im = torch.chunk(r, 2, dim=-1)
         r_conj = torch.cat([re, -im], dim=-1)
         return self.broadcasted_dot_product(complex_multiplication(r_conj, tail_emb), head_emb)
 
-    def score_tails(self, params, head_emb, relation_id, tail_emb):
+    def score_tails(self, params, head_emb, relation_id, tail_emb, **kw):
         r = self.relation_embedding(params, relation_id)
         return self.broadcasted_dot_product(complex_multiplication(head_emb, r), tail_emb)
+
+
+def _kaiming_uniform(shape: Sequence[int], rng: np.random.Generator, fan_in: int) -> np.ndarray:
+    """U(-1/√fan_in, 1/√fan_in) in float32 (``besskge_tpu/scoring.py``'s)."""
+    bound = float(np.sqrt(1.0 / fan_in))
+    return rng.uniform(-bound, bound, size=shape).astype(np.float32)
+
+
+def _keep_mask(key: torch.Tensor, keep: float, shape: Sequence[int]) -> torch.Tensor:
+    """A dropout mask: ``True`` where the uniform draw of the counter hash
+    (:func:`~besskge_tpu_torch.device_sampler._uniform`, stream 0 of
+    ``key``) lies below ``keep``, as ``jax.random.bernoulli`` keeps a draw
+    below its ``p``. ``shape`` is the JAX package's layout of the masked
+    array. Every mask of the port is drawn here: a key, and so a mask,
+    depends on nothing but the step's dropout key, so the card, the CPU and
+    a replayed CUDA graph draw the same masks (and the tests put the JAX
+    package's masks here)."""
+    return _uniform(key, 0, tuple(shape)) < keep
+
+
+@contextlib.contextmanager
+def _exact_conv() -> Iterator[None]:
+    """cuDNN convolutions in full fp32 (no TF32, which cuDNN allows by
+    default) and by deterministic algorithms chosen without benchmarking, so
+    that a captured graph replays the eager call's bits; restored after."""
+    with torch.backends.cudnn.flags(enabled=torch.backends.cudnn.enabled, benchmark=False,
+                                    deterministic=True, allow_tf32=False):
+        yield
+
+
+class _ValidConv2d(torch.autograd.Function):
+    """``F.conv2d(x, w)`` (NCHW, OIHW, stride 1, no padding: the JAX
+    package's ``padding="VALID"``) under :func:`_exact_conv`, in the
+    forward and in the backward (which autograd runs outside the
+    forward's scope)."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        with _exact_conv():
+            return torch.nn.functional.conv2d(x, w)
+
+    @staticmethod
+    def setup_context(ctx: Any, inputs: Tuple, output: torch.Tensor) -> None:
+        ctx.save_for_backward(*inputs)
+
+    @staticmethod
+    def backward(ctx: Any, g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        x, w = ctx.saved_tensors
+        with _exact_conv():
+            gx, gw, _ = torch.ops.aten.convolution_backward(
+                g, x, w, None, [1, 1], [0, 0], [1, 1], False, [0, 0], 1, [True, True, False])
+        return gx, gw
+
+
+class ConvE(MatrixDecompositionScoreFunction):
+    """ConvE: a 2-D convolution over the stacked [h; r] maps, a linear map
+    back to ``embedding_size``, dotted with t plus a learned tail bias
+    (reference ``besskge/scoring.py:949-1146``). Tail corruption only (head
+    queries go through inverse triples).
+
+    The params keep the JAX package's names and layouts, so checkpoints and
+    :mod:`~besskge_tpu_torch.convert` carry them as they are: ``conv_w``
+    HWIO (permuted to OIHW inside :meth:`hr_transform`), ``conv_b``,
+    ``fc_w`` (fc_in, d), ``fc_b`` and, with ``batch_normalization``,
+    ``bn0``/``bn1``/``bn2`` as ``{"scale", "bias", "mean", "var"}``.
+    The trunk runs NCHW; its batch statistics, dropout masks and flattening
+    follow the JAX package's NHWC arithmetic:
+
+    * BatchNorm with ``train=True`` normalises by the micro-batch's biased
+      statistics, ``var = E[x²] − mean²``, and by the running stats in
+      ``params`` otherwise, with ``rsqrt(var + 1e-5)`` (not
+      ``F.batch_norm``, whose running var is unbiased). The training step
+      refreshes the running stats (``trainer._bn_ema``);
+      ``sync_batch_norm`` is the identity on one device (a mesh: ROADMAP
+      A15);
+    * dropout with ``train=True`` and an ``rng`` (a key, as
+      :mod:`~besskge_tpu_torch.device_sampler` keys): the key splits three
+      ways (input, feature map, hidden), each mask drawn by
+      :func:`_keep_mask` in the JAX package's layout and permuted to NCHW;
+      the feature-map dropout keeps whole channels (``Dropout2d``);
+    * the conv (cuDNN without TF32, deterministic, :class:`_ValidConv2d`)
+      and the linear map (fp32 accumulation without TF32,
+      :func:`~besskge_tpu_torch.ops.distance.dot_product_matrix`) return
+      the input's dtype, as the JAX package's ``preferred_element_type``
+      products cast back. No Pallas kernel runs here in the JAX package,
+      and none in the port.
+    """
+
+    def __init__(
+        self,
+        negative_sample_sharing: bool,
+        sharding: Sharding,
+        n_relation_type: int,
+        embedding_size: int,
+        embedding_height: int,
+        embedding_width: int,
+        entity_initializer: Optional[TableOrInit] = None,
+        relation_initializer: Optional[TableOrInit] = None,
+        inverse_relations: bool = True,
+        input_channels: int = 1,
+        output_channels: int = 32,
+        kernel_height: int = 3,
+        kernel_width: int = 3,
+        input_dropout: float = 0.2,
+        feature_map_dropout: float = 0.2,
+        hidden_dropout: float = 0.3,
+        batch_normalization: bool = True,
+        sync_batch_norm: bool = False,
+        seed: int = 0,
+        dtype: torch.dtype = torch.float32,
+    ) -> None:
+        super().__init__(negative_sample_sharing)
+        self.sync_batch_norm = sync_batch_norm
+        if input_channels * embedding_height * embedding_width != embedding_size:
+            raise ValueError(
+                "embedding_size must equal"
+                " input_channels * embedding_height * embedding_width"
+            )
+        self.embedding_size = embedding_size
+        self.inp_channels = input_channels
+        self.out_channels = output_channels
+        self.emb_h = embedding_height
+        self.emb_w = embedding_width
+        self.kernel_h = kernel_height
+        self.kernel_w = kernel_width
+        self.p_in, self.p_fm, self.p_hid = input_dropout, feature_map_dropout, hidden_dropout
+        self.batch_norm = batch_normalization
+        # Entity row: [embedding, tail-bias scalar].
+        self._build_tables(
+            sharding,
+            n_relation_type,
+            inverse_relations,
+            entity_initializer
+            if entity_initializer is not None
+            else [init_xavier_norm, init_zeros],
+            [embedding_size, 1],
+            relation_initializer if relation_initializer is not None else [init_xavier_norm],
+            [embedding_size],
+            seed,
+            dtype,
+        )
+        rng = np.random.default_rng(seed + 2)
+        fc_in = (
+            output_channels
+            * (2 * embedding_height - kernel_height + 1)
+            * (embedding_width - kernel_width + 1)
+        )
+        self.fc_in = fc_in
+        fan_conv = input_channels * kernel_height * kernel_width
+        self._net_params: Dict[str, Any] = {
+            # HWIO, the JAX package's layout.
+            "conv_w": _kaiming_uniform(
+                (kernel_height, kernel_width, input_channels, output_channels), rng, fan_conv
+            ),
+            "conv_b": _kaiming_uniform((output_channels,), rng, fan_conv),
+            "fc_w": _kaiming_uniform((fc_in, embedding_size), rng, fc_in),
+            "fc_b": _kaiming_uniform((embedding_size,), rng, fc_in),
+        }
+        if batch_normalization:
+            for name, n in (("bn0", input_channels), ("bn1", output_channels),
+                            ("bn2", embedding_size)):
+                self._net_params[name] = {
+                    "scale": np.ones(n, np.float32),
+                    "bias": np.zeros(n, np.float32),
+                    "mean": np.zeros(n, np.float32),
+                    "var": np.ones(n, np.float32),
+                }
+
+    def _extra_params(self, device: torch.device) -> Params:
+        return _tree_map(lambda a: torch.from_numpy(a.copy()).to(device), self._net_params)
+
+    def _batch_stats(self, x: torch.Tensor, axes: Tuple[int, ...], sync: bool):
+        """(mean, var) over ``axes``: the biased ``E[x²] − mean²``. With
+        ``sync`` over a mesh the JAX package pmeans both moments, which
+        waits on the multi-device port (ROADMAP A15); on one device
+        (``mesh_axis`` ``None``) it is the identity."""
+        if sync and self.mesh_axis is not None:
+            raise NotImplementedError("SyncBN over a mesh is not ported yet (ROADMAP A15)")
+        mean = torch.mean(x, dim=axes)
+        sq = torch.mean(torch.square(x), dim=axes)
+        return mean, sq - torch.square(mean)
+
+    @staticmethod
+    def _axes(x: torch.Tensor) -> Tuple[Tuple[int, ...], Tuple[int, ...]]:
+        """The statistics' axes of an NCHW map or a (b, d) batch, and the
+        shape that broadcasts a per-channel vector against it."""
+        return ((0, 2, 3), (-1, 1, 1)) if x.dim() == 4 else ((0,), (-1,))
+
+    def _bn(self, x: torch.Tensor, stats: Params, train: bool) -> torch.Tensor:
+        axes, shape = self._axes(x)
+        if train:
+            mean, var = self._batch_stats(x, axes, self.sync_batch_norm)
+        else:
+            mean, var = stats["mean"], stats["var"]
+        inv = torch.rsqrt(var + 1e-5)
+        return ((x - mean.reshape(shape)) * (inv * stats["scale"]).reshape(shape)
+                + stats["bias"].reshape(shape))
+
+    @staticmethod
+    def _dropout(x: torch.Tensor, rate: float, train: bool, rng: Optional[torch.Tensor],
+                 shape: Optional[Sequence[int]] = None,
+                 perm: Optional[Sequence[int]] = None) -> torch.Tensor:
+        """``x / (1 − rate)`` where the mask keeps, else 0; the mask drawn
+        in the JAX package's ``shape`` (default ``x``'s) and permuted by
+        ``perm`` to the port's layout."""
+        if not train or rate == 0.0 or rng is None:
+            return x
+        keep = _keep_mask(rng, 1.0 - rate, x.shape if shape is None else shape)
+        if perm is not None:
+            keep = keep.permute(*perm)
+        return torch.where(keep, x / (1.0 - rate), 0.0)
+
+    def _conv(self, params: Params, x: torch.Tensor) -> torch.Tensor:
+        """The VALID conv of an NCHW map with ``conv_w`` (HWIO -> OIHW) in
+        ``x``'s dtype, plus ``conv_b``."""
+        w = params["conv_w"].permute(3, 2, 0, 1).to(x.dtype)
+        return _ValidConv2d.apply(x, w) + params["conv_b"].to(x.dtype).reshape(-1, 1, 1)
+
+    def _fc(self, params: Params, x: torch.Tensor) -> torch.Tensor:
+        """The NCHW map flattened (the torch Linear's input order, as the
+        JAX package flattens its NHWC map transposed) times ``fc_w``, plus
+        ``fc_b``."""
+        x = x.reshape(x.shape[0], -1)
+        return dot_product_matrix(x, params["fc_w"].T) + params["fc_b"].to(x.dtype)
+
+    def _stack(self, head_emb: torch.Tensor, relation_emb: torch.Tensor) -> torch.Tensor:
+        """[h; r] as one NCHW map (b, C, 2H, W): the head map above the
+        relation map."""
+        b = head_emb.shape[0]
+        h_map = head_emb.reshape(b, self.inp_channels, self.emb_h, self.emb_w)
+        r_map = relation_emb.reshape(b, self.inp_channels, self.emb_h, self.emb_w)
+        return torch.cat([h_map, r_map], dim=2)
+
+    def hr_transform(
+        self,
+        params: Params,
+        head_emb: torch.Tensor,
+        relation_emb: torch.Tensor,
+        train: bool = False,
+        rng: Optional[torch.Tensor] = None,
+    ) -> torch.Tensor:
+        """The conv/BN/FC trunk mapping [h; r] to a query vector (B, d)."""
+        x = self._stack(head_emb, relation_emb)
+        b, c, hh, w = x.shape
+        keys = split_key(rng, 3) if rng is not None else [None] * 3
+        if self.batch_norm:
+            x = self._bn(x, params["bn0"], train)
+        x = self._dropout(x, self.p_in, train, keys[0], (b, hh, w, c), (0, 3, 1, 2))
+        x = self._conv(params, x)
+        if self.batch_norm:
+            x = self._bn(x, params["bn1"], train)
+        x = torch.relu(x)
+        # Dropout2d: whole channels.
+        x = self._dropout(x, self.p_fm, train, keys[1], (b, 1, 1, x.shape[1]), (0, 3, 1, 2))
+        x = self._fc(params, x)
+        x = self._dropout(x, self.p_hid, train, keys[2])
+        if self.batch_norm:
+            x = self._bn(x, params["bn2"], train)
+        return torch.relu(x)
+
+    def update_bn_stats(
+        self,
+        params: Params,
+        head_emb: torch.Tensor,
+        relation_id: torch.Tensor,
+        momentum: float = 0.1,
+        sync: bool = False,
+    ) -> Params:
+        """Refresh the BN running stats from one batch of (h, r) inputs
+        (``head_emb`` full entity rows, the tail bias last): a momentum EMA
+        of each BN's batch statistics, dropout-free, each later BN fed by
+        the earlier ones normalised with their refreshed stats. Returns new
+        params (the input ones unchanged)."""
+        if not self.batch_norm:
+            return params
+        r = self.relation_embedding(params, relation_id)
+        x = self._stack(head_emb[..., :-1], r)
+        new = dict(params)
+
+        def upd(stats, x):
+            m, v = self._batch_stats(x, self._axes(x)[0], sync)
+            return {
+                **stats,
+                "mean": (1 - momentum) * stats["mean"] + momentum * m,
+                "var": (1 - momentum) * stats["var"] + momentum * v,
+            }
+
+        new["bn0"] = upd(params["bn0"], x)
+        x = self._conv(params, self._bn(x, new["bn0"], False))
+        new["bn1"] = upd(params["bn1"], x)
+        x = self._fc(params, torch.relu(self._bn(x, new["bn1"], False)))
+        new["bn2"] = upd(params["bn2"], x)
+        return new
+
+    def score_triple(self, params, head_emb, relation_id, tail_emb, *, train=False, rng=None,
+                     **kw):
+        r = self.relation_embedding(params, relation_id)
+        hr = self.hr_transform(params, head_emb[..., :-1], r, train, rng)
+        t, t_bias = tail_emb[..., :-1], tail_emb[..., -1]
+        return self.reduce_embedding(hr * t) + t_bias
+
+    def score_heads(self, params, head_emb, relation_id, tail_emb, **kw):
+        raise NotImplementedError("ConvE should not be used with head corruption")
+
+    def score_tails(self, params, head_emb, relation_id, tail_emb, *, train=False, rng=None,
+                    **kw):
+        r = self.relation_embedding(params, relation_id)
+        hr = self.hr_transform(params, head_emb[..., :-1], r, train, rng)
+        t, t_bias = tail_emb[..., :-1], tail_emb[..., -1]
+        if self.negative_sample_sharing:
+            t_bias = t_bias.reshape(1, -1)
+        return self.broadcasted_dot_product(hr, t) + t_bias
 
 
 class BoxE(DistanceBasedScoreFunction):
@@ -735,7 +1072,7 @@ class BoxE(DistanceBasedScoreFunction):
         d = self.embedding_size
         return r[..., : 2 * d], r[..., 2 * d : 4 * d], r[..., 4 * d :]
 
-    def score_triple(self, params, head_emb, relation_id, tail_emb):
+    def score_triple(self, params, head_emb, relation_id, tail_emb, **kw):
         center, width, size = self._split_rel(params, relation_id)
         d = self.embedding_size
         # Element 0: head bumped by the tail's bump (against the head box);
@@ -745,7 +1082,7 @@ class BoxE(DistanceBasedScoreFunction):
             bumped, center.reshape(-1, 2, d), width.reshape(-1, 2, d), size.reshape(-1, 2)
         )
 
-    def score_heads(self, params, head_emb, relation_id, tail_emb):
+    def score_heads(self, params, head_emb, relation_id, tail_emb, **kw):
         center, width, size = self._split_rel(params, relation_id)
         d = self.embedding_size
         h = self._pool(head_emb)
@@ -755,7 +1092,7 @@ class BoxE(DistanceBasedScoreFunction):
             size.reshape(-1, 1, 2),
         )
 
-    def score_tails(self, params, head_emb, relation_id, tail_emb):
+    def score_tails(self, params, head_emb, relation_id, tail_emb, **kw):
         center, width, size = self._split_rel(params, relation_id)
         d = self.embedding_size
         t = self._pool(tail_emb)
@@ -812,13 +1149,13 @@ class InterHT(DistanceBasedScoreFunction):
             main, aux = _l2_normalize(main), _l2_normalize(aux)
         return main, aux
 
-    def score_triple(self, params, head_emb, relation_id, tail_emb):
+    def score_triple(self, params, head_emb, relation_id, tail_emb, **kw):
         r = self.relation_embedding(params, relation_id)
         h, h_aux = self._split_ent(head_emb)
         t, t_aux = self._split_ent(tail_emb)
         return -self.reduce_embedding(h * (t_aux + self.offset) + r - t * (h_aux + self.offset))
 
-    def score_heads(self, params, head_emb, relation_id, tail_emb):
+    def score_heads(self, params, head_emb, relation_id, tail_emb, **kw):
         r = self.relation_embedding(params, relation_id)
         h, h_aux = self._split_ent(head_emb)
         t, t_aux = self._split_ent(tail_emb)
@@ -829,7 +1166,7 @@ class InterHT(DistanceBasedScoreFunction):
             - t[:, None, :] * (h_aux + self.offset)
         )
 
-    def score_tails(self, params, head_emb, relation_id, tail_emb):
+    def score_tails(self, params, head_emb, relation_id, tail_emb, **kw):
         r = self.relation_embedding(params, relation_id)
         h, h_aux = self._split_ent(head_emb)
         t, t_aux = self._split_ent(tail_emb)
@@ -891,7 +1228,7 @@ class TranS(DistanceBasedScoreFunction):
             main, tilde = _l2_normalize(main), _l2_normalize(tilde)
         return main, tilde
 
-    def score_triple(self, params, head_emb, relation_id, tail_emb):
+    def score_triple(self, params, head_emb, relation_id, tail_emb, **kw):
         r, r_bar, r_hat = torch.chunk(self.relation_embedding(params, relation_id), 3, dim=-1)
         h, h_tilde = self._split_ent(head_emb)
         t, t_tilde = self._split_ent(tail_emb)
@@ -899,7 +1236,7 @@ class TranS(DistanceBasedScoreFunction):
             h * (t_tilde + self.offset + r_bar) - t * (h_tilde + self.offset - r_hat) + r
         )
 
-    def score_heads(self, params, head_emb, relation_id, tail_emb):
+    def score_heads(self, params, head_emb, relation_id, tail_emb, **kw):
         r, r_bar, r_hat = torch.chunk(self.relation_embedding(params, relation_id), 3, dim=-1)
         h, h_tilde = self._split_ent(head_emb)
         t, t_tilde = self._split_ent(tail_emb)
@@ -910,7 +1247,7 @@ class TranS(DistanceBasedScoreFunction):
             + r[:, None, :]
         )
 
-    def score_tails(self, params, head_emb, relation_id, tail_emb):
+    def score_tails(self, params, head_emb, relation_id, tail_emb, **kw):
         r, r_bar, r_hat = torch.chunk(self.relation_embedding(params, relation_id), 3, dim=-1)
         h, h_tilde = self._split_ent(head_emb)
         t, t_tilde = self._split_ent(tail_emb)

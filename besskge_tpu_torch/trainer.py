@@ -32,6 +32,13 @@ Counterpart of ``besskge_tpu/trainer.py``:
   a device sampler, and saves checkpoints in the JAX package's formats
   (:mod:`besskge_tpu_torch.checkpoint`).
 
+A scorer with dropout (ConvE) takes a dropout key per step (``rng``), split
+per micro-batch as the JAX package splits its key; its masks come from the
+device sampler's counter hash, so a replayed graph draws anew from the key
+in its buffer. A scorer with BatchNorm has its running stats refreshed in
+every step form (:func:`_bn_ema`). The params may nest (ConvE's trunk); the
+dense optimizers' states mirror them.
+
 Params and optimizer state are updated in place, as the JAX package donates
 them to the step; ``donate=False`` updates copies instead. Only one device
 is ported: a mesh raises (ROADMAP A15).
@@ -46,16 +53,24 @@ from typing import Any, Callable, Dict, Iterator, Optional, Tuple, Union
 import torch
 
 from besskge_tpu_torch.batch_sampler import ShardedBatchSampler
-from besskge_tpu_torch.bess import _FORWARD_KEYS, BessKGE, _batch_tensors, _format_outputs
+from besskge_tpu_torch.bess import (
+    _FORWARD_KEYS,
+    BessKGE,
+    _batch_tensors,
+    _device_step,
+    _format_outputs,
+)
 from besskge_tpu_torch.checkpoint import save_checkpoint, save_checkpoint_sharded
-from besskge_tpu_torch.device_sampler import DeviceBatchSampler, split_key
+from besskge_tpu_torch.device_sampler import DeviceBatchSampler, _as_key, split_key
 from besskge_tpu_torch.optim import AdamW, SGD, EntityRowOptimizer, FusedDenseAdamW
 from besskge_tpu_torch.packed import is_packed, take_rows
-from besskge_tpu_torch.utils import resolve_device
+from besskge_tpu_torch.scoring import ConvE
+from besskge_tpu_torch.utils import _tree_map, resolve_device
 
 __all__ = ["build_train_step", "build_device_train_step", "init_optimizer_state", "Trainer"]
 
-Params = Dict[str, torch.Tensor]
+#: Tensors, and nested dicts of tensors (ConvE's trunk).
+Params = Dict[str, Any]
 Device = Optional[Union[str, torch.device]]
 #: A dense optimizer of the port: ``init(params)``, ``update_(grads, state, params)``.
 DenseOptimizer = Union[SGD, AdamW]
@@ -94,13 +109,40 @@ def init_optimizer_state(
     }
 
 
+def _bn_ema(score_fn: Any, params: Params, batch: Dict[str, torch.Tensor],
+            momentum: float = 0.1) -> Dict[str, Tuple[torch.Tensor, torch.Tensor]]:
+    """BatchNorm running stats refreshed inside the step
+    (``besskge_tpu/trainer.py``'s ``_apply_bn_ema``): ``{bn: (mean, var)}``
+    of the momentum EMA of the step's positive (h, r) batch statistics,
+    dropout-free, from the params as they are before the update; empty for a
+    scorer without BatchNorm. :func:`_write_bn_stats` puts them into the
+    params after the optimizer, which discards any optimizer touch of the
+    running stats (AdamW's weight decay)."""
+    if not getattr(score_fn, "batch_norm", False) or not hasattr(score_fn, "update_bn_stats"):
+        return {}
+    heads = batch["head"][:, 0].reshape(-1)
+    rels = batch["relation"][:, 0].reshape(-1)
+    h_emb = take_rows(params["entity_embedding"], heads,
+                      n_logical=score_fn.sharding.max_entity_per_shard)
+    refreshed = score_fn.update_bn_stats(params, h_emb, rels, momentum=momentum, sync=True)
+    return {k: (refreshed[k]["mean"], refreshed[k]["var"])
+            for k in ("bn0", "bn1", "bn2") if k in params}
+
+
+def _write_bn_stats(params: Params, stats: Dict[str, Tuple[torch.Tensor, torch.Tensor]]) -> None:
+    for k, (mean, var) in stats.items():
+        params[k]["mean"].copy_(mean)
+        params[k]["var"].copy_(var)
+
+
 def _sparse_train_step(
     bess: BessKGE, optimizer: DenseOptimizer, entity_optimizer: EntityRowOptimizer
 ) -> Callable:
     """The step on tensors: differentiate w.r.t. the gathered rows only (no
     table-sized gradient), then the lazy row update of the touched rows."""
 
-    def step(params: Params, opt_state: Dict[str, Any], batch: Dict[str, torch.Tensor]):
+    def step(params: Params, opt_state: Dict[str, Any], batch: Dict[str, torch.Tensor],
+             rng: Optional[torch.Tensor] = None):
         table = params["entity_embedding"]
         other = {k: v for k, v in params.items() if k != "entity_embedding"}
         mbs = {k: v[:, 0] for k, v in batch.items() if k in _FORWARD_KEYS}
@@ -108,28 +150,35 @@ def _sparse_train_step(
         gathered = take_rows(table, idx, n_logical=bess.sharding.max_entity_per_shard)
         one = torch.ones((), dtype=torch.float32, device=table.device)
 
-        def mb_fn(mb, gathered_mb):
+        def mb_fn(mb, gathered_mb, mb_rng=None):
             def f(g, o):
                 local = dict(o)
                 local["entity_embedding"] = table
-                out = bess.forward(local, gathered_emb=g, **mb)
+                out = bess.forward(local, train=True, rng=mb_rng, gathered_emb=g, **mb)
                 return out["loss"], out
 
             _, vjp_fn, out = torch.func.vjp(f, gathered_mb, other, has_aux=True)
             g_gathered, g_other = vjp_fn(one)
             return out, g_gathered, g_other
 
-        # Micro-batches fused with vmap, as jax.vmap(mb_fn) does.
-        outs, g_rows, g_other = torch.func.vmap(mb_fn)(mbs, gathered)
+        # Micro-batches fused with vmap, as jax.vmap(mb_fn) does, each with
+        # its own dropout key.
+        if rng is None:
+            outs, g_rows, g_other = torch.func.vmap(mb_fn)(mbs, gathered)
+        else:
+            rngs = split_key(rng, idx.shape[0])
+            outs, g_rows, g_other = torch.func.vmap(mb_fn)(mbs, gathered, rngs)
         with torch.no_grad():
+            bn_stats = _bn_ema(bess.score_fn, params, batch)
             table, ent_state = entity_optimizer.update_rows(
                 table, opt_state["entity"], idx.reshape(-1),
                 g_rows.reshape(-1, g_rows.shape[-1]),
             )
-            acc_other = {k: v.sum(0) for k, v in g_other.items()}
+            acc_other = _tree_map(lambda v: v.sum(0), g_other)
             other_state = optimizer.update_(acc_other, opt_state["other"], other)
         new_params = dict(other)
         new_params["entity_embedding"] = table
+        _write_bn_stats(new_params, bn_stats)
         return new_params, {"entity": ent_state, "other": other_state}, _format_outputs(bess, outs)
 
     return step
@@ -143,23 +192,25 @@ def _dense_train_step(
     (the table's gradient is table-sized), then ``optimizer`` over every
     param, or B10 over the table and ``optimizer`` over the rest."""
 
-    def step(params: Params, opt_state: Dict[str, Any], batch: Dict[str, torch.Tensor]):
+    def step(params: Params, opt_state: Dict[str, Any], batch: Dict[str, torch.Tensor],
+             rng: Optional[torch.Tensor] = None):
         if is_packed(params["entity_embedding"]):
             raise ValueError(
                 "a row-pair-packed table cannot take a dense gradient; train it with"
                 " a sparse EntityRowOptimizer"
             )
-        mbs = {k: v[:, 0] for k, v in batch.items() if k in _FORWARD_KEYS}
 
         def loss_fn(p: Params):
             # Micro-batches fused with vmap, as the JAX package's _device_step.
-            outs = torch.func.vmap(lambda mb: bess.forward(p, train=True, **mb))(mbs)
+            outs = _device_step(bess, p, batch, train=True, rng=rng)
             return torch.sum(outs["loss"]), outs
 
         grads, outs = torch.func.grad(loss_fn, has_aux=True)(params)
         with torch.no_grad():
+            bn_stats = _bn_ema(bess.score_fn, params, batch)
             if fused_dense is None:
                 new_state = optimizer.update_(grads, opt_state, params)
+                _write_bn_stats(params, bn_stats)
                 return params, new_state, _format_outputs(bess, outs)
             table, ent_state = fused_dense.apply_dense(
                 params["entity_embedding"], opt_state["entity"], grads.pop("entity_embedding")
@@ -168,6 +219,7 @@ def _dense_train_step(
             other_state = optimizer.update_(grads, opt_state["other"], other)
         new_params = dict(other)
         new_params["entity_embedding"] = table
+        _write_bn_stats(new_params, bn_stats)
         return new_params, {"entity": ent_state, "other": other_state}, _format_outputs(bess, outs)
 
     return step
@@ -176,9 +228,7 @@ def _dense_train_step(
 def _clone(tree: Any) -> Any:
     """A copy of a dict of tensors (nested), for a step that must not write
     the caller's."""
-    if isinstance(tree, dict):
-        return {k: _clone(v) for k, v in tree.items()}
-    return tree.clone()
+    return _tree_map(torch.clone, tree)
 
 
 def build_train_step(
@@ -189,12 +239,15 @@ def build_train_step(
     donate: bool = True,
     device: Device = None,
 ) -> Callable:
-    """Build ``fn(params, opt_state, batch) -> (params, opt_state, outputs)``,
-    the BESS training step on one device (default ``cuda``). ``params`` and
-    ``opt_state`` must live on that device; ``batch`` is a batch-sampler dict
-    of ``(bps, 1, ...)`` numpy arrays or tensors. ``outputs`` holds the
+    """Build ``fn(params, opt_state, batch, rng=None) -> (params, opt_state,
+    outputs)``, the BESS training step on one device (default ``cuda``).
+    ``params`` and ``opt_state`` must live on that device; ``batch`` is a
+    batch-sampler dict of ``(bps, 1, ...)`` numpy arrays or tensors; ``rng``
+    a dropout key (an int or a 0-dim int64 tensor), split into one key per
+    micro-batch, for a scorer with dropout (ConvE). ``outputs`` holds the
     step's ``loss`` (summed over micro-batches) plus the scores when the
-    module returns them.
+    module returns them. A scorer with BatchNorm has its running stats
+    refreshed by the step (:func:`_bn_ema`).
 
     :param optimizer: dense optimizer (:class:`~besskge_tpu_torch.optim.SGD`,
         :class:`~besskge_tpu_torch.optim.AdamW`) of the replicated params, or
@@ -212,14 +265,15 @@ def build_train_step(
     else:
         step = _sparse_train_step(bess, optimizer, entity_optimizer)
 
-    def fn(params: Params, opt_state: Dict[str, Any], batch: Dict[str, Any]):
+    def fn(params: Params, opt_state: Dict[str, Any], batch: Dict[str, Any], rng: Any = None):
         if params["entity_embedding"].device.type != device.type:
             raise ValueError(
                 f"params on {params['entity_embedding'].device}, step built for {device}"
             )
         if not donate:
             params, opt_state = _clone(params), _clone(opt_state)
-        return step(params, opt_state, _batch_tensors(batch, _FORWARD_KEYS, device))
+        return step(params, opt_state, _batch_tensors(batch, _FORWARD_KEYS, device),
+                    _as_key(rng, device))
 
     return fn
 
@@ -254,18 +308,23 @@ def _device_steps(
 ) -> Callable:
     """The eager form of one device-sampled call: ``steps_per_call`` steps
     on batches drawn from ``key`` (split into one key per step when there
-    are several), updating ``params`` and ``opt_state`` in place."""
+    are several, as is a dropout key ``rng``), updating ``params`` and
+    ``opt_state`` in place."""
     if entity_optimizer is None or isinstance(entity_optimizer, FusedDenseAdamW):
         step = _dense_train_step(bess, optimizer, entity_optimizer)
     else:
         step = _sparse_train_step(bess, optimizer, entity_optimizer)
 
+    def split(k: torch.Tensor) -> torch.Tensor:
+        return k[None] if steps_per_call == 1 else split_key(k, steps_per_call)
+
     def run(params: Params, opt_state: Dict[str, Any], sampler_state: Dict[str, torch.Tensor],
-            key: torch.Tensor):
-        keys = key[None] if steps_per_call == 1 else split_key(key, steps_per_call)
+            key: torch.Tensor, rng: Optional[torch.Tensor] = None):
+        keys = split(key)
+        rngs = [None] * steps_per_call if rng is None else split(rng)
         p, o = params, opt_state
-        for k in keys:
-            p, o, outs = step(p, o, sampler.sample(sampler_state, k))
+        for k, r in zip(keys, rngs):
+            p, o, outs = step(p, o, sampler.sample(sampler_state, k), r)
         _write_back(params, p)
         _write_back(opt_state, o)
         return params, opt_state, (outs if steps_per_call == 1 else {"loss": outs["loss"]})
@@ -279,12 +338,13 @@ class _GraphedCall:
     The first call (and the first after the caller's tensors change) runs
     the steps eagerly on a side stream, which is its result and the graph's
     warm-up, then captures the same call into a graph: every kernel of
-    sampling, forward, backward and update, reading and writing the state's
-    tensors where they lie, and the key from a static device buffer. Later
-    calls write the key there and replay the graph. ``donate=True``: the
-    caller's tensors are the graph's state, updated in place and returned;
-    ``donate=False``: the graph has its own copies, which each call fills
-    from the caller's and returns copies of.
+    sampling, forward (its dropout masks drawn from the counter hash, no
+    generator), backward and update, reading and writing the state's
+    tensors where they lie, and the key and the dropout key from static
+    device buffers. Later calls write the keys there and replay the graph.
+    ``donate=True``: the caller's tensors are the graph's state, updated in
+    place and returned; ``donate=False``: the graph has its own copies,
+    which each call fills from the caller's and returns copies of.
     """
 
     def __init__(self, run: Callable, donate: bool, device: torch.device) -> None:
@@ -295,31 +355,36 @@ class _GraphedCall:
         #: peak of the bytes allocated during the capture.
         self.stats: Dict[str, float] = {}
 
-    def _signature(self, params, opt_state, sampler_state) -> tuple:
-        """Where the graph's inputs lie: it is bound to their addresses."""
+    def _signature(self, params, opt_state, sampler_state, rng) -> tuple:
+        """Where the graph's inputs lie: it is bound to their addresses (and
+        to whether it draws dropout masks)."""
         bound = [sampler_state] + ([params, opt_state] if self.donate else [])
         free = [] if self.donate else [params, opt_state]
         return (
             tuple((path, t.data_ptr(), t.shape, t.stride(), t.dtype)
                   for tree in bound for path, t in _leaves(tree)),
             tuple((path, t.shape, t.dtype) for tree in free for path, t in _leaves(tree)),
+            rng is not None,
         )
 
-    def _set_key(self, key: Union[torch.Tensor, int]) -> None:
-        if torch.is_tensor(key) and key.device.type == "cuda":
-            self.key.copy_(key)
-        else:
-            self.key.fill_(int(key))  # a host value: no transfer, no sync
+    def _set_keys(self, key: Union[torch.Tensor, int], rng: Any) -> None:
+        for buf, value in ((self.key, key), (self.rng, rng)):
+            if value is None:
+                continue
+            if torch.is_tensor(value) and value.device.type == "cuda":
+                buf.copy_(value)
+            else:
+                buf.fill_(int(value))  # a host value: no transfer, no sync
 
-    def __call__(self, params, opt_state, sampler_state, key):
-        signature = self._signature(params, opt_state, sampler_state)
+    def __call__(self, params, opt_state, sampler_state, key, rng=None):
+        signature = self._signature(params, opt_state, sampler_state, rng)
         if self.graph is None or signature != self.signature:
-            return self._capture(params, opt_state, sampler_state, key, signature)
+            return self._capture(params, opt_state, sampler_state, key, rng, signature)
         if not self.donate:
             for tree, src in ((self.params, params), (self.opt_state, opt_state)):
                 for (_, dst), (_, value) in zip(_leaves(tree), _leaves(src)):
                     dst.copy_(value)
-        self._set_key(key)
+        self._set_keys(key, rng)
         self.graph.replay()
         return self._result(params, opt_state, self.outputs)
 
@@ -329,19 +394,21 @@ class _GraphedCall:
             return params, opt_state, outputs
         return _clone(self.params), _clone(self.opt_state), outputs
 
-    def _capture(self, params, opt_state, sampler_state, key, signature):
+    def _capture(self, params, opt_state, sampler_state, key, rng, signature):
         self.graph = self.signature = None  # frees an earlier graph's pool
         if self.donate:
             self.params, self.opt_state = params, opt_state
         else:
             self.params, self.opt_state = _clone(params), _clone(opt_state)
         self.key = torch.zeros((), dtype=torch.int64, device=self.device)
+        self.rng = None if rng is None else torch.zeros((), dtype=torch.int64, device=self.device)
         current = torch.cuda.current_stream(self.device)
         side = torch.cuda.Stream(self.device)
         side.wait_stream(current)
         with torch.cuda.stream(side):
-            self._set_key(key)
-            _, _, outputs = self.run(self.params, self.opt_state, sampler_state, self.key)
+            self._set_keys(key, rng)
+            _, _, outputs = self.run(self.params, self.opt_state, sampler_state, self.key,
+                                     self.rng)
         current.wait_stream(side)
         torch.cuda.synchronize(self.device)
         torch.cuda.empty_cache()
@@ -351,7 +418,8 @@ class _GraphedCall:
         graph = torch.cuda.CUDAGraph()
         t0 = time.perf_counter()
         with torch.cuda.graph(graph):
-            _, _, self.outputs = self.run(self.params, self.opt_state, sampler_state, self.key)
+            _, _, self.outputs = self.run(self.params, self.opt_state, sampler_state, self.key,
+                                          self.rng)
         capture_s = time.perf_counter() - t0
         self.stats = {
             "capture_s": capture_s,
@@ -383,7 +451,8 @@ def build_device_train_step(
     ``key``; ``outputs`` then holds only the last step's ``loss``. Both
     forms of :func:`build_train_step` are taken: sparse with an
     :class:`~besskge_tpu_torch.optim.EntityRowOptimizer`, dense with or
-    without :class:`~besskge_tpu_torch.optim.FusedDenseAdamW`.
+    without :class:`~besskge_tpu_torch.optim.FusedDenseAdamW`. A dropout key
+    ``rng`` (ConvE) is split per step as ``key`` is, then per micro-batch.
 
     On a card one call is one CUDA graph of all its steps, captured on the
     first call and replayed from then on (:class:`_GraphedCall`); a capture
@@ -391,7 +460,6 @@ def build_device_train_step(
 
     :param donate: ``True``: ``params`` and ``opt_state`` are updated in
         place and returned; ``False``: the caller's are left as they were.
-    :param rng: dropout streams (ConvE, ROADMAP A11): must be ``None``.
     """
     _no_mesh(mesh)
     device = resolve_device(device)
@@ -400,19 +468,15 @@ def build_device_train_step(
 
     def fn(params: Params, opt_state: Dict[str, Any], sampler_state: Dict[str, torch.Tensor],
            key: torch.Tensor, rng: Any = None):
-        if rng is not None:
-            raise NotImplementedError(
-                "dropout streams (ConvE) are not ported yet (ROADMAP A11); pass rng=None"
-            )
         for what, t in (("params", params["entity_embedding"]),
                         ("sampler_state", sampler_state["hrt"])):
             if t.device.type != device.type:
                 raise ValueError(f"{what} on {t.device}, step built for {device}")
         if graphed is not None:
-            return graphed(params, opt_state, sampler_state, key)
+            return graphed(params, opt_state, sampler_state, key, rng)
         if not donate:
             params, opt_state = _clone(params), _clone(opt_state)
-        return run(params, opt_state, sampler_state, torch.as_tensor(key, dtype=torch.int64))
+        return run(params, opt_state, sampler_state, _as_key(key, device), _as_key(rng, device))
 
     fn._eager = run  # type: ignore[attr-defined]
     fn._graph = graphed  # type: ignore[attr-defined]
@@ -435,8 +499,10 @@ class Trainer:
         ``score_fn.initial_params(device)``. A plain entity table (or a
         packed one, ``(n + 1) // 2`` rows) is widened for an interleaved
         ``entity_optimizer``; a widened one is taken as it is.
-    :param seed: seed of the dropout streams, which no ported scorer has
-        (ConvE: ROADMAP A11); kept as :attr:`seed`.
+    :param seed: seed of the dropout stream: with a scorer that has
+        dropout (ConvE, :attr:`needs_rng`), every step (host-fed) or call
+        (device-sampled) takes the next key split from it, as the JAX
+        package's Trainer splits ``PRNGKey(seed)``.
     :param entity_optimizer: sparse row optimizer of the entity table, or
         :class:`~besskge_tpu_torch.optim.FusedDenseAdamW`.
     :param steps_per_call: with a device sampler, optimizer steps per call
@@ -493,7 +559,7 @@ class Trainer:
                     f" be widened) or {wide} (already interleaved for"
                     f" {type(entity_optimizer).__name__}) for this sharding"
                 )
-        self.params = {k: v.to(self.device) for k, v in raw.items()}
+        self.params = _tree_map(lambda v: v.to(self.device), raw)
         self.opt_state = init_optimizer_state(
             optimizer, self.params, None, entity_optimizer, n_logical=n_global
         )
@@ -507,7 +573,19 @@ class Trainer:
             self.train_step = build_train_step(
                 bess, optimizer, None, entity_optimizer, device=self.device
             )
+        #: The dropout stream: a key (0-dim int64 on the host), split anew
+        #: for every step or call when :attr:`needs_rng`.
+        self.rng = torch.tensor(seed & 0xFFFFFFFF, dtype=torch.int64)
+        self.needs_rng = isinstance(bess.score_fn, ConvE)
         self.history: list = []
+
+    def _next_rng(self) -> Optional[torch.Tensor]:
+        """The next step's dropout key, or ``None`` for a scorer without
+        dropout."""
+        if not self.needs_rng:
+            return None
+        self.rng, sub = split_key(self.rng, 2)
+        return sub
 
     def fit(
         self,
@@ -585,7 +663,7 @@ class Trainer:
             for i in range(n_calls):
                 key = self.batch_sampler.next_key(epoch * n_calls + i)
                 self.params, self.opt_state, out = self.train_step(
-                    self.params, self.opt_state, self.sampler_state, key
+                    self.params, self.opt_state, self.sampler_state, key, self._next_rng()
                 )
                 yield out
             return
@@ -603,7 +681,7 @@ class Trainer:
             self.batch_sampler.get_dataloader(shuffle=shuffle, seed_offset=epoch)
         ):
             self.params, self.opt_state, out = self.train_step(
-                self.params, self.opt_state, batch
+                self.params, self.opt_state, batch, self._next_rng()
             )
             yield out
 

@@ -4,7 +4,7 @@ filter of filtered evaluation (:func:`get_entity_filter`, numpy, copied from
 
 from __future__ import annotations
 
-from typing import Optional, Tuple, Union
+from typing import Any, Callable, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -39,6 +39,23 @@ def _mix32(x: Word) -> Word:
     x = x ^ (x >> 15)
     x = _mul32(x, 0x846CA68B)
     return x ^ (x >> 16)
+
+
+def _tree_map(fn: Callable[..., Any], tree: Any, *rest: Any) -> Any:
+    """``fn`` over the leaves of a nested dict of tensors (a params dict with
+    ConvE's trunk, or an optimizer state mirroring one), with the leaves at
+    the same keys of the ``rest`` trees as further arguments; the result
+    has ``tree``'s keys."""
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    return fn(tree, *rest)
+
+
+def _first_leaf(tree: Any) -> torch.Tensor:
+    """The first tensor of a nested dict of tensors."""
+    while isinstance(tree, dict):
+        tree = next(iter(tree.values()))
+    return tree
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.device:

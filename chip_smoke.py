@@ -163,6 +163,28 @@ the CUDA toolkit. Phases, one line each with its elapsed seconds:
    Times: the device sweep (median of 3 x 5 sweeps) as candidate-scores/s
    and ms per batch, B5 per launch at (256, 65,536, 128) bf16 beside its
    bound, the pipeline end to end once. A JSON line of these numbers.
+14. conve: ConvE at YAGO3-10 width with the ConvE paper's settings (the
+   repo's defaults: d = 200 as 10 x 20, 32 channels of 3 x 3, dropout 0.2 /
+   0.2 / 0.3, BatchNorm; 123,182 x 201 table, 74 relation rows, fc_w 10,368
+   x 200), on the YAGO stand-in triples doubled by ``add_inverse_triples``,
+   8 x 120 positives, 8 shared "t" negatives, SSCE. (a) One dense host-fed
+   step (``FusedDenseAdamW``, B10, and ``AdamW``) with a dropout key against
+   the CPU's from copies of one state: the step's 24 dropout masks drawn on
+   the card equal the CPU's bit for bit, every param and moment within the
+   dense gate, the BN running stats moved; then 2 x 5 timed steps. (b) The
+   same step device-sampled at 10 steps per call, one CUDA graph with its
+   dropout drawn inside (the dropout key in a static buffer): the first
+   call and two replays equal the eager card steps bit for bit, no host
+   sync, B10 10 per call by name; each dropout site's keep rate over a call
+   within 4 sigma of 1 - p; 2 x 5 timed calls. (c) One sparse host-fed step
+   (``RowSGDM`` interleaved, B3) against the CPU within the sparse gate. (d)
+   Top-10 of 512 tail queries against all entities (``train=False``), held
+   against a full-table reference and the CPU. (e) One ``AllScoresPipeline``
+   pass over 20,000 entities, its matrix within 1e-5 of a full-table one.
+   Then B10 at 123,182 x 201 fp32 against its plain version and timed
+   beside its bound, and the conv's cost under deterministic cuDNN without
+   TF32 against cuDNN's defaults. ``--profile=conve`` traces two calls and
+   gives the conv and FC kernels' share of the device time.
 
 Each path is driven with every launch count set to 0 just before it and
 read just after. Then one JSON line describing each kernel, and the result
@@ -171,8 +193,8 @@ result; so it does when no CUDA card is available. ``--profile`` adds a
 ``torch.profiler`` trace of the training steps of each training phase
 (``training``, ``dense``, ``device``, ``packed``, ``yago``, ``scorers``)
 and of the ``eval`` phase's device-resident valid blocks and all-scores
-sweep (``--profile=yago,eval`` traces only the named ones): device time by
-kernel, and the device's busy share.
+sweep, and of the ``conve`` phase's calls (``--profile=yago,eval`` traces
+only the named ones): device time by kernel, and the device's busy share.
 """
 
 from __future__ import annotations
@@ -219,9 +241,13 @@ from besskge_tpu_torch.negative_sampler import (  # noqa: E402
 from besskge_tpu_torch.ops import adamw_kernels, distance, l1_kernels, row_kernels  # noqa: E402
 from besskge_tpu_torch.pipeline import AllScoresPipeline  # noqa: E402
 from besskge_tpu_torch.profiling import DISTANCE_EDGES, device_kernels  # noqa: E402
-from besskge_tpu_torch.scoring import ComplEx, RotatE, TransE  # noqa: E402
+from besskge_tpu_torch.scoring import ComplEx, ConvE, RotatE, TransE  # noqa: E402
 from besskge_tpu_torch.sharding import PartitionedTripleSet, Sharding  # noqa: E402
-from besskge_tpu_torch.utils import complex_multiplication, get_entity_filter  # noqa: E402
+from besskge_tpu_torch.utils import (  # noqa: E402
+    _tree_map,
+    complex_multiplication,
+    get_entity_filter,
+)
 
 # Serving configuration: ogbl-wikikg2's entity and relation counts on one
 # shard, the width of benchmarks/bench_topk.py --model transe-l1.
@@ -311,6 +337,28 @@ SCORERS = ("DistMult", "PairRE", "TripleRE", "BoxE", "InterHT", "TranS")
 # same state and batch; the bf16 step's distance to the gate is reported.
 FP32_HELD = ("BoxE",)
 SCORER_QUERIES, SCORER_TIMED_CALLS = 64, 5
+# ConvE at YAGO3-10 width with the ConvE paper's settings (Dettmers et al.,
+# AAAI 2018; the repo's ConvE defaults): YAGO_ENTITY entities, YAGO_RELATION
+# relation types with inverses (74 relation rows), d = 200 as 10 x 20 (entity
+# rows of 201 with the tail bias), 32 channels of 3 x 3 (fc_in 10,368),
+# dropout 0.2 / 0.2 / 0.3, BatchNorm; YAGO_TRIPLE random triples doubled by
+# add_inverse_triples, 8 x 120 positives per step, YAGO_NEGATIVE shared flat
+# "t" negatives, SSCE, lr 1e-3; FusedDenseAdamW (B10) on the table and AdamW
+# on the rest (dense), or RowSGDM interleaved (B3, sparse); device-sampled at
+# 10 steps per call; 512 top-10 queries; one all-scores pass over 20,000
+# entities (512 queries, windows of 4,096). CONVE_RNG seeds the dropout keys.
+CONVE_EMB, CONVE_H, CONVE_W = 200, 10, 20
+CONVE_SHARD_BS, CONVE_BPS, CONVE_LR, CONVE_SPC, CONVE_TIMED_CALLS = 120, 8, 1e-3, 10, 5
+CONVE_QUERIES, CONVE_AS_ENTITY, CONVE_AS_QUERIES, CONVE_AS_WINDOW = 512, 20_000, 512, 4096
+CONVE_RNG = 12345
+# ConvE params whose gradient is near 0 at the first step, where BatchNorm
+# takes batch statistics: conv_b's is exactly 0 (a per-channel shift before
+# bn1), bn0's scale's 0 up to the 1e-5 in bn1's rsqrt(var + 1e-5) (one input
+# channel, bn0's bias at its initial 0, so bn1 undoes the scale). Both
+# devices hold rounding noise of cancelling terms there; their moments are
+# held against the largest moment of the state, and the phase prints their
+# CPU gradients beside the largest.
+CONVE_NOISE = ("conv_b", "bn0.scale")
 # Evaluation: bench.py's run_valid (TransE-L1 at wikikg2's counts, bf16
 # scoring, no sharing; 40,960 random valid triples with 500 random tail
 # candidates each; ScoreMoving through run_device_eval, 16 steps of 10 x 256
@@ -633,6 +681,21 @@ def serving(gen: torch.Generator, device: str = "cuda") -> dict:
     return out
 
 
+def _pair_slots(gen: torch.Generator, n_logical: int, slots: int, width: int) -> tuple:
+    """B3's inputs over a pair-major table of ``n_logical`` row pairs:
+    sorted physical indices of ``slots`` random rows with duplicate runs,
+    the mask of each run's first slot, and (2 x slots, width) rows with NaN
+    in the duplicate slots, which B3 skips."""
+    logical = torch.randint(0, n_logical, (slots,), device="cuda", generator=gen)
+    logical[1::5] = logical[0::5][: logical[1::5].shape[0]]  # duplicate runs
+    phys = (2 * torch.sort(logical).values).to(torch.int32)
+    first = torch.ones(slots, dtype=torch.bool, device="cuda")
+    first[1:] = phys[1:] != phys[:-1]
+    rows = torch.randn(2 * slots, width, device="cuda", generator=gen)
+    rows.view(slots, 2, width)[~first] = float("nan")
+    return phys, first, rows
+
+
 def check_training_kernels(gen: torch.Generator, table_rows: int) -> dict:
     """B1, B2, B6, B3 and B4 against their plain versions on the card, and
     their times at the training step's shapes."""
@@ -733,13 +796,7 @@ def check_training_kernels(gen: torch.Generator, table_rows: int) -> dict:
     table_plain = table.clone()
     for R in (BPS * (2 * SHARD_BS_TRAIN + 2 * N_NEGATIVE), 1001):
         table_plain.copy_(table)  # the timing runs below move the two apart
-        logical = torch.randint(0, table_rows // 2, (R,), device="cuda", generator=gen)
-        logical[1::5] = logical[0::5][: logical[1::5].shape[0]]  # duplicate runs
-        phys = (2 * torch.sort(logical).values).to(torch.int32)
-        first = torch.ones(R, dtype=torch.bool, device="cuda")
-        first[1:] = phys[1:] != phys[:-1]
-        rows = torch.randn(2 * R, DIM, device="cuda", generator=gen)
-        rows.view(R, 2, DIM)[~first] = float("nan")  # garbage in duplicate slots
+        phys, first, rows = _pair_slots(gen, table_rows // 2, R, DIM)
         grads = torch.randn(R, DIM, device="cuda", generator=gen)
         grads[~first] = float("nan")
         lr = torch.tensor(LR, device="cuda")
@@ -960,14 +1017,22 @@ def check_multi_and_gather(gen: torch.Generator, n_rows: int) -> dict:
     return results
 
 
-def check_dense_adamw(gen: torch.Generator) -> dict:
-    """B10 against its plain version on the card: mu and nu to equal bits,
-    the param to two fp32 ulps (one bf16 ulp for a bf16 param); its time at
-    the biokg table against torch.optim.AdamW(fused=True)."""
+#: (shape, dtype) of B10's checks on the biokg table: fp32 (timed), bf16,
+#: and an unaligned fp32 table.
+B10_BIOKG_CASES = (((DENSE_ENTITY, 2 * DENSE_EMB), torch.float32),
+                   ((DENSE_ENTITY, 2 * DENSE_EMB), torch.bfloat16),
+                   ((777, 129), torch.float32))
+
+
+def check_dense_adamw(gen: torch.Generator, cases: tuple = B10_BIOKG_CASES) -> dict:
+    """B10 against its plain version on the card for each (shape, dtype) of
+    ``cases``: mu and nu to equal bits, the param to two fp32 ulps (one bf16
+    ulp for a bf16 param); its time at the first case, an fp32 table,
+    against torch.optim.AdamW(fused=True)."""
     result = {"max_abs_err": 0.0}
-    main = (DENSE_ENTITY, 2 * DENSE_EMB)
     count = torch.tensor(3, dtype=torch.int32, device="cuda")
-    for shape, dtype in ((main, torch.float32), (main, torch.bfloat16), ((777, 129), torch.float32)):
+    main = cases[0][0]
+    for i, (shape, dtype) in enumerate(cases):
         p = (torch.rand(shape, device="cuda", generator=gen) * 2 - 1).to(dtype)
         mu = torch.randn(shape, device="cuda", generator=gen) * 1e-3
         nu = torch.rand(shape, device="cuda", generator=gen) * 1e-6
@@ -985,7 +1050,7 @@ def check_dense_adamw(gen: torch.Generator) -> dict:
         result["max_abs_err"] = max(result["max_abs_err"], err.max().item())
         say("kernels", f"B10 {shape} {str(dtype)[6:]} param: mu, nu equal to the plain version,"
             f" param max|err| {err.max().item():.3g}")
-        if shape == main and dtype == torch.float32:
+        if i == 0:
             n = p.numel()
             param = torch.nn.Parameter(p.clone())
             param.grad = g.clone()
@@ -1604,12 +1669,35 @@ def dense_training(gen: torch.Generator, profile: bool = False, device: str = "c
 def _adam_params(params: dict, state: dict) -> dict:
     """name -> (param, its AdamW moments {"mu", "nu"}) of a dense form's
     params and state: plain AdamW over every param, or FusedDenseAdamW on
-    the table beside AdamW on the relations."""
+    the table beside AdamW on the other params (the relations, and ConvE's
+    trunk, named by dotted path)."""
+    out, dense = {}, state
     if "entity" in state:
-        rel = "relation_embedding"
-        return {"entity_embedding": (params["entity_embedding"], state["entity"]),
-                rel: (params[rel], {k: state["other"][k][rel] for k in ("mu", "nu")})}
-    return {k: (v, {m: state[m][k] for m in ("mu", "nu")}) for k, v in params.items()}
+        out["entity_embedding"] = (params["entity_embedding"], state["entity"])
+        dense = state["other"]
+    flat = dict(trainer._leaves(params))
+    mu, nu = dict(trainer._leaves(dense["mu"])), dict(trainer._leaves(dense["nu"]))
+    out.update({path: (flat[path], {"mu": mu[path], "nu": nu[path]}) for path in mu})
+    return out
+
+
+def _dense_arrays(got: tuple, want: tuple, count: int, lr: float) -> list:
+    """(param name, array name, got, want, extra) of each array a dense
+    form's (params, state) holds: every param, with lr x the difference of
+    m^/(v^1/2 + eps) of each side's own moments as its extra, and its two
+    moments."""
+    arrays = []
+    g_adam, w_adam = _adam_params(*got), _adam_params(*want)
+    for name, (w_param, w_mom) in w_adam.items():
+        g_param, g_mom = g_adam[name]
+        g_mom = {k: v.cpu().float() for k, v in g_mom.items()}
+        w_mom = {k: v.cpu().float() for k, v in w_mom.items()}
+        moved = lr * (_adam_ratio(g_mom, count, 0.9, 0.999)
+                      - _adam_ratio(w_mom, count, 0.9, 0.999)).abs()
+        arrays += [(name, name, g_param.cpu().float(), w_param.cpu().float(), moved),
+                   (name, f"{name} mu", g_mom["mu"], w_mom["mu"], 0.0),
+                   (name, f"{name} nu", g_mom["nu"], w_mom["nu"], 0.0)]
+    return arrays
 
 
 def _hold_dense(what: str, got: tuple, want: tuple, count: int, lr: float) -> dict:
@@ -1618,21 +1706,12 @@ def _hold_dense(what: str, got: tuple, want: tuple, count: int, lr: float) -> di
     of m^/(v^1/2 + eps) of each side's own moments, and the moments within
     the tolerance. Returns each array's max |err| (0.0: equal bits)."""
     errs = {}
-    g_adam, w_adam = _adam_params(*got), _adam_params(*want)
-    for name, (w_param, w_mom) in w_adam.items():
-        g_param, g_mom = g_adam[name]
-        g_mom = {k: v.cpu() for k, v in g_mom.items()}
-        w_mom = {k: v.cpu() for k, v in w_mom.items()}
-        moved = DENSE_LR * (_adam_ratio(g_mom, count, 0.9, 0.999)
-                            - _adam_ratio(w_mom, count, 0.9, 0.999)).abs()
-        for part, g, w, extra in ((name, g_param.cpu(), w_param.cpu(), moved),
-                                  (f"{name} mu", g_mom["mu"], w_mom["mu"], 0.0),
-                                  (f"{name} nu", g_mom["nu"], w_mom["nu"], 0.0)):
-            err = (g - w).abs()
-            tol = DENSE_RTOL * (w.abs() + w.abs().max()) + extra
-            if not (err <= tol).all() or not torch.isfinite(g).all():
-                raise AssertionError(f"{what}: {part} off by {err.max().item()}")
-            errs[part] = err.max().item()
+    for _, part, g, w, extra in _dense_arrays(got, want, count, lr):
+        err = (g - w).abs()
+        tol = DENSE_RTOL * (w.abs() + w.abs().max()) + extra
+        if not (err <= tol).all() or not torch.isfinite(g).all():
+            raise AssertionError(f"{what}: {part} off by {err.max().item()}")
+        errs[part] = err.max().item()
     return errs
 
 
@@ -1749,10 +1828,16 @@ def _graph_equals_eager(name: str, form: dict) -> dict:
     step's count in the warm-up and as many again into the capture; a replay
     calls no wrapper (no fall-back to eager steps, no new capture), runs
     under the sync debug mode "error" (any host synchronisation raises), and
-    its launches are counted by the profiler, by kernel name. Returns the
+    its launches are counted by the profiler, by kernel name. A form with an
+    ``rng`` (ConvE) passes each call the dropout key ``rng(call)``, as a
+    host int, which the graph copies into its static buffer. Returns the
     comparisons, counts and capture statistics."""
     fn, dev, spc, st = form["fn"], form["sampler"], form["spc"], form["sampler_state"]
     phase = form.get("phase", "device")
+
+    def rngs(call):
+        return (form["rng"](call),) if "rng" in form else ()
+
     graph = (form["params"], form["state"])
     eager = (trainer._clone(form["params"]), trainer._clone(form["state"]))
     sparse = isinstance(form["ent"], optim.EntityRowOptimizer)
@@ -1766,7 +1851,7 @@ def _graph_equals_eager(name: str, form: dict) -> dict:
         if call:
             torch.cuda.set_sync_debug_mode("error")
         try:
-            fn(*graph, st, key)
+            fn(*graph, st, key, *rngs(call))
         finally:
             torch.cuda.set_sync_debug_mode("default")
         torch.cuda.synchronize()
@@ -1776,7 +1861,7 @@ def _graph_equals_eager(name: str, form: dict) -> dict:
                       {k: per_call * n * spc for k, n in form["want"].items()})
         if not call:
             results["first_call_wrapper_launches"] = {k: v for k, v in counts.items() if v}
-        fn._eager(*eager, st, key.cuda())
+        fn._eager(*eager, st, key.cuda(), *(torch.tensor(r, device="cuda") for r in rngs(call)))
         torch.cuda.synchronize()
         bits = {path: torch.equal(g, e) for (path, g), (_, e) in zip(
             trainer._leaves({"params": graph[0], "state": graph[1]}),
@@ -1799,17 +1884,21 @@ def _graph_equals_eager(name: str, form: dict) -> dict:
                                  f" {[p for p in exact if not bits[p]]}")
         results["replays"].append({"call": call, "graph": call > 0, "bitwise": bits,
                                    "max_abs_err": errs})
+        differ = [p for p, b in bits.items() if not b]
+        equal = (f"all {len(bits)} arrays equal" if not differ else
+                 f"{len(bits) - len(differ)} of {len(bits)} arrays equal,"
+                 f" {'; '.join(differ)} differ")
         say(phase, f"{name} call {call} ({'replay' if call else 'eager warm-up, then capture'},"
-            f" key {int(key)}): {'; '.join(f'{p} equal' if b else f'{p} differs' for p, b in bits.items())}"
-            f" against the eager card steps (max|err| {', '.join(f'{k} {v:.3g}' for k, v in errs.items())});"
-            f" wrapper launches {dict((k, v) for k, v in counts.items() if v)}"
+            f" key {int(key)}): {equal} against the eager card steps (max|err|"
+            f" {max(errs.values()):.3g} over {len(errs)} held arrays); wrapper launches"
+            f" {dict((k, v) for k, v in counts.items() if v)}"
             + ("" if call else " (the warm-up's and the capture's)"))
     results.update(fn._graph.stats)
     say(phase, f"{name}: capture of {spc} steps {results['capture_s']:.3f} s, graph pool"
         f" {results['pool_bytes'] / 2**20:.1f} MiB, peak during capture"
         f" {results['peak_bytes'] / 2**20:.1f} MiB; replays made no host sync")
     # A replay's launches, by kernel name, from the profiler.
-    kernels = device_kernels(lambda: fn(*graph, st, dev.next_key(7)), 1)
+    kernels = device_kernels(lambda: fn(*graph, st, dev.next_key(7), *rngs(7)), 1)
     seen = {kernel: sum(c for key, (_, c) in kernels.items() if kernel in key)
             for kernel in form["kernels"]}
     if seen != {k: n * spc for k, n in form["kernels"].items()}:
@@ -3332,6 +3421,513 @@ def eval_phase(gen: torch.Generator, profile: bool = False, device: str = "cuda"
     return result
 
 
+def _conve_fn(sharding: Sharding) -> ConvE:
+    """ConvE at the ConvE paper's YAGO3-10 settings (the repo's defaults):
+    d = 200 as 10 x 20, 32 channels of 3 x 3, dropout 0.2 / 0.2 / 0.3,
+    BatchNorm, inverse relations."""
+    return ConvE(True, sharding, YAGO_RELATION, CONVE_EMB, CONVE_H, CONVE_W, seed=SEED)
+
+
+def _conve_module(triples: np.ndarray, sharding: Sharding, score_fn: ConvE) -> tuple:
+    """EmbeddingMovingBessKGE with YAGO_NEGATIVE shared flat "t" negatives
+    and SSCE over the triples with their inverses."""
+    dataset = KGDataset(n_entity=sharding.n_entity, n_relation_type=YAGO_RELATION,
+                        triples={"train": triples},
+                        original_triple_ids={"train": np.arange(len(triples))})
+    pts = PartitionedTripleSet.create_from_dataset(dataset, "train", sharding,
+                                                   add_inverse_triples=True)
+    ns = RandomShardedNegativeSampler(YAGO_NEGATIVE, sharding, SEED, "t", local_sampling=False,
+                                      flat_negative_format=True)
+    return EmbeddingMovingBessKGE(ns, score_fn, SampledSoftmaxCrossEntropyLoss(
+        sharding.n_entity)), pts
+
+
+def _conve_masks(score_fn: ConvE, rng: torch.Tensor, bps: int, b: int) -> list:
+    """The dropout masks of one step with dropout key ``rng``, drawn as the
+    step draws them: one key per micro-batch, split three ways (input,
+    feature map, hidden), each mask by ``scoring._keep_mask`` in the JAX
+    package's layout. [(site, keep probability, mask)]."""
+    sites = (("input", 1 - score_fn.p_in, (b, 2 * CONVE_H, CONVE_W, 1)),
+             ("feature map", 1 - score_fn.p_fm, (b, 1, 1, score_fn.out_channels)),
+             ("hidden", 1 - score_fn.p_hid, (b, CONVE_EMB)))
+    out = []
+    for mb in split_key(rng, bps):
+        for (site, keep, shape), key in zip(sites, split_key(mb, 3)):
+            out.append((site, keep, scoring._keep_mask(key, keep, shape)))
+    return out
+
+
+def _conve_within(got: torch.Tensor, want: torch.Tensor, scale=None, extra=0.0) -> tuple:
+    """(max |got - want|, its largest ratio to DENSE_RTOL x (|want| +
+    ``scale``) + ``extra``; inf where ``got`` is not finite), ``scale``
+    max|want| unless given: ConvE's steps are fp32 throughout."""
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    tol = DENSE_RTOL * (want.abs() + (want.abs().max() if scale is None else scale)) + extra
+    ratio = torch.where(err > 0, err / tol, torch.zeros_like(err)).max().item()
+    return err.max().item(), ratio if torch.isfinite(got).all() else float("inf")
+
+
+def _conve_gate(what: str, errs: dict) -> dict:
+    """Raises naming every array of ``errs`` (name -> (max|err|, ratio))
+    over its gate; returns ``errs``."""
+    over = {k: v for k, v in errs.items() if not v[1] <= 1.0}
+    if over:
+        raise AssertionError(f"{what}: " + ", ".join(
+            f"{k} off by {e:.4g} ({r:.3g} x its gate)" for k, (e, r) in over.items()))
+    return errs
+
+
+def _conve_hold_dense(what: str, got: tuple, want: tuple, count: int) -> dict:
+    """:func:`_hold_dense`'s gate, with the moments of CONVE_NOISE held
+    against the largest moment (mu or nu) of the state. Returns name ->
+    (max|err|, ratio to the gate)."""
+    arrays = _dense_arrays(got, want, count, CONVE_LR)
+    largest = {m: max(w.abs().max().item() for _, part, _, w, _ in arrays if part.endswith(m))
+               for m in (" mu", " nu")}
+    return _conve_gate(what, {part: _conve_within(g, w, largest[part[-3:]] if (
+        name in CONVE_NOISE and part != name) else None, extra)
+        for name, part, g, w, extra in arrays})
+
+
+def _conve_hold_sparse(what: str, got: tuple, want: tuple, rows: torch.Tensor) -> dict:
+    """The sparse step's (params, state) against another's within the dense
+    gate (DENSE_RTOL x (|want| + max|want|); the step is fp32 throughout):
+    the touched rows of the pair-major table (params and momentum) and the
+    relations as :func:`_hold_sparse` takes them, each trunk param plus lr x
+    the difference of its momenta, the momenta (those of CONVE_NOISE against
+    the largest momentum of the state), and the BN running stats. The step
+    sums a row's slots as the difference of two running sums over the
+    sorted slots (``optim._dedup_row_grads``, the JAX package's rounding),
+    so a table row carries rounding of the running sum's size: its scale
+    adds, per column, the sum of |m| over the touched rows. Returns name ->
+    (max|err|, ratio to the gate)."""
+    arrays = _sparse_arrays(got, want, rows, CONVE_LR)
+    run = arrays[0][2].abs().sum(0)  # ("momentum", got, want, extra)
+    errs = {name: _conve_within(g, w, w.abs().max() + run if name == "momentum" else None,
+                                extra) for name, g, w, extra in arrays}
+    g_p, w_p = dict(trainer._leaves(got[0])), dict(trainer._leaves(want[0]))
+    g_m = dict(trainer._leaves(got[1]["other"]["trace"]))
+    w_m = dict(trainer._leaves(want[1]["other"]["trace"]))
+    largest = max(v.abs().max().item() for v in w_m.values())
+    for path, w in w_m.items():
+        if path == "relation_embedding":
+            continue
+        g, w = g_m[path].cpu(), w.cpu()
+        errs[f"{path} momentum"] = _conve_within(g, w, largest if path in CONVE_NOISE else None)
+        errs[path] = _conve_within(g_p[path].cpu(), w_p[path].cpu(), None,
+                                   CONVE_LR * (g - w).abs())
+    for path in g_p:
+        if path.endswith((".mean", ".var")):
+            errs[path] = _conve_within(g_p[path].cpu(), w_p[path].cpu())
+    return _conve_gate(what, errs)
+
+
+def _conve_gate_report(errs: dict) -> str:
+    """max|err| and the three arrays nearest their gates, of a
+    :func:`_conve_gate` map."""
+    near = sorted(errs, key=lambda k: -errs[k][1])[:3]
+    return (f"max|err| {max(e for e, _ in errs.values()):.3g} over {len(errs)} arrays; nearest"
+            f" their gates " + ", ".join(f"{k} {errs[k][1]:.3f}" for k in near))
+
+
+def _conve_check_b3(gen: torch.Generator, slots: int) -> dict:
+    """B3 against its plain version at the ConvE sparse step's shape: a
+    (2 x YAGO_ENTITY, CONVE_EMB + 1) fp32 pair-major table, whose 804-byte
+    rows take the kernel's 4-byte copy unit, written at the step's slot
+    count with duplicate runs and NaN in the duplicate slots; equal bits.
+    Its time against ``index_copy_`` of the first slots, with its bound."""
+    width = CONVE_EMB + 1
+    table = torch.rand((2 * YAGO_ENTITY, width), device="cuda", generator=gen)
+    table_plain = table.clone()
+    phys, first, rows = _pair_slots(gen, YAGO_ENTITY, slots, width)
+    unit = row_kernels._copy_unit("scatter_rows", width * 4, (table, rows), (16, 4, 2))
+    if unit != 4:
+        raise AssertionError(f"B3 copies {unit}-byte units at rows of {width * 4} bytes, not 4")
+    row_kernels.scatter_rows(table, phys, rows, 2, True)
+    row_kernels.scatter_rows_plain(table_plain, phys, rows, 2, True)
+    torch.cuda.synchronize()
+    if not torch.equal(table, table_plain):
+        diff = (table - table_plain).abs().nan_to_num(float("inf")).max().item()
+        raise AssertionError(f"B3 at the ConvE shape off its plain version by {diff}")
+    unique = int(first.sum())
+    flat_first = (phys[first].long()[:, None] + torch.arange(2, device="cuda")).reshape(-1)
+    rows_first = rows.view(slots, 2, width)[first].reshape(-1, width)
+    bound = bound_of(0.0, 4 * slots + unique * 2 * (2 * width * 4))
+    result = {
+        "shape": [2 * YAGO_ENTITY, width], "slots": slots, "unique": unique, "copy_unit": unit,
+        "max_abs_err": 0.0,
+        "ms": device_ms(lambda: row_kernels.scatter_rows(table, phys, rows, 2, True), 100),
+        "plain_ms": device_ms(lambda: row_kernels.scatter_rows_plain(
+            table_plain, phys, rows, 2, True), 10),
+        "library_ms": device_ms(lambda: table.index_copy_(0, flat_first, rows_first), 100),
+        "bound_ms": bound[0], "bound_by": bound[1]}
+    say("conve", f"B3 at the sparse step's shape ({2 * YAGO_ENTITY} x {width} fp32, {slots}"
+        f" slots, {unique} unique pairs, {unit}-byte copies): equal to its plain version bit"
+        f" for bit, duplicate slots (NaN) untouched; kernel {result['ms']:.4f} ms, plain"
+        f" {result['plain_ms']:.4f} ms, index_copy_ {result['library_ms']:.4f} ms, bound"
+        f" {bound[0]:.4f} ms ({bound[1]})")
+    return result
+
+
+def _conve_reference(params: dict, sharding: Sharding, score_fn: ConvE, rel: torch.Tensor,
+                     head: torch.Tensor) -> torch.Tensor:
+    """ConvE tail scores of (head, rel) queries against every local row: the
+    queries' trunk (eval mode) and one full-fp32 product with the whole
+    table plus the tail biases; padding rows at -inf."""
+    table = params["entity_embedding"]
+    with torch.inference_mode():
+        hr = score_fn.hr_transform(params, table[head.long(), :-1],
+                                   params["relation_embedding"][rel.long()])
+        ref = torch.matmul(hr, table[:, :-1].T) + table[:, -1]  # main() turns TF32 off
+        ref[:, int(sharding.shard_counts[0]):] = -float("inf")
+    return ref
+
+
+def _conve_serving(params: dict, sharding: Sharding, score_fn: ConvE, device: str,
+                   smi: str) -> dict:
+    """Top-10 of CONVE_QUERIES tail queries against every entity (the
+    default window and chunk merge), held against a full-table reference and
+    the CPU; ms per batch the best of YAGO_REPEATS x YAGO_BATCHES."""
+    rng = np.random.default_rng(SEED + 1)
+    rel = torch.from_numpy(rng.integers(2 * YAGO_RELATION, size=CONVE_QUERIES)).to(device)
+    head = torch.from_numpy(rng.integers(int(sharding.shard_counts[0]),
+                                         size=CONVE_QUERIES)).to(device)
+    ns = PlaceholderNegativeSampler(corruption_scheme="t", seed=SEED)
+    topk = TopKQueryBessKGE(K, ns, score_fn, return_scores=True)
+    with torch.inference_mode():
+        out = topk.forward(params, rel, head=head)  # warm-up
+        sync(device)
+        best = float("inf")
+        for _ in range(YAGO_REPEATS):
+            t = time.perf_counter()
+            for _ in range(YAGO_BATCHES):
+                out = topk.forward(params, rel, head=head)
+            sync(device)
+            best = min(best, (time.perf_counter() - t) / YAGO_BATCHES)
+    if not torch.isfinite(out["topk_scores"]).all() or out["topk_global_id"].shape != (
+            CONVE_QUERIES, K):
+        raise AssertionError(f"conve top-{K} output {tuple(out['topk_global_id'].shape)}")
+    n = min(N_REFERENCE, CONVE_QUERIES)
+    ref = _conve_reference(params, sharding, score_fn, rel[:n], head[:n])
+    sure = _hold_topk("conve top-10 vs the full-table reference",
+                      {k: v[:n] for k, v in out.items()}, ref, sharding, DENSE_RTOL)
+    cpu = _tree_map(lambda v: v.cpu(), params) if device == "cuda" else params
+    with torch.inference_mode():
+        _same_topk("conve top-10 card vs CPU", {k: v[:64] for k, v in out.items()},
+                   topk.forward(cpu, rel[:64].cpu(), head=head[:64].cpu()), DENSE_RTOL)
+    say("conve", f"top-{K} of {CONVE_QUERIES} tail queries against all {sharding.n_entity}"
+        f" entities (window {topk.window_size}, chunk merge, train=False): {best * 1e3:.3f} ms"
+        f" per batch (best of {YAGO_REPEATS} x {YAGO_BATCHES}); {n} queries match a full-fp32"
+        f" full-table reference ({sure} with a clear 10th/11th gap), 64 equal the CPU's; {smi}")
+    return {"ms_per_batch": best * 1e3, "window": topk.window_size}
+
+
+def _conve_allscores(params: dict, gen: torch.Generator, device: str) -> dict:
+    """One AllScoresPipeline pass over CONVE_AS_ENTITY entities (the trained
+    trunk and relations, a table drawn anew at that size) for
+    CONVE_AS_QUERIES tail queries, windows of CONVE_AS_WINDOW: the matrix
+    against one plain full-table matrix, within DENSE_RTOL."""
+    sharding = Sharding.create(CONVE_AS_ENTITY, 1, seed=SEED)
+    score_fn = _conve_fn(sharding)
+    small = score_fn.initial_params_device(device=device, generator=gen)
+    small.update({k: v for k, v in params.items() if k != "entity_embedding"})
+    rng = np.random.default_rng(SEED + 2)
+    tri = np.stack([rng.integers(CONVE_AS_ENTITY, size=CONVE_AS_QUERIES),
+                    rng.integers(2 * YAGO_RELATION, size=CONVE_AS_QUERIES),
+                    rng.integers(CONVE_AS_ENTITY, size=CONVE_AS_QUERIES)], 1).astype(np.int32)
+    dataset = KGDataset(n_entity=CONVE_AS_ENTITY, n_relation_type=2 * YAGO_RELATION,
+                        triples={"test": tri}, original_triple_ids={"test": np.arange(len(tri))})
+    pts = PartitionedTripleSet.create_from_dataset(dataset, "test", sharding,
+                                                   partition_mode="h_shard")
+    ns = PlaceholderNegativeSampler(corruption_scheme="t", seed=SEED)
+    sampler = RigidShardedBatchSampler(pts, ns, shard_bs=CONVE_AS_QUERIES // 2, batches_per_step=2,
+                                       seed=SEED, return_triple_idx=True)
+    pipe = AllScoresPipeline(sampler, "t", score_fn, return_scores=True,
+                             window_size=CONVE_AS_WINDOW, device=device)
+    t = time.perf_counter()
+    out = pipe.forward(small)
+    sync(device)
+    pass_s = time.perf_counter() - t
+    got = torch.from_numpy(out["scores"])
+    order = torch.from_numpy(out["triple_idx"].astype(np.int64))
+    q = torch.from_numpy(tri).to(device)[order.to(device)]
+    e2i = torch.as_tensor(sharding.entity_to_idx, device=device).long()
+    want = _conve_reference(small, sharding, score_fn, q[:, 1], e2i[q[:, 0].long()])
+    want = want[:, e2i].cpu()  # local rows -> global entity order
+    err = (got - want).abs()
+    if not (err <= DENSE_RTOL * (want.abs() + want.abs().max())).all():
+        raise AssertionError(f"conve all-scores off the full-table matrix by {err.max().item()}")
+    say("conve", f"AllScoresPipeline: {len(tri)} tail queries x {CONVE_AS_ENTITY} entities"
+        f" (windows of {CONVE_AS_WINDOW}) in {pass_s:.3f} s, the matrix within"
+        f" {DENSE_RTOL:g} x (|want| + max|want|) of a full-table matrix (max|err|"
+        f" {err.max().item():.3g})")
+    return {"pass_s": pass_s, "max_abs_err": err.max().item(), "entities": CONVE_AS_ENTITY}
+
+
+def conve(gen: torch.Generator, profile: bool = False, device: str = "cuda",
+          smi: str = "") -> dict:
+    """ConvE at YAGO3-10 width, trained and served: (a) the dense host-fed
+    step (FusedDenseAdamW, B10) against the CPU, its dropout masks equal to
+    the CPU's and its BN running stats moved; (b) the same step
+    device-sampled, one CUDA graph per call of CONVE_SPC steps with its
+    dropout drawn inside, replays bit for bit and the keep rates of a call;
+    (c) a sparse host-fed step (RowSGDM interleaved, B3) against the CPU;
+    (d) top-10 serving; (e) an all-scores pass (``device`` "cpu" rehearses
+    the phase without the card's gates)."""
+    on_card = device == "cuda"
+    result = {}
+    sharding = Sharding.create(YAGO_ENTITY, 1, seed=SEED)
+    score_fn = _conve_fn(sharding)
+    rng = np.random.default_rng(SEED)
+    triples = np.stack([rng.integers(YAGO_ENTITY, size=YAGO_TRIPLE),
+                        rng.integers(YAGO_RELATION, size=YAGO_TRIPLE),
+                        rng.integers(YAGO_ENTITY, size=YAGO_TRIPLE)], 1).astype(np.int32)
+    module, pts = _conve_module(triples, sharding, score_fn)
+    ns = module.negative_sampler
+    host = RigidShardedBatchSampler(pts, ns, shard_bs=CONVE_SHARD_BS, batches_per_step=CONVE_BPS,
+                                    seed=SEED)
+    blocks = iter(host.epoch_index_blocks(shuffle=True))
+    batch = host.sample_batch(next(blocks))
+    b = batch["head"].shape[-1] * batch["head"].shape[-2]  # queries per micro-batch
+    say("conve", f"ConvE {YAGO_ENTITY} x {CONVE_EMB + 1} table, {2 * YAGO_RELATION} relation"
+        f" rows, fc_in {score_fn.fc_in} (fc_w {score_fn.fc_in} x {CONVE_EMB}); {len(triples)}"
+        f" triples and their inverses, {CONVE_BPS} x {b} positives per step, {smi}")
+
+    # (a) The dense host-fed step against the CPU, from copies of one state,
+    # with one dropout key.
+    adamw = optim.AdamW(CONVE_LR)
+    fused = optim.FusedDenseAdamW(CONVE_LR, weight_decay=1e-4)
+    params = score_fn.initial_params_device(device=device, generator=gen)
+    initial_bn = {k: trainer._clone(params[k]) for k in ("bn0", "bn1", "bn2")}
+    state = trainer.init_optimizer_state(adamw, params, None, fused)
+    cpu_params, cpu_state = _to(params, "cpu"), _to(state, "cpu")
+    key = torch.tensor(CONVE_RNG, dtype=torch.int64)
+    card_masks = _conve_masks(score_fn, key.to(device), CONVE_BPS, b)
+    cpu_masks = _conve_masks(score_fn, key, CONVE_BPS, b)
+    if not all(torch.equal(c.cpu(), m) for (_, _, c), (_, _, m) in zip(card_masks, cpu_masks)):
+        raise AssertionError("conve: the dropout masks drawn on the card differ from the CPU's")
+    step = trainer.build_train_step(module, adamw, None, fused, device=device)
+    reset_counts()
+    params, state, out = step(params, state, batch, CONVE_RNG)
+    sync(device)
+    counts = read_counts()
+    if on_card:
+        expect_counts("conve dense step", counts, {"dense_adamw_update": 1})
+    t = time.perf_counter()
+    cpu_params, cpu_state, cpu_out = trainer.build_train_step(
+        module, adamw, None, fused, device="cpu")(cpu_params, cpu_state, batch, CONVE_RNG)
+    cpu_s = time.perf_counter() - t
+    loss, cpu_loss = float(out["loss"]), float(cpu_out["loss"])
+    if not np.isfinite(loss) or abs(loss - cpu_loss) > DENSE_RTOL * abs(cpu_loss):
+        raise AssertionError(f"conve step loss {loss} on the card, {cpu_loss} on the CPU")
+    errs = _conve_hold_dense("conve dense step vs the CPU", (params, state),
+                             (cpu_params, cpu_state), 1)
+    for k, stats in initial_bn.items():
+        for f in ("mean", "var"):
+            if torch.equal(params[k][f], stats[f]):
+                raise AssertionError(f"conve: {k} {f} did not move in the step")
+    # The first step's mu is (1 - 0.9) g: the CPU's gradients of CONVE_NOISE
+    # beside the largest.
+    grads = {name: mom["mu"].abs().max().item() / 0.1
+             for name, (_, mom) in _adam_params(cpu_params, cpu_state).items()}
+    top = max(grads, key=grads.get)
+    say("conve", f"(a) dense host-fed step (FusedDenseAdamW on the table, AdamW on the"
+        f" relations and trunk), dropout key {CONVE_RNG}: the {len(card_masks)} masks drawn on"
+        f" the card equal the CPU's bit for bit; card vs CPU ({cpu_s:.1f}s): loss {loss:.6f} vs"
+        f" {cpu_loss:.6f}, {_conve_gate_report(errs)} (BN running stats moved, within the"
+        f" gate); the CPU's max|g|: " + ", ".join(f"{n} {grads[n]:.3g}" for n in CONVE_NOISE)
+        + f", the largest {top} {grads[top]:.3g}; launches {_launched()}")
+    result["dense_vs_cpu"] = {"max_abs_err": max(e for e, _ in errs.values()),
+                              "max_gate_ratio": max(r for _, r in errs.values()),
+                              "arrays": len(errs),
+                              "noise_grads": {n: grads[n] for n in CONVE_NOISE},
+                              "largest_grad": grads[top]}
+    result["dense_host_launches"] = counts["dense_adamw_update"]
+    del cpu_params, cpu_state
+    timed = []
+    for _ in range(2):
+        batches = [host.sample_batch(next(blocks)) for _ in range(CONVE_TIMED_CALLS)]
+        batches = [_batch_tensors(x, _FORWARD_KEYS, device) for x in batches]
+        sync(device)
+        t = time.perf_counter()
+        for i, x in enumerate(batches):
+            params, state, out = step(params, state, x, CONVE_RNG + 1 + i)
+        sync(device)
+        timed.append((time.perf_counter() - t) / len(batches) * 1e3)
+    say("conve", f"(a) host-fed dense step (batches staged on the device): {timed[0]:.4f} /"
+        f" {timed[1]:.4f} ms per step over {CONVE_TIMED_CALLS} steps each, {smi}")
+    result["host_ms_per_step"] = timed
+
+    # (b) The same step device-sampled: one CUDA graph per call.
+    dev = DeviceBatchSampler(pts, ns, shard_bs=CONVE_SHARD_BS, batches_per_step=CONVE_BPS,
+                             seed=SEED, positive_mode="runs")
+    form = dict(module=module, opt=adamw, ent=fused, spc=CONVE_SPC, params=params, state=state,
+                sampler=dev, pts=pts, want={"dense_adamw_update": 1},
+                kernels={"dense_adamw_kernel": 1}, phase="conve", all_bits=True,
+                rng=lambda call: CONVE_RNG + 100 + call)
+    form["fn"] = trainer.build_device_train_step(module, adamw, dev, None, fused,
+                                                 steps_per_call=CONVE_SPC, device=device)
+    form["sampler_state"] = dev.state(device)
+    fn, st = form["fn"], form["sampler_state"]
+    if on_card:
+        result["device"] = _graph_equals_eager("conve", form)
+    else:
+        reset_counts()
+        fn(params, state, st, dev.next_key(0), CONVE_RNG + 100)
+        result["device"] = {"first_call_wrapper_launches": _launched()}
+    # Keep rates over one call's masks (the call's key split per step as
+    # the call splits it).
+    call_key = torch.tensor(CONVE_RNG + 100, dtype=torch.int64, device=device)
+    kept: Dict[str, list] = {}
+    for step_key in split_key(call_key, CONVE_SPC):
+        for site, keep, mask in _conve_masks(score_fn, step_key, CONVE_BPS, b):
+            kept.setdefault(site, [keep, 0, 0])
+            kept[site][1] += int(mask.sum())
+            kept[site][2] += mask.numel()
+    rates = {}
+    for site, (keep, n_kept, n) in kept.items():
+        sigma = (keep * (1 - keep) / n) ** 0.5
+        rates[site] = {"keep": n_kept / n, "expected": keep, "sigmas": (n_kept / n - keep) / sigma}
+        if abs(n_kept / n - keep) > 4 * sigma:
+            raise AssertionError(f"conve {site} dropout keeps {n_kept / n} over a call, expected"
+                                 f" {keep} within 4 x {sigma:.2g}")
+    say("conve", "(b) keep rates over one call: " + ", ".join(
+        f"{site} {r['keep']:.5f} (1 - p = {r['expected']:.1f}, {r['sigmas']:+.2f} sigma)"
+        for site, r in rates.items()))
+    result["keep_rates"] = rates
+    timed = []
+    for i in range(2):
+        fn(params, state, st, dev.next_key(100 + 10 * i), CONVE_RNG + 200 + 10 * i)  # warm-up
+        sync(device)
+        t = time.perf_counter()
+        for j in range(CONVE_TIMED_CALLS):
+            _, _, out = fn(params, state, st, dev.next_key(101 + 10 * i + j),
+                           CONVE_RNG + 201 + 10 * i + j)
+        sync(device)
+        timed.append((time.perf_counter() - t) / (CONVE_TIMED_CALLS * CONVE_SPC) * 1e3)
+    say("conve", f"(b) device-sampled ({CONVE_SPC} steps per call): {timed[0]:.4f} /"
+        f" {timed[1]:.4f} ms per step over {CONVE_TIMED_CALLS} calls each, capture"
+        f" {result['device'].get('capture_s', float('nan')):.3f} s; final loss"
+        f" {float(out['loss']):.3f}; {smi}")
+    result["device_ms_per_step"] = timed
+    if profile and on_card:
+        prof = profile_run(
+            lambda: [fn(params, state, st, dev.next_key(300 + i), CONVE_RNG + 300 + i)
+                     for i in range(2)], 2 * CONVE_SPC, "conve_trace.json")
+        result["profile"] = prof
+        result["conv_fc_share"] = _conve_trunk_share(smi)
+
+    # (c) A sparse host-fed step: RowSGDM interleaved (B3).
+    sgd = optim.SGD(CONVE_LR, momentum=MOMENTUM)
+    row = optim.RowSGDM(CONVE_LR, momentum=MOMENTUM, interleaved=True)
+    sparse_params = score_fn.initial_params_device(device=device, generator=gen)
+    sparse_params["entity_embedding"] = optim.interleave_momentum(
+        sparse_params["entity_embedding"])
+    sparse_state = trainer.init_optimizer_state(sgd, sparse_params, None, row,
+                                                n_logical=sharding.max_entity_per_shard)
+    # The reference: the same step on the CPU in float64, and in fp32 beside
+    # it (on the card's host the CPU's fp32 step strays from the float64 one
+    # by ~2e-3 of an array's largest value at this state, the card's by
+    # ~1e-6: the fp32 CPU step cannot hold the card to the dense gate).
+    cpu_sparse = {dtype: tuple(_tree_map(
+        lambda v: v.to("cpu", dtype if v.is_floating_point() else v.dtype, copy=True), t)
+        for t in (sparse_params, sparse_state)) for dtype in (torch.float64, torch.float32)}
+    reset_counts()
+    sparse_params, sparse_state, out = trainer.build_train_step(
+        module, sgd, None, row, device=device)(sparse_params, sparse_state, batch, CONVE_RNG)
+    sync(device)
+    counts = read_counts()
+    if on_card:
+        expect_counts("conve sparse step", counts, {"scatter_rows": 1})
+    cpu_step = trainer.build_train_step(module, sgd, None, row, device="cpu")
+    cpu_sparse = {dtype: cpu_step(*t, batch, CONVE_RNG) for dtype, t in cpu_sparse.items()}
+    loss, cpu_loss = float(out["loss"]), float(cpu_sparse[torch.float64][2]["loss"])
+    if not np.isfinite(loss) or abs(loss - cpu_loss) > DENSE_RTOL * abs(cpu_loss):
+        raise AssertionError(f"conve sparse step loss {loss} on the card, {cpu_loss} on the CPU")
+    ids = np.concatenate([batch[k].reshape(-1) for k in ("head", "tail", "negative")])
+    touched = torch.unique(torch.from_numpy(ids.astype(np.int64)))
+    errs = _conve_hold_sparse("conve sparse step vs the CPU (float64)", (
+        sparse_params, sparse_state), cpu_sparse[torch.float64][:2], touched)
+    strays = {side: max((g.double().cpu() - w).abs().max().item() / w.abs().max().item()
+                        for (name, g), (_, w) in zip(
+                            trainer._leaves(state_[1]["other"]["trace"]),
+                            trainer._leaves(cpu_sparse[torch.float64][1]["other"]["trace"]))
+                        if w.abs().max().item() > 0 and name not in CONVE_NOISE)
+              for side, state_ in (("card", (sparse_params, sparse_state)),
+                                   ("cpu_fp32", cpu_sparse[torch.float32]))}
+    say("conve", f"(c) sparse host-fed step (RowSGDM interleaved, B3): card vs the CPU's"
+        f" float64 step: loss {loss:.6f} vs {cpu_loss:.6f}, {_conve_gate_report(errs)}; the"
+        f" relations' and trunk's momenta but CONVE_NOISE off the float64 step by at most"
+        f" {strays['card']:.3g} of their largest value on the card, {strays['cpu_fp32']:.3g} in"
+        f" the CPU's fp32 step; launches {_launched()}")
+    result["sparse_vs_cpu"] = {"reference": "float64",
+                               "max_abs_err": max(e for e, _ in errs.values()),
+                               "max_gate_ratio": max(r for _, r in errs.values()),
+                               "arrays": len(errs), "momentum_rel_err": strays}
+    result["sparse_host_launches"] = counts["scatter_rows"]
+    del sparse_params, sparse_state, cpu_sparse
+    if on_card:  # B3 at the step's shape: one slot per gathered row
+        result["b3"] = _conve_check_b3(gen, len(ids))
+
+    # (d) Serving the trained params; (e) an all-scores pass.
+    result["serving"] = _conve_serving(params, sharding, score_fn, device, smi)
+    result["allscores"] = _conve_allscores(params, gen, device)
+    if on_card:
+        result["b10"] = check_dense_adamw(gen, (((YAGO_ENTITY, CONVE_EMB + 1), torch.float32),))
+        b10 = result["b10"]
+        say("conve", f"B10 at {YAGO_ENTITY} x {CONVE_EMB + 1} fp32: {b10['ms']:.4f} ms, bound"
+            f" {b10['bound'][0]:.4f} ms ({b10['bound'][1]}), plain {b10['plain_ms']:.4f} ms,"
+            f" torch.optim.AdamW(fused=True) {b10['library_ms']:.4f} ms; {smi}")
+        result["conv_cost"] = _conve_conv_cost(b, smi)
+        result["capture_s"] = result["device"]["capture_s"]
+    return result
+
+
+def _conve_conv_cost(b: int, smi: str) -> dict:
+    """What deterministic cuDNN without TF32 costs the trunk's conv: its
+    forward and both gradients under the micro-batch vmap at the step's
+    shape (CONVE_BPS micro-batches of 2 x b maps of 1 x 20 x 20, 32 filters
+    of 3 x 3), through the port's ``_ValidConv2d`` and through ``F.conv2d``
+    under cuDNN's defaults (TF32 allowed, any algorithm); ms per pass."""
+    x = torch.randn(CONVE_BPS, 2 * b, 1, 2 * CONVE_H, CONVE_W, device="cuda")
+    w = torch.randn(32, 1, 3, 3, device="cuda")
+
+    def grads(conv):
+        def loss(w_, x_):
+            return conv(x_, w_).square().sum()
+
+        step = torch.func.vmap(torch.func.grad(loss, argnums=(0, 1)), in_dims=(None, 0))
+        return lambda: step(w, x)
+
+    cost = {"exact_ms": cuda_ms(grads(scoring._ValidConv2d.apply), 20),
+            "default_ms": cuda_ms(grads(torch.nn.functional.conv2d), 20)}
+    say("conve", f"the trunk's conv, forward and both gradients under vmap ({CONVE_BPS} x"
+        f" {2 * b} maps): {cost['exact_ms']:.4f} ms deterministic without TF32 (the port's),"
+        f" {cost['default_ms']:.4f} ms under cuDNN's defaults; {smi}")
+    return cost
+
+
+#: Kernel names of the conv (cuDNN) and the linear map (cuBLAS/CUTLASS GEMMs).
+TRUNK_KERNELS = ("conv", "gemm", "xmma", "cutlass", "wgrad", "dgrad", "sm90")
+
+
+def _conve_trunk_share(smi: str) -> dict:
+    """The conv and FC kernels' share of the device time of the last
+    profiled ConvE calls (kernels named as cuDNN convolutions or GEMMs), from
+    the trace that :func:`profile_run` wrote."""
+    trace = json.loads((Path("chiprun_out") / "conve_trace.json").read_text())
+    kernels = [e for e in trace.get("traceEvents", [])
+               if e.get("cat") == "kernel" and "dur" in e]
+    total = sum(e["dur"] for e in kernels)
+    trunk = sum(e["dur"] for e in kernels
+                if any(k in e["name"].lower() for k in TRUNK_KERNELS))
+    share = {"trunk_us": trunk, "total_us": total, "share": trunk / total if total else None}
+    say("profile", f"conve: conv and FC kernels {trunk / 1e3:.3f} of {total / 1e3:.3f} ms of"
+        f" kernels ({100 * share['share']:.1f} %) over the profiled calls; {smi}")
+    return share
+
+
 def profile_steps(step, params, state, batches, trace: str) -> dict:
     """Device time by kernel and the device's busy share over a few host-fed
     steps (``torch.profiler``); the trace goes to chiprun_out/."""
@@ -3412,7 +4008,7 @@ def ptxas_report(names=("l1_distance", "dense_adamw")) -> None:
                 raise AssertionError(f"{k['name']} spills {k['spills']}")
 
 
-PHASES = ("training", "dense", "device", "packed", "yago", "scorers", "eval")
+PHASES = ("training", "dense", "device", "packed", "yago", "scorers", "eval", "conve")
 
 
 def profiled_phases(argv) -> set:
@@ -3479,6 +4075,8 @@ def main() -> int:
     scorer_runs = scorers(gen, profile="scorers" in profile)
     torch.cuda.empty_cache()
     eval_run = eval_phase(gen, profile="eval" in profile, smi=smi)
+    torch.cuda.empty_cache()
+    conve_run = conve(gen, profile="conve" in profile, smi=smi)
     results["dense_adamw_update"]["launches_yago"] = {
         "host_step": yago_run["host_step_launches"],
         "first_device_call": yago_run["device"]["first_call_wrapper_launches"],
@@ -3491,6 +4089,18 @@ def main() -> int:
             eval_run["valid"]["topk"]["shared"]["b5_per_batch_by_name"],
         "shared_candidate_topk_wrapper": eval_run["valid"]["topk"]["shared"]["wrapper_launches"]}
     results["l1_distance_matrix"]["allscores_shape"] = b5
+    results["dense_adamw_update"]["launches_conve"] = {
+        "host_step": conve_run["dense_host_launches"],
+        "first_device_call": conve_run["device"]["first_call_wrapper_launches"],
+        "per_call_by_name": conve_run["device"]["launches_per_call"]}
+    b10 = conve_run["b10"]
+    results["dense_adamw_update"]["conve_shape"] = {
+        "shape": [YAGO_ENTITY, CONVE_EMB + 1], "ms": b10["ms"], "plain_ms": b10["plain_ms"],
+        "library_ms": b10["library_ms"], "bound_ms": b10["bound"][0], "bound_by": b10["bound"][1],
+        "max_abs_err": b10["max_abs_err"]}
+    results["scatter_rows"]["launches_conve"] = {
+        "sparse_host_step": conve_run["sparse_host_launches"],
+        "held_at_the_step_shape": conve_run["b3"]}
     results["scatter_rows"]["launches_scorers"] = {
         name: {"host_step": r["host_step_launches"],
                "first_device_call": r["first_call_wrapper_launches"],
@@ -3520,7 +4130,8 @@ def main() -> int:
                          bound_ms_autograd_shape=t["bound"][0])
         if "library_kernel_ms" in r:
             entry["library_kernel_ms"] = r["library_kernel_ms"]
-        for key in ("launches_yago", "launches_scorers", "launches_eval"):
+        for key in ("launches_yago", "launches_scorers", "launches_eval", "launches_conve",
+                    "conve_shape"):
             if key in r:
                 entry[key] = r[key]
         if "allscores_shape" in r:  # B5 at the all-scores window's shape too
@@ -3602,6 +4213,22 @@ def main() -> int:
         "allscores_busy_pct": eval_run["allscores"].get("profile", {}).get("busy_pct"),
         "deviations": ["heads and tails of the planted queries are distinct entities",
                        "valid candidates never hold the triple's own tail"],
+        "card": smi}}), flush=True)
+    print(json.dumps({"conve": {
+        "host_ms_per_step": conve_run["host_ms_per_step"],
+        "device_ms_per_step": conve_run["device_ms_per_step"], "steps_per_call": CONVE_SPC,
+        "positives_per_step": CONVE_SHARD_BS * CONVE_BPS,
+        "topk_ms_per_batch": conve_run["serving"]["ms_per_batch"], "topk_queries": CONVE_QUERIES,
+        "capture_s": conve_run["capture_s"],
+        "graph_pool_bytes": conve_run["device"]["pool_bytes"],
+        "dense_vs_cpu": conve_run["dense_vs_cpu"], "sparse_vs_cpu": conve_run["sparse_vs_cpu"],
+        "keep_rates": conve_run["keep_rates"], "allscores": conve_run["allscores"],
+        "b10_conve_shape": results["dense_adamw_update"]["conve_shape"],
+        "busy_pct": conve_run.get("profile", {}).get("busy_pct"),
+        "conv_fc_share": conve_run.get("conv_fc_share"),
+        "conv_cost": conve_run["conv_cost"],
+        "deviations": ["one shard", "random triples standing for YAGO3-10's 1,079,040",
+                       "all-scores over 20,000 entities"],
         "card": smi}}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1087,3 +1087,136 @@ def test_device_eval_block_makes_no_host_sync(cuda):
     torch.testing.assert_close(sums, want, rtol=1e-6, atol=0)
     metrics, n_q = run_device_eval(module, params, sampler, steps_per_block=3)
     assert n_q == 900 and 0 < metrics["mrr"] <= 1
+
+
+# --------------------------------------------------------------------------
+# ConvE (ROADMAP A11): dropout in captured graphs, the in-step BN EMA
+
+
+def _conve_setup(device, spc=1):
+    """ConvE at a small width (d = 32 as 4 x 8) on the dense step with
+    FusedDenseAdamW, 400 entities, 4 relation types with inverses, 2 x 64
+    positives, 8 shared "t" negatives; params from the host draw."""
+    from besskge_tpu_torch.scoring import ConvE
+
+    rng = np.random.default_rng(0)
+    triples = np.stack([rng.integers(400, size=3000), rng.integers(4, size=3000),
+                        rng.integers(400, size=3000)], 1).astype(np.int32)
+    ds = KGDataset(n_entity=400, n_relation_type=4, triples={"train": triples},
+                   original_triple_ids={"train": np.arange(3000)})
+    sharding = Sharding.create(400, 1, seed=0)
+    pts = PartitionedTripleSet.create_from_dataset(ds, "train", sharding, add_inverse_triples=True)
+    score_fn = ConvE(True, sharding, 4, 32, 4, 8, seed=0)
+    ns = RandomShardedNegativeSampler(8, sharding, 0, "t", False, flat_negative_format=True)
+    module = bess.EmbeddingMovingBessKGE(ns, score_fn, loss.SampledSoftmaxCrossEntropyLoss(400))
+    opt, ent = optim.AdamW(1e-3), optim.FusedDenseAdamW(1e-3, weight_decay=1e-4)
+    dev = DeviceBatchSampler(pts, ns, shard_bs=64, batches_per_step=2, seed=0,
+                             positive_mode="runs")
+    params = trainer._tree_map(lambda v: v.to(device), score_fn.initial_params(device="cpu"))
+    state = trainer.init_optimizer_state(opt, params, None, ent)
+    fn = trainer.build_device_train_step(module, opt, dev, None, ent, True, spc, device)
+    return score_fn, fn, params, state, dev
+
+
+def test_conve_masks_on_the_card_equal_the_cpu(cuda):
+    """The counter hash draws the same dropout masks on the card as on the
+    CPU, bit for bit, under vmap too."""
+    from besskge_tpu_torch.scoring import _keep_mask
+
+    keys = split_key(torch.tensor(11, dtype=torch.int64), 4)
+    for shape, keep in (((64, 8, 8, 1), 0.8), ((64, 1, 1, 32), 0.8), ((64, 32), 0.7)):
+        cpu = torch.func.vmap(lambda k: _keep_mask(k, keep, shape))(keys)
+        card = torch.func.vmap(lambda k: _keep_mask(k, keep, shape))(keys.to(cuda))
+        assert torch.equal(card.cpu(), cpu)
+
+
+def test_conve_conv_runs_full_fp32_and_deterministic(cuda):
+    """ConvE's conv on the card keeps full fp32 whatever cuDNN's TF32 flag
+    says (against a float64 conv of the same operands, within 1e-5 of the
+    largest value), its backward gives the same bits twice, and the flags
+    are the caller's again afterwards."""
+    from besskge_tpu_torch.scoring import _ValidConv2d
+
+    gen = torch.Generator(cuda).manual_seed(0)
+    x = torch.randn(256, 1, 20, 20, device=cuda, generator=gen, requires_grad=True)
+    w = torch.randn(32, 1, 3, 3, device=cuda, generator=gen, requires_grad=True)
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        out = _ValidConv2d.apply(x, w)
+        grads = [torch.autograd.grad(out.square().sum(), (x, w), retain_graph=True)
+                 for _ in range(2)]
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    assert torch.backends.cudnn.allow_tf32 == prev
+    want = torch.nn.functional.conv2d(x.double(), w.double())
+    assert ((out.double() - want).abs() <= 1e-5 * want.abs().max()).all()
+    for a, b in zip(*grads):
+        assert torch.equal(a, b)
+
+
+def test_conve_step_on_the_card_matches_the_cpu(cuda):
+    """One steps_per_call=1 ConvE call with a dropout key on the card
+    against the same call on the CPU: fp32 sums in other orders, 1e-5 x
+    (|want| + max|want|), a param also lr x its update directions'
+    difference; the BN running stats moved and within 1e-5. The moments of
+    conv_b and bn0's scale, whose gradients are near 0 (conv_b's exactly,
+    bn0's scale's up to BatchNorm's eps), hold rounding noise: they are held
+    against the largest moment of their kind instead of their own."""
+    score_fn, fn, params, state, dev = _conve_setup(cuda)
+    _, cpu_fn, cpu_params, cpu_state, _ = _conve_setup("cpu")
+    key = dev.next_key(3)
+    _, _, out = fn(params, state, dev.state(cuda), key, 77)
+    _, _, cpu_out = cpu_fn(cpu_params, cpu_state, dev.state("cpu"), key, 77)
+    torch.testing.assert_close(out["loss"].cpu(), cpu_out["loss"], rtol=1e-5, atol=0.0)
+    g_tree = dict(params=trainer._tree_map(lambda v: v.cpu(), params),
+                  state=trainer._tree_map(lambda v: v.cpu(), state))
+    c_tree = dict(params=cpu_params, state=cpu_state)
+    cpu_leaves = dict(trainer._leaves(c_tree))
+    largest = {m: max(float(v.abs().max()) for n, v in cpu_leaves.items()
+                      if m in n.split(".")) for m in ("mu", "nu")}
+    for name, g in trainer._leaves(g_tree):
+        c = cpu_leaves[name]
+        if name.endswith("count"):
+            continue  # below
+        extra, scale = 0.0, c.abs().max()
+        if name.startswith("params.") and not name.endswith(("mean", "var")):
+            extra = 1e-3 * (_ratio(g_tree, name, 1) - _ratio(c_tree, name, 1)).abs()
+        elif name.endswith(("conv_b", "bn0.scale")):
+            scale = largest["mu" if "mu" in name.split(".") else "nu"]
+        assert ((g - c).abs() <= 1e-5 * (c.abs() + scale) + extra).all(), name
+    assert int(state["entity"]["count"]) == int(cpu_state["entity"]["count"]) == 1
+    assert float(params["bn1"]["mean"].abs().max()) > 1e-4
+
+
+def test_conve_device_call_replays_equal_eager(cuda):
+    """A ConvE call of 3 steps with its dropout drawn inside one CUDA graph:
+    each replay (a new key and dropout key each) equals the eager card
+    steps bit for bit, with no host sync and no wrapper call; B10 3 times
+    per replay by name."""
+    spc = 3
+    _, fn, params, state, dev = _conve_setup(cuda, spc)
+    sampler_state = dev.state(cuda)
+    eager = (trainer._clone(params), trainer._clone(state))
+    for call in range(3):
+        key = dev.next_key(call)
+        if call:
+            trainer._write_back(eager[0], params)
+            trainer._write_back(eager[1], state)
+        adamw_kernels.reset_launch_counts()
+        if call:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            fn(params, state, sampler_state, key, 500 + call)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        assert adamw_kernels.dense_adamw_update.launches == (2 * spc if call == 0 else 0)
+        fn._eager(*eager, sampler_state, key.to(cuda),
+                  torch.tensor(500 + call, dtype=torch.int64, device=cuda))
+        torch.cuda.synchronize()
+        for (name, g), (_, e) in zip(trainer._leaves({"p": params, "s": state}),
+                                     trainer._leaves({"p": eager[0], "s": eager[1]})):
+            assert torch.equal(g, e), (call, name)
+    kernels = device_kernels(lambda: fn(params, state, sampler_state, dev.next_key(9), 9), 1)
+    assert sum(c for name, (_, c) in kernels.items() if "dense_adamw_kernel" in name) == spc

@@ -333,6 +333,9 @@ def test_donate_and_outputs():
 
 
 def test_unported_device_step_options_raise():
+    """A mesh raises (ROADMAP A15). A dropout key, ported with ConvE (A11),
+    changes nothing for a scorer without dropout: the same bits as without
+    one."""
     score_fn, module, dev = _setup(PORT, "dense")
     opt = port_optim.AdamW(LR_DENSE)
     with pytest.raises(NotImplementedError, match="A15"):
@@ -340,8 +343,13 @@ def test_unported_device_step_options_raise():
     step = port_trainer.build_device_train_step(module, opt, dev, device="cpu")
     params = score_fn.initial_params(device="cpu")
     state = port_trainer.init_optimizer_state(opt, params)
-    with pytest.raises(NotImplementedError, match="A11"):
-        step(params, state, dev.state("cpu"), dev.next_key(0), rng=object())
+    with_rng = step(port_trainer._clone(params), port_trainer._clone(state), dev.state("cpu"),
+                    dev.next_key(0), rng=5)
+    without = step(port_trainer._clone(params), port_trainer._clone(state), dev.state("cpu"),
+                   dev.next_key(0))
+    for (path, a), (_, b) in zip(port_trainer._leaves({"p": with_rng[0], "s": with_rng[1]}),
+                                 port_trainer._leaves({"p": without[0], "s": without[1]})):
+        assert torch.equal(a, b), path
     with pytest.raises(ValueError, match="step built for"):
         port_trainer.build_device_train_step(module, opt, dev, device="meta")(
             params, state, dev.state("cpu"), dev.next_key(0))

@@ -31,6 +31,8 @@ def test_port_imports_without_jax():
         "import importlib, sys\n"
         f"for name in {modules!r}:\n"
         "    importlib.import_module(name)\n"
+        "from besskge_tpu_torch.scoring import ConvE\n"
+        "assert ConvE.__module__ == 'besskge_tpu_torch.scoring'\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'besskge_tpu'))\n"
         "assert not bad, bad\n"
         "print('ok', len(sys.modules))\n"

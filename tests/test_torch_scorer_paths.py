@@ -343,10 +343,11 @@ def test_blocked_window_scoring_equals_one_call(monkeypatch, cls, norm, scheme):
     method = "score_heads" if scheme == "h" else "score_tails"
     orig = getattr(getattr(port_scoring, cls), method)
 
-    def spy(self, params, head_emb, relation_id, tail_emb):
+    def spy(self, params, head_emb, relation_id, tail_emb, **kw):
+        assert kw == {"train": False}  # windows score in eval mode
         pool = head_emb if scheme == "h" else tail_emb
         calls.append(relation_id.shape[0] * pool.shape[1] * pool.shape[2])
-        return orig(self, params, head_emb, relation_id, tail_emb)
+        return orig(self, params, head_emb, relation_id, tail_emb, **kw)
 
     monkeypatch.setattr(getattr(port_scoring, cls), method, spy)
     got = _topk(PORT, cls, norm, scheme, 1024, "auto", params)
@@ -364,7 +365,7 @@ def test_products_score_a_window_in_one_call(monkeypatch, cls):
     calls = []
     orig = getattr(port_scoring, cls).score_tails
     monkeypatch.setattr(getattr(port_scoring, cls), "score_tails",
-                        lambda *a: calls.append(1) or orig(*a))
+                        lambda *a, **kw: calls.append(1) or orig(*a, **kw))
     _topk(PORT, cls, None, "t", 1024, "auto", params)
     assert len(calls) == 2 * 2  # one per window per batch
 
