@@ -28,6 +28,14 @@ in the JAX package's formats, with resharding (``checkpoint``,
 ``bess.build_bess_forward`` or ``eval_loop.run_device_eval``), candidate-set
 top-k, and filtered all-scores evaluation (``pipeline.AllScoresPipeline``);
 the dataset builders (``dataset.KGDataset.build_*``).
+
+Over a mesh of ranks, one process per shard (``parallel``: a
+``torch.distributed`` group, NCCL on cards, gloo on the CPU): the sparse,
+dense and device-sampled training steps and ``Trainer`` of an
+``EmbeddingMovingBessKGE`` (one all-to-all per micro-batch, one all-reduce
+per step), top-k serving, and checkpoints written and read by each rank's
+block (``make_shard_mesh``; ``mesh=`` of ``build_train_step`` and the
+other step functions).
 """
 
 __version__ = "0.1.0"
@@ -36,6 +44,7 @@ from besskge_tpu_torch.checkpoint import load_checkpoint, save_checkpoint  # noq
 from besskge_tpu_torch.device_sampler import DeviceBatchSampler  # noqa: E402
 from besskge_tpu_torch.eval_loop import run_device_eval  # noqa: E402
 from besskge_tpu_torch.negative_sampler import TypeBasedShardedNegativeSampler  # noqa: E402
+from besskge_tpu_torch.parallel import ShardMesh, make_shard_mesh  # noqa: E402
 from besskge_tpu_torch.pipeline import AllScoresPipeline  # noqa: E402
 from besskge_tpu_torch.trainer import (  # noqa: E402
     Trainer,
@@ -46,11 +55,13 @@ from besskge_tpu_torch.trainer import (  # noqa: E402
 __all__ = [
     "AllScoresPipeline",
     "DeviceBatchSampler",
+    "ShardMesh",
     "Trainer",
     "TypeBasedShardedNegativeSampler",
     "build_device_train_step",
     "build_train_step",
     "load_checkpoint",
+    "make_shard_mesh",
     "run_device_eval",
     "save_checkpoint",
 ]

@@ -1,5 +1,5 @@
-"""BESS modules on one device (torch): training and evaluation forwards,
-top-k serving and all-scores inference.
+"""BESS modules (torch): training and evaluation forwards, top-k serving and
+all-scores inference, on one device or over a mesh of ranks.
 
 Counterpart of ``besskge_tpu/bess.py``:
 
@@ -22,9 +22,18 @@ Counterpart of ``besskge_tpu/bess.py``:
   (:class:`besskge_tpu_torch.pipeline.AllScoresPipeline` stitches the
   windows).
 
-Only the single-device semantics (``axis_name=None``, ``n_shard == 1``) are
-ported: every collective is the identity. A mesh raises
-``NotImplementedError`` (ROADMAP A15).
+With ``axis_name=None`` (one device, ``n_shard == 1``) every collective is
+the identity. With ``axis_name="shard"`` a module runs on each rank of a
+:class:`~besskge_tpu_torch.parallel.mesh.ShardMesh` (one process per
+shard), bound to it by the functions that build its steps (``mesh=``): the
+rank holds its block of the entity table and its column of each batch, and
+the collectives of :mod:`besskge_tpu_torch.parallel.collectives` cross the
+mesh, as ``shard_map`` runs the JAX package's modules. Over a mesh the micro-batches
+of a step run one after another (collectives cannot sit under
+``torch.func.vmap``), as the JAX package scans them. Ported over a mesh:
+:class:`EmbeddingMovingBessKGE` (training and :func:`build_bess_forward`) and
+:class:`TopKQueryBessKGE`; :class:`ScoreMovingBessKGE` and
+:class:`AllScoresBESS` raise there (ROADMAP A15b).
 
 The entity table may be in any layout the optimizers keep: plain, pair- or
 treble-major fp32, row-pair-packed 16-bit, or its triplet or quintuplet
@@ -53,7 +62,7 @@ from typing import Any, Callable, Dict, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from besskge_tpu_torch.device_sampler import _as_key, split_key
+from besskge_tpu_torch.device_sampler import _as_key, _fold_in, split_key
 from besskge_tpu_torch.loss import BaseLossFunction
 from besskge_tpu_torch.metric import Evaluation
 from besskge_tpu_torch.negative_sampler import (
@@ -62,6 +71,8 @@ from besskge_tpu_torch.negative_sampler import (
     TripleBasedShardedNegativeSampler,
 )
 from besskge_tpu_torch.ops.distance import l1_scores_chunkmax as ops_l1_scores_chunkmax
+from besskge_tpu_torch.parallel import collectives
+from besskge_tpu_torch.parallel.mesh import ShardMesh
 from besskge_tpu_torch.packed import (
     is_packed,
     is_paired,
@@ -121,17 +132,73 @@ def _row_cap(t_flat: torch.Tensor, n_rows: int) -> int:
     return t_flat.shape[0]
 
 
-def _no_mesh(axis_name: Optional[str]) -> None:
-    if axis_name is not None:
-        raise NotImplementedError(
-            "multi-device BESS (a mesh axis) is not ported yet (ROADMAP A15);"
-            " use axis_name=None on one device"
-        )
+def _a15b(what: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} over a mesh is not ported yet (ROADMAP A15b)")
 
 
-class BessKGE(ABC):
+class _Collectives:
+    """The collectives of a module (``besskge_tpu/bess.py:164-180``): the
+    identity with ``axis_name=None``, else over :attr:`mesh`, the mesh the
+    functions that build the steps bind (:func:`_bind_mesh`)."""
+
+    axis_name: Optional[str]
+    mesh: Optional[ShardMesh] = None
+
+    def _bound_mesh(self) -> ShardMesh:
+        if self.mesh is None:
+            raise RuntimeError(
+                f"axis_name={self.axis_name!r}: build the module's step over its mesh"
+                " (mesh=) before calling it"
+            )
+        return self.mesh
+
+    def _all_to_all(self, x: torch.Tensor) -> torch.Tensor:
+        if self.axis_name is None:
+            return x
+        return collectives.all_to_all(x, self._bound_mesh())
+
+    def _all_gather(self, x: torch.Tensor) -> torch.Tensor:
+        if self.axis_name is None:
+            return x[None]
+        return collectives.all_gather(x, self._bound_mesh())
+
+    def psum(self, x: Any) -> Any:
+        """Sum a (tree of) per-rank value(s) over the mesh."""
+        if self.axis_name is None:
+            return x
+        return collectives.psum(x, self._bound_mesh())
+
+
+def _check_axis(module: Any, axis_name: Optional[str]) -> None:
+    if axis_name is None and module.sharding.n_shard != 1:
+        raise ValueError("axis_name=None requires n_shard == 1")
+
+
+def _bind_mesh(module: Any, mesh: Optional[ShardMesh]) -> None:
+    """Bind ``module`` to ``mesh`` for its collectives (as ``shard_map``
+    binds an axis name), or check that a module without a mesh needs none.
+    A module is bound to one mesh: binding it to another raises, since the
+    steps built before would move their collectives to the new group."""
+    if mesh is None:
+        if module.axis_name is not None:
+            raise ValueError("A mesh is required unless axis_name is None")
+        return
+    if not isinstance(mesh, ShardMesh):
+        raise TypeError(
+            f"mesh must be a besskge_tpu_torch.parallel.ShardMesh, got {type(mesh).__name__}")
+    if module.axis_name is None:
+        raise ValueError("a module over a mesh needs axis_name='shard'")
+    if module.sharding.n_shard != mesh.n_shard:
+        raise ValueError(
+            f"the sharding has {module.sharding.n_shard} shards, the mesh {mesh.n_shard} ranks")
+    if module.mesh is not None and module.mesh is not mesh:
+        raise ValueError("the module is bound to another mesh: build one module per mesh")
+    module.mesh = mesh
+
+
+class BessKGE(_Collectives, ABC):
     """Base class for BESS distribution modules (reference
-    ``besskge/bess.py:34-305``), on one device.
+    ``besskge/bess.py:34-305``).
 
     :param negative_sampler: sharded negative sampler (defines layouts).
     :param score_fn: scoring function (owns table shapes).
@@ -140,7 +207,8 @@ class BessKGE(ABC):
         among its negatives, computed without a gradient).
     :param return_scores: return positive/negative scores.
     :param augment_negative: use in-batch heads/tails as extra negatives.
-    :param axis_name: must be ``None`` (one device; requires ``n_shard == 1``).
+    :param axis_name: ``None`` for one device (requires ``n_shard == 1``),
+        or ``"shard"`` to run on each rank of a mesh.
     """
 
     def __init__(
@@ -153,7 +221,6 @@ class BessKGE(ABC):
         augment_negative: bool = False,
         axis_name: Optional[str] = None,
     ) -> None:
-        _no_mesh(axis_name)
         self.sharding = score_fn.sharding
         self.negative_sampler = negative_sampler
         self.score_fn = score_fn
@@ -181,8 +248,11 @@ class BessKGE(ABC):
             raise ValueError(
                 "Negative sample sharing cannot be used with non-flat triple-specific negatives"
             )
-        if self.sharding.n_shard != 1:
-            raise ValueError("axis_name=None requires n_shard == 1")
+        _check_axis(self, axis_name)
+        if axis_name is not None and isinstance(self, ScoreMovingBessKGE):
+            raise _a15b("ScoreMovingBessKGE")
+        # Let the score function reach mesh collectives (ConvE's SyncBN).
+        score_fn.mesh_axis = axis_name
         self.entity_embedding_size: int = score_fn.entity_row_size
 
     @property
@@ -319,9 +389,9 @@ class BessKGE(ABC):
 
 class EmbeddingMovingBessKGE(BessKGE):
     """Score negatives on the head (processing) shard: one fused local gather
-    of [head | tail | negative] rows (reference ``besskge/bess.py:308-468``).
-    On one device the AllToAll that moves tail and negative embeddings is the
-    identity."""
+    of [head | tail | negative] rows, one AllToAll moving the tail and
+    negative rows (reference ``besskge/bess.py:308-468``), the identity on
+    one device."""
 
     def score_batch(self, params, head, relation, tail, negative, train=False, rng=None,
                     gathered_emb=None):
@@ -340,10 +410,15 @@ class EmbeddingMovingBessKGE(BessKGE):
             )
         emb = _cast_gathered(gathered_emb, self.score_fn.compute_dtype)
         head_emb = emb[:, :ppp]
-        # One shard: the AllToAll of [tail | negative] rows is the identity,
-        # with or without local sampling.
-        tail_emb = emb[:, ppp : 2 * ppp]
-        neg_emb = emb[:, 2 * ppp :]
+        tail_and_neg = emb[:, ppp:]
+        # One AllToAll over the shard axis (JAX package ``bess.py:358-365``).
+        if self.negative_sampler.local_sampling:
+            tail_emb = self._all_to_all(tail_and_neg[:, :ppp])
+            neg_emb = tail_and_neg[:, ppp:]
+        else:
+            moved = self._all_to_all(tail_and_neg)
+            tail_emb = moved[:, :ppp]
+            neg_emb = moved[:, ppp:]
         # (S, B, n_neg, d) -> (B, S * n_neg, d): source-shard-major pool.
         neg_emb = (
             neg_emb.reshape(n_shard, b_neg, n_neg, d)
@@ -533,10 +608,13 @@ class ScoreMovingBessKGE(BessKGE):
         return positive_score, negative_score
 
 
-class TopKQueryBessKGE:
+class TopKQueryBessKGE(_Collectives):
     """Top-k completion of (h, r, ?) / (?, r, t) queries against all
     entities or candidate sets (reference ``besskge/bess.py:606-921``).
-    Inference only.
+    Inference only. Over a mesh the queries of every rank are gathered (two
+    AllGathers: relations and known rows), each rank slides its window over
+    its own block of the table, and two AllToAlls send each query's
+    per-shard bests home, where they are merged.
 
     :param k: number of completions to return per query.
     :param candidate_sampler: :class:`PlaceholderNegativeSampler` to score
@@ -560,7 +638,7 @@ class TopKQueryBessKGE:
         (default) picks ``"chunk"`` whenever the window is 128-divisible
         and wider than ``128·(k+1)``. Tied scores may resolve to different,
         equally ranked entity IDs in the two modes.
-    :param axis_name: must be ``None`` (one device).
+    :param axis_name: see :class:`BessKGE`.
     """
 
     def __init__(
@@ -574,12 +652,9 @@ class TopKQueryBessKGE:
         merge_mode: str = "auto",
         axis_name: Optional[str] = None,
     ) -> None:
-        _no_mesh(axis_name)
         self.sharding = score_fn.sharding
-        if self.sharding.n_shard != 1:
-            raise NotImplementedError(
-                "n_shard > 1 needs the multi-device path (ROADMAP A15)"
-            )
+        self.axis_name = axis_name
+        _check_axis(self, axis_name)
         self.negative_sampler = candidate_sampler
         self.score_fn = score_fn
         self.evaluation = evaluation
@@ -599,7 +674,6 @@ class TopKQueryBessKGE:
         if merge_mode not in ("auto", "sort", "chunk"):
             raise ValueError(f"Unknown merge_mode {merge_mode!r}")
         self.merge_mode = merge_mode
-        self.axis_name = axis_name
         if candidate_sampler.flat_negative_format:
             if not score_fn.negative_sample_sharing:
                 raise ValueError(
@@ -637,7 +711,7 @@ class TopKQueryBessKGE:
     ) -> Dict[str, torch.Tensor]:
         """Top-k of one micro-batch of queries.
 
-        :param relation: (shard_bs,) relation IDs.
+        :param relation: (shard_bs,) relation IDs of this rank's queries.
         :param head/tail: (shard_bs,) local ID of the known entity; the other
             is the ground truth (global IDs) or absent.
         :param negative: (n_shard_dest, B, pad) local candidate IDs (the
@@ -649,6 +723,7 @@ class TopKQueryBessKGE:
             dropout), as the JAX package's.
         """
         sharding = self.sharding
+        n_shard = sharding.n_shard
         n_rows = sharding.max_entity_per_shard
         table = params["entity_embedding"]
         t_flat = table[0] if table.dim() == 3 else table
@@ -673,7 +748,9 @@ class TopKQueryBessKGE:
             # each iteration gathers and scores only real candidates.
             window = min(window, max(-(-n_candidate // CHUNK) * CHUNK, 1))
 
-        known = take_rows(table, tail if scheme == "h" else head, n_rows)
+        # Every rank's queries (the identity on one device).
+        relation = self._all_gather(relation).reshape(-1)
+        known = self._all_gather(take_rows(table, tail if scheme == "h" else head, n_rows))
         cd = self.score_fn.compute_dtype
         known = _cast_gathered(known.reshape(-1, self.entity_embedding_size), cd)
 
@@ -725,8 +802,9 @@ class TopKQueryBessKGE:
             return top_scores, torch.where(top_pos < width, from_window, from_best)
 
         best = (
-            torch.full((shard_bs, n_best), BAD_NEGATIVE_SCORE, dtype=torch.float32, device=device),
-            torch.full((shard_bs, n_best), n_rows, dtype=torch.int64, device=device),
+            torch.full((n_shard * shard_bs, n_best), BAD_NEGATIVE_SCORE, dtype=torch.float32,
+                       device=device),
+            torch.full((n_shard * shard_bs, n_best), n_rows, dtype=torch.int64, device=device),
         )
         positions = torch.arange(window, dtype=torch.int64, device=device)
         for i in range(-(-n_candidate // window)):
@@ -761,15 +839,17 @@ class TopKQueryBessKGE:
             best = merge(score, idx, None, best)
         best_score, best_idx = best
 
-        # One shard: the return AllToAll is the identity.
-        best_score = best_score.reshape(1, shard_bs, n_best)
-        best_idx = best_idx.reshape(1, shard_bs, n_best)
-        # Kill padding-entity scores.
+        # Each query's per-shard bests back to its home rank (source-shard
+        # major).
+        best_score = self._all_to_all(best_score.reshape(n_shard, shard_bs, n_best))
+        best_idx = self._all_to_all(best_idx.reshape(n_shard, shard_bs, n_best))
+        # Kill padding-entity scores (per source shard).
         counts, s2e = self._sharding_maps(device)
         best_score = best_score + BAD_NEGATIVE_SCORE * (best_idx >= counts).to(best_score.dtype)
         # Local -> global IDs through the sharding map.
         safe_idx = torch.clamp(best_idx, max=n_rows - 1)
-        best_global = gather_indices(s2e, safe_idx.reshape(1, -1)).reshape(1, shard_bs, n_best)
+        best_global = gather_indices(s2e, safe_idx.reshape(n_shard, -1)).reshape(
+            n_shard, shard_bs, n_best)
         best_global = best_global.transpose(0, 1).reshape(shard_bs, -1)
 
         final_scores, final_pos = torch.topk(
@@ -827,16 +907,17 @@ class TopKQueryBessKGE:
         return parts[0] if len(parts) == 1 else torch.cat(parts)
 
 
-class AllScoresBESS:
+class AllScoresBESS(_Collectives):
     """Scores of (h, r, ?) / (?, r, t) queries against one window of the
-    entity table (reference ``besskge/bess.py:924-1062``), on one device;
+    entity table (reference ``besskge/bess.py:924-1062``), on one device (a
+    mesh: ROADMAP A15b);
     :class:`besskge_tpu_torch.pipeline.AllScoresPipeline` stitches the
     windows into the full score matrix. Inference only.
 
     :param candidate_sampler: a :class:`PlaceholderNegativeSampler`.
     :param score_fn: scoring function, with sample sharing.
     :param window_size: entities scored per call.
-    :param axis_name: must be ``None`` (one device).
+    :param axis_name: must be ``None`` (one device; a mesh raises).
     """
 
     def __init__(
@@ -846,7 +927,8 @@ class AllScoresBESS:
         window_size: int = 1000,
         axis_name: Optional[str] = None,
     ) -> None:
-        _no_mesh(axis_name)
+        if axis_name is not None:
+            raise _a15b("AllScoresBESS")
         self.sharding = score_fn.sharding
         self.score_fn = score_fn
         self.negative_sampler = candidate_sampler
@@ -920,15 +1002,34 @@ _FORWARD_KEYS = (
 
 
 def _batch_tensors(
-    batch: Dict[str, Any], keys: Tuple[str, ...], device: torch.device
+    batch: Dict[str, Any], keys: Tuple[str, ...], device: torch.device,
+    mesh: Optional[ShardMesh] = None,
 ) -> Dict[str, torch.Tensor]:
     """The batch's ``keys`` as tensors on ``device`` (numpy arrays or
-    tensors; a tensor already there is not copied)."""
-    return {
-        k: (v if torch.is_tensor(v) else torch.from_numpy(np.ascontiguousarray(v))).to(device)
-        for k, v in batch.items()
-        if k in keys
-    }
+    tensors; a tensor already there is not copied). Over a mesh, the rank's
+    ``(bps, 1, ...)`` column of a global ``(bps, n_shard, ...)`` batch; a
+    batch of one column is taken as the rank's own."""
+    out = {}
+    for k, v in batch.items():
+        if k not in keys:
+            continue
+        if mesh is not None and v.shape[1] == mesh.n_shard > 1:
+            v = v[:, mesh.rank : mesh.rank + 1]
+        out[k] = (v if torch.is_tensor(v) else torch.from_numpy(np.ascontiguousarray(v))).to(device)
+    return out
+
+
+def _step_device(module: Any, mesh: Optional[ShardMesh],
+                 device: Optional[Union[str, torch.device]]) -> torch.device:
+    """Bind ``module`` to ``mesh`` (:func:`_bind_mesh`) and return the device
+    its step runs on: the mesh's (``device`` must name the same), else
+    ``device`` (default ``cuda``)."""
+    _bind_mesh(module, mesh)
+    if mesh is None:
+        return resolve_device(device)
+    if device is not None and torch.device(device).type != mesh.device.type:
+        raise ValueError(f"device {device} for a mesh on {mesh.device}")
+    return mesh.device
 
 
 def _check_device(params: Dict[str, torch.Tensor], device: torch.device) -> None:
@@ -942,35 +1043,64 @@ def _device_step(
     train: bool = False, rng: Any = None,
 ) -> Dict[str, torch.Tensor]:
     """The ``bps`` micro-batches of a batch of ``(bps, 1, ...)`` tensors
-    through :meth:`BessKGE.forward`, fused with ``torch.func.vmap`` as the
-    JAX package fuses them with ``jax.vmap`` on one device: each output
-    ``(bps, ...)``. A dropout key ``rng`` (a 0-dim int64 tensor on the
-    batch's device) is split into one key per micro-batch
-    (:func:`~besskge_tpu_torch.device_sampler.split_key`, as the JAX package
-    splits its key), a batched input of the ``vmap``."""
+    through :meth:`BessKGE.forward`: each output ``(bps, ...)``. On one
+    device they are fused with ``torch.func.vmap``, as the JAX package fuses
+    them with ``jax.vmap``; over a mesh (collectives in the body) they run
+    one after another, as its ``lax.scan`` runs them. A dropout key ``rng``
+    (a 0-dim int64 tensor on the batch's device) is split into one key per
+    micro-batch (:func:`~besskge_tpu_torch.device_sampler.split_key`, as the
+    JAX package splits its key), over a mesh after folding in the rank (the
+    JAX package's ``fold_in`` of the axis index): every rank draws its own
+    dropout stream."""
     mbs = {k: v[:, 0] for k, v in batch.items() if k in _FORWARD_KEYS}
-    if rng is None:
-        return torch.func.vmap(lambda mb: bess.forward(params, train=train, **mb))(mbs)
-    rngs = split_key(rng, next(iter(mbs.values())).shape[0])
-    return torch.func.vmap(lambda mb, r: bess.forward(params, train=train, rng=r, **mb))(
-        mbs, rngs)
+    bps = next(iter(mbs.values())).shape[0]
+    if bess.axis_name is None:
+        if rng is None:
+            return torch.func.vmap(lambda mb: bess.forward(params, train=train, **mb))(mbs)
+        rngs = split_key(rng, bps)
+        return torch.func.vmap(lambda mb, r: bess.forward(params, train=train, rng=r, **mb))(
+            mbs, rngs)
+    rngs = [None] * bps if rng is None else split_key(_fold_in(rng, bess.mesh.rank), bps)
+    return _stack([bess.forward(params, train=train, rng=rngs[i],
+                                **{k: v[i] for k, v in mbs.items()}) for i in range(bps)])
+
+
+def _stack(outs: list) -> Dict[str, torch.Tensor]:
+    """Per-micro-batch output dicts stacked on a leading ``bps`` axis."""
+    return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
 
 
 def _format_outputs(bess: BessKGE, outs: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     """Stacked per-micro-batch outputs ``(bps, ...)`` -> step outputs: the
-    loss summed over micro-batches, a unit shard axis inserted after ``bps``
-    in the scores and ranks, and the metrics as they are, ``(bps, 1,
-    n_metric)`` sums or ``(bps, 1, n_metric, bs)`` (the cross-device sums
-    are the identity on one device)."""
-    formatted = {}
+    loss summed over micro-batches and over the mesh, a unit shard axis
+    inserted after ``bps`` in the scores and ranks, and the metrics,
+    ``(bps, 1, n_metric)`` sums over the mesh, or ``(bps, 1, n_metric, bs)``
+    as they are (the sums over the mesh are the identity on one device)."""
+    return _reduce_outputs(bess, outs, None)[0]
+
+
+def _reduce_outputs(bess: BessKGE, outs: Dict[str, torch.Tensor],
+                    grads: Any) -> Tuple[Dict[str, torch.Tensor], Any]:
+    """:func:`_format_outputs`, and the tree ``grads`` (a training step's
+    gradients of the replicated params) summed over the mesh in the same
+    single psum as the loss and the summed metrics, as XLA fuses the JAX
+    package's psums into one all-reduce."""
+    formatted, summed = {}, {}
     if "loss" in outs:
-        formatted["loss"] = torch.sum(outs["loss"])
+        summed["loss"] = torch.sum(outs["loss"])
     for key in ("positive_score", "negative_score", "ranks"):
         if key in outs:
             formatted[key] = outs[key][:, None]
     if "metrics" in outs:
-        formatted["metrics"] = outs["metrics"]
-    return formatted
+        m = outs["metrics"]
+        (summed if m.dim() == 3 else formatted)["metrics"] = m
+    if grads is not None:
+        summed["grads"] = grads
+    if summed:
+        summed = bess.psum(summed)
+    grads = summed.pop("grads", None)
+    formatted.update(summed)
+    return formatted, grads
 
 
 def build_bess_forward(
@@ -986,23 +1116,26 @@ def build_bess_forward(
 
     ``batch`` is a batch-sampler dict of ``(bps, 1, ...)`` numpy arrays or
     tensors; ``params`` must already live on ``device`` (default ``cuda``).
-    ``mesh`` must be ``None`` (ROADMAP A15).
+    Over a ``mesh`` (an :class:`EmbeddingMovingBessKGE` with
+    ``axis_name="shard"``) each rank calls the step with its params (its
+    table block, :func:`~besskge_tpu_torch.parallel.mesh.shard_params`) and
+    the global batch or its own column, on the mesh's device; a
+    :class:`ScoreMovingBessKGE` raises there (ROADMAP A15b).
 
-    Outputs: ``loss`` () sum; ``positive_score`` (bps, 1, bs);
-    ``negative_score`` (bps, 1, bs, n_col); ``ranks`` as the positive
-    scores; ``metrics`` (bps, 1, n_metric) sums (sum reduction) or
-    (bps, 1, n_metric, bs).
+    Outputs: ``loss`` () sum (over the mesh); ``positive_score`` (bps, 1,
+    bs); ``negative_score`` (bps, 1, bs, n_col); ``ranks`` as the positive
+    scores; ``metrics`` (bps, 1, n_metric) sums (sum reduction, over the
+    mesh) or (bps, 1, n_metric, bs).
     """
-    if mesh is not None:
-        _no_mesh("shard")
-    _no_mesh(bess.axis_name)
-    device = resolve_device(device)
+    if mesh is not None and isinstance(bess, ScoreMovingBessKGE):
+        raise _a15b("ScoreMovingBessKGE")
+    device = _step_device(bess, mesh, device)
 
     def fn(params: Dict[str, torch.Tensor], batch: Dict[str, Any],
            rng: Any = None) -> Dict[str, torch.Tensor]:
         _check_device(params, device)
         with torch.no_grad():
-            outs = _device_step(bess, params, _batch_tensors(batch, _FORWARD_KEYS, device),
+            outs = _device_step(bess, params, _batch_tensors(batch, _FORWARD_KEYS, device, mesh),
                                 train=train, rng=_as_key(rng, device))
             return _format_outputs(bess, outs)
 
@@ -1022,21 +1155,20 @@ def build_topk_forward(
     ``batch`` is a batch-sampler dict of ``(bps, 1, ...)`` numpy arrays or
     tensors; ``params`` must already live on ``device`` (default ``cuda``).
     The micro-batches run one after another, as the JAX package's
-    ``lax.scan`` runs them.
+    ``lax.scan`` runs them. Over a ``mesh`` each rank calls the step with its
+    params and the global batch or its own column, as in
+    :func:`build_bess_forward`.
 
-    Outputs: ``topk_global_id`` (bps, n_shard, shard_bs, k) int32 and
-    optionally ``topk_scores`` (same, fp32), ``ranks`` (bps, n_shard,
-    shard_bs) and ``metrics`` ((bps, 1, n_metric) sums or (bps, n_shard,
-    n_metric, shard_bs)).
+    Outputs (this rank's queries): ``topk_global_id`` (bps, 1, shard_bs, k)
+    int32 and optionally ``topk_scores`` (same, fp32), ``ranks`` (bps, 1,
+    shard_bs) and ``metrics`` ((bps, 1, n_metric) sums over the mesh or
+    (bps, 1, n_metric, shard_bs)).
     """
-    if mesh is not None:
-        _no_mesh("shard")
-    _no_mesh(topk.axis_name)
-    device = resolve_device(device)
+    device = _step_device(topk, mesh, device)
 
     def fn(params: Dict[str, torch.Tensor], batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         _check_device(params, device)
-        mbs = {k: v[:, 0] for k, v in _batch_tensors(batch, _TOPK_KEYS, device).items()}
+        mbs = {k: v[:, 0] for k, v in _batch_tensors(batch, _TOPK_KEYS, device, mesh).items()}
         bps = next(iter(mbs.values())).shape[0]
         with torch.inference_mode():
             outs = [topk.forward(params, **{key: v[i] for key, v in mbs.items()}) for i in range(bps)]
@@ -1045,9 +1177,10 @@ def build_topk_forward(
             if key in outs[0]:
                 formatted[key] = torch.stack([o[key] for o in outs])[:, None]
         if "metrics" in outs[0]:
-            # (bps, 1, n_metric) sums or (bps, 1, n_metric, shard_bs); the
-            # cross-device psum of the sums is the identity on one device.
-            formatted["metrics"] = torch.stack([o["metrics"] for o in outs])
+            # (bps, 1, n_metric) sums, summed over the mesh, or (bps, 1,
+            # n_metric, shard_bs).
+            m = torch.stack([o["metrics"] for o in outs])
+            formatted["metrics"] = topk.psum(m) if m.dim() == 3 else m
         return formatted
 
     return fn
@@ -1064,10 +1197,10 @@ def build_allscores_forward(
     """Build ``fn(params, batch, step) -> scores`` of window ``step``:
     (bps, 1, shard_bs, window), the micro-batches one after another.
     ``batch`` holds ``(bps, 1, ...)`` numpy arrays or tensors; ``params``
-    must already live on ``device`` (default ``cuda``)."""
+    must already live on ``device`` (default ``cuda``). A mesh raises
+    (ROADMAP A15b)."""
     if mesh is not None:
-        _no_mesh("shard")
-    _no_mesh(allscores.axis_name)
+        raise _a15b("build_allscores_forward")
     device = resolve_device(device)
 
     def fn(params: Dict[str, torch.Tensor], batch: Dict[str, Any], step: int) -> torch.Tensor:

@@ -25,6 +25,14 @@ loads into the other, bit for bit.
   optimizer state on its template's devices); :class:`~besskge_tpu_torch.
   trainer.Trainer` moves params to its device.
 
+Over a mesh (``mesh=``, a
+:class:`~besskge_tpu_torch.parallel.mesh.ShardMesh`) every rank calls the
+save and load functions with its own params: a save writes each rank's
+block of the entity table and of its states, rank 0 the replicated arrays
+and the manifest, and a barrier ends it; a load keeps the rank's block
+(:func:`load_checkpoint_sharded` reads only the rank's shard file). The
+files are those of a one-process save of the same global arrays.
+
 Three checks the JAX package lacks: the height of a table to de-interleave
 must be a multiple of its layout's stride, an unknown layout raises on save
 and on load, and resharding moves only the entity table, the ``opt/entity``
@@ -40,9 +48,11 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from besskge_tpu_torch.embedding import refactor_embedding_sharding
 from besskge_tpu_torch.packed import pack_table_host, unpack_table_host
+from besskge_tpu_torch.parallel.mesh import ShardMesh
 from besskge_tpu_torch.sharding import Sharding
 
 __all__ = [
@@ -105,6 +115,31 @@ def _host(x: Any) -> np.ndarray:
     if t.dtype == torch.uint32:
         return t.view(torch.int32).numpy().view(np.uint32)
     return t.numpy()
+
+
+# ---------------------------------------------------------------------------
+# Blocks of a mesh
+
+
+def _per_rank(key: str, shape: Tuple[int, ...]) -> bool:
+    """Whether the file array ``key`` (``params/…`` or ``opt/…``) is split
+    by rows over a mesh: the entity table, its row optimizer's states
+    (``opt/entity/…``, but a count) and a dense optimizer's moments of it."""
+    return len(shape) > 0 and (key.startswith(f"opt{_SEP}entity{_SEP}")
+                               or key.endswith(f"{_SEP}{_ENTITY}"))
+
+
+def _rank_rows(x: np.ndarray, mesh: ShardMesh) -> np.ndarray:
+    """A copy of the rank's block of rows of a global array."""
+    if x.shape[0] % mesh.n_shard:
+        raise ValueError(f"an array of {x.shape[0]} rows does not split into {mesh.n_shard} blocks")
+    block = x.shape[0] // mesh.n_shard
+    return x[mesh.rank * block : (mesh.rank + 1) * block].copy()
+
+
+def _check_mesh(mesh: Any) -> None:
+    if mesh is not None and not isinstance(mesh, ShardMesh):
+        raise TypeError(f"mesh must be a ShardMesh, got {type(mesh).__name__}")
 
 
 # ---------------------------------------------------------------------------
@@ -261,6 +296,7 @@ def save_checkpoint(
     step: int = 0,
     extra_meta: Optional[Dict[str, Any]] = None,
     interleaved_entity: "bool | str" = False,
+    mesh: Optional[ShardMesh] = None,
 ) -> None:
     """Write params (+ optimizer state + sharding) to one ``.npz`` file.
 
@@ -273,7 +309,12 @@ def save_checkpoint(
     ``opt/entity/mu`` and ``nu``). A packed store's state goes to the file
     logical-major fp32 ``(2P, D)``. The state rows join ``opt/entity`` when
     ``opt_state`` is a dict, and are dropped without an ``opt_state``.
+
+    Over a ``mesh`` each rank writes its blocks to a part file beside
+    ``path``, and rank 0 joins them into the file, which holds the global
+    arrays.
     """
+    _check_mesh(mesh)
     path = Path(path)
     layout = _layout(interleaved_entity)
     params = dict(params)
@@ -290,7 +331,27 @@ def save_checkpoint(
         arrays.update({f"sharding{_SEP}{k}": v for k, v in _sharding_arrays(sharding).items()})
     meta = {"step": step, **(extra_meta or {})}
     arrays["__meta__"] = np.frombuffer(json.dumps(meta).encode(), dtype=np.uint8)
-    np.savez(path, **arrays)
+    if mesh is None:
+        np.savez(path, **arrays)
+        return
+
+    def part(rank: int) -> Path:
+        return path.with_name(f".{path.name}.rank{rank}.npz")
+
+    np.savez(part(mesh.rank), **{k: v for k, v in arrays.items() if _per_rank(k, v.shape)})
+    dist.barrier(group=mesh.group)
+    if mesh.rank == 0:
+        parts = [np.load(part(r), allow_pickle=False) for r in range(mesh.n_shard)]
+        try:
+            for key in parts[0].files:
+                arrays[key] = np.concatenate([p[key] for p in parts])
+        finally:
+            for p in parts:
+                p.close()
+        np.savez(path, **arrays)
+        for r in range(mesh.n_shard):
+            part(r).unlink()
+    dist.barrier(group=mesh.group)
 
 
 def _reshard(x: np.ndarray, old: Sharding, new: Sharding) -> np.ndarray:
@@ -346,6 +407,7 @@ def load_checkpoint(
     new_sharding: Optional[Sharding] = None,
     like: Any = None,
     interleave_entity: "bool | str" = False,
+    mesh: Optional[ShardMesh] = None,
 ) -> Tuple[Dict[str, torch.Tensor], Any, Optional[Sharding], Dict[str, Any]]:
     """Load a checkpoint of either package; optionally re-shard it onto
     ``new_sharding``.
@@ -364,8 +426,12 @@ def load_checkpoint(
     rebuilds the interleaved store after re-sharding, from the plain table
     and the state rows it consumes from ``opt/entity`` (zeros when absent).
 
+    Over a ``mesh``, the rank's block of the (re-sharded, interleaved)
+    table and of its states, and the replicated rest.
+
     :return: ``(params, opt_state, sharding, meta)``.
     """
+    _check_mesh(mesh)
     path = Path(path)
     layout = _layout(interleave_entity)
     with np.load(path, allow_pickle=False) as data:
@@ -412,6 +478,12 @@ def load_checkpoint(
                   for name in _LAYOUTS[layout][0]}
         params[_ENTITY] = _interleave(params[_ENTITY], states, layout)
 
+    if mesh is not None:
+        for top, group in (("params", params), ("opt", opt or {})):
+            for key, val in group.items():
+                if _per_rank(f"{top}{_SEP}{key}", val.shape):
+                    group[key] = _rank_rows(val, mesh)
+
     opt_state = None
     if opt is not None or like is not None:
         opt_state = _opt_from_file(opt or {}, like)
@@ -429,25 +501,44 @@ def save_checkpoint_sharded(
     sharding: Optional[Sharding] = None,
     step: int = 0,
     extra_meta: Optional[Dict[str, Any]] = None,
+    mesh: Optional[ShardMesh] = None,
 ) -> None:
     """Write a directory checkpoint: one ``shard_{s:05d}.npz`` per table
     shard with the rows of every array of the entity table's shape (the
     table as it is stored, interleaved or not), ``replicated.npz`` with
     every other array, ``sharding.npz`` and ``meta.json``. One shard's rows
-    are on the host at a time."""
+    are on the host at a time.
+
+    Over a ``mesh`` each rank passes its params and state and writes its own
+    shard file, of the arrays of its block's shape; rank 0 writes the rest.
+    A state of the table that is split over the mesh but not of the block's
+    shape (a packed table's separate fp32 states) raises: save those with
+    :func:`save_checkpoint`."""
     if sharding is None:
         raise ValueError("save_checkpoint_sharded requires the Sharding")
+    _check_mesh(mesh)
     path = Path(path)
     path.mkdir(parents=True, exist_ok=True)
     table_shape = tuple(params[_ENTITY].shape)
-    rows_per_shard = table_shape[0] // sharding.n_shard
     flat = {f"params{_SEP}{k}": v for k, v in _flatten(params).items()}
     if opt_state is not None:
         flat.update({f"opt{_SEP}{k}": v for k, v in _flatten(_opt_to_file(opt_state)).items()})
     table_keys = [k for k, v in flat.items() if tuple(np.shape(v)) == table_shape]
-    for s in range(table_shape[0] // rows_per_shard):
-        rows = slice(s * rows_per_shard, (s + 1) * rows_per_shard)
-        np.savez(path / f"shard_{s:05d}.npz", **{k: _host(flat[k][rows]) for k in table_keys})
+    if mesh is not None:
+        stray = [k for k, v in flat.items() if k not in table_keys and _per_rank(k, np.shape(v))]
+        if stray:
+            raise ValueError(f"{stray} split over the mesh but not of the table's shape;"
+                             " save this state with save_checkpoint")
+        np.savez(path / f"shard_{mesh.rank:05d}.npz", **{k: _host(flat[k]) for k in table_keys})
+        table_shape = (table_shape[0] * mesh.n_shard,) + table_shape[1:]
+    else:
+        rows_per_shard = table_shape[0] // sharding.n_shard
+        for s in range(sharding.n_shard):
+            rows = slice(s * rows_per_shard, (s + 1) * rows_per_shard)
+            np.savez(path / f"shard_{s:05d}.npz", **{k: _host(flat[k][rows]) for k in table_keys})
+    if mesh is not None and mesh.rank != 0:
+        dist.barrier(group=mesh.group)
+        return
     np.savez(path / "replicated.npz",
              **{k: _host(v) for k, v in flat.items() if k not in table_keys})
     sharding.save(path / "sharding.npz")
@@ -459,6 +550,8 @@ def save_checkpoint_sharded(
         **(extra_meta or {}),
     }
     (path / "meta.json").write_text(json.dumps(meta))
+    if mesh is not None:
+        dist.barrier(group=mesh.group)
 
 
 def load_checkpoint_sharded(
@@ -476,11 +569,11 @@ def load_checkpoint_sharded(
     of ``max_entity_per_shard`` rows per shard: an interleaved or packed
     one raises (re-shard it through :func:`load_checkpoint`).
 
-    :param mesh: must be ``None``: one device only (ROADMAP A15).
+    :param mesh: ``None``, or the rank's mesh: then the tables are the
+        rank's block alone, read from its own shard file(s), on the host.
     :return: ``(params, opt_state, sharding, meta)``.
     """
-    if mesh is not None:
-        raise NotImplementedError("loading onto a mesh is not ported yet (ROADMAP A15)")
+    _check_mesh(mesh)
     path = Path(path)
     meta = json.loads((path / "meta.json").read_text())
     table_keys = list(meta["table_keys"])
@@ -516,9 +609,14 @@ def load_checkpoint_sharded(
     eff_sharding = new_sharding if new_sharding is not None else old_sharding
     with np.load(path / "replicated.npz", allow_pickle=False) as data:
         flat: Dict[str, np.ndarray] = {k: data[k] for k in data.files}
+    if mesh is not None and mesh.n_shard != eff_sharding.n_shard:
+        raise ValueError(f"a {eff_sharding.n_shard}-shard table onto a mesh of {mesh.n_shard}")
     try:
         for key in table_keys:
-            flat[key] = np.concatenate([block(s, key) for s in range(eff_sharding.n_shard)])
+            if mesh is not None:
+                flat[key] = block(mesh.rank, key)
+            else:
+                flat[key] = np.concatenate([block(s, key) for s in range(eff_sharding.n_shard)])
     finally:
         for f in shard_files.values():
             f.close()

@@ -59,6 +59,7 @@ _GOLDEN = 0x9E3779B9
 #: keys split from a call's key.
 _STREAM_SALT = (0x243F6A88, 0x85A308D3)
 _SPLIT_SALT = 0x13198A2E
+_FOLD_SALT = 0x03707344
 
 
 def split_key(key: torch.Tensor, n: int) -> torch.Tensor:
@@ -67,6 +68,14 @@ def split_key(key: torch.Tensor, n: int) -> torch.Tensor:
     ``jax.random.split`` there)."""
     j = torch.arange(1, n + 1, dtype=torch.int64, device=key.device)
     return _mix32((_mix32(key ^ _SPLIT_SALT) + _mul32(j, _GOLDEN)) & _M32)
+
+
+def _fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
+    """A key derived from ``key`` and the integer ``data`` (a rank): the
+    counterpart of ``jax.random.fold_in``, which gives each device of a mesh
+    its own dropout stream. ``data`` stays a host int: no copy to the
+    device, so it runs inside a CUDA graph's capture."""
+    return _mix32((_mix32(key ^ _FOLD_SALT) + _mul32(data & _M32, _GOLDEN)) & _M32)
 
 
 def _as_key(key: Optional[Key], device: torch.device) -> Optional[torch.Tensor]:

@@ -217,11 +217,18 @@ def device_table_init(
     Each slice of ``row_sizes`` is drawn with the torch counterpart of its
     numpy initializer from ``generator`` (a generator on ``device``; default
     one seeded with ``seed``). Array initializers must already have the target
-    shape. ``sharding`` (a device layout) must be ``None``: one device only
-    (ROADMAP A15).
+    shape.
+
+    ``sharding``: ``None`` for the whole table, or a
+    :class:`~besskge_tpu_torch.parallel.mesh.ShardMesh`, for the rank's block
+    of ``shape[0] / n_shard`` rows on the mesh's device. A mesh's table is
+    drawn block by block (:func:`_device_blocks`): every rank draws the
+    whole stream through one block's memory and keeps its own block, so that
+    the blocks are those of the one-process draw of the global table, and
+    the generator ends where that draw ends it.
     """
     if sharding is not None:
-        raise NotImplementedError("sharded device tables are not ported yet (ROADMAP A15)")
+        device = sharding.device
     device = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device).manual_seed(seed)
@@ -230,11 +237,40 @@ def device_table_init(
             raise ValueError(
                 f"Array initializer shape {initializer.shape} != {tuple(shape)}"
             )
+        if sharding is not None:
+            block = shape[0] // sharding.n_shard
+            initializer = initializer[sharding.rank * block : (sharding.rank + 1) * block]
         return torch.from_numpy(np.ascontiguousarray(initializer)).to(device, dtype)
     if len(initializer) != len(row_sizes):
         raise ValueError(
             f"Got {len(initializer)} initializers for {len(row_sizes)} slices"
         )
+    if sharding is not None:
+        return _device_blocks(initializer, row_sizes, shape, sharding.n_shard, sharding.rank,
+                              dtype, device, generator)[0]
+    return _draw(initializer, row_sizes, shape, dtype, device, generator)
+
+
+def _device_blocks(
+    initializer: List[Initializer], row_sizes: List[int], shape: Sequence[int], n_block: int,
+    keep: Optional[int], dtype: torch.dtype, device: torch.device, generator: torch.Generator,
+) -> List[torch.Tensor]:
+    """The ``n_block`` row blocks of a table of ``shape`` drawn one after
+    another from ``generator``: the block ``keep``, or every block when
+    ``keep`` is ``None``. One block is the whole table's draw."""
+    if shape[0] % n_block:
+        raise ValueError(f"{shape[0]} rows do not split into {n_block} blocks")
+    block_shape = (shape[0] // n_block, *shape[1:])
+    out = []
+    for b in range(n_block):
+        drawn = _draw(initializer, row_sizes, block_shape, dtype, device, generator)
+        if keep is None or b == keep:
+            out.append(drawn)
+    return out
+
+
+def _draw(initializer: List[Initializer], row_sizes: List[int], shape: Sequence[int],
+          dtype: torch.dtype, device: torch.device, generator: torch.Generator) -> torch.Tensor:
     out = torch.empty(tuple(shape), dtype=torch.float32, device=device)
     start = 0
     for fn, size in zip(initializer, row_sizes):

@@ -22,7 +22,7 @@ from besskge_tpu_torch.bess import (
     _check_device,
     _device_step,
     _format_outputs,
-    _no_mesh,
+    _a15b,
 )
 from besskge_tpu_torch.utils import resolve_device
 
@@ -44,9 +44,8 @@ def make_block_runner(
     waits for the device. Exposed apart from :func:`run_device_eval` so
     that callers can stage blocks beforehand and time the device alone.
     """
-    if mesh is not None:
-        _no_mesh("shard")
-    _no_mesh(bess.axis_name)
+    if mesh is not None or bess.axis_name is not None:
+        raise _a15b("run_device_eval")
     device = resolve_device(device)
     n_metric = len(bess.evaluation.metrics)
 
@@ -91,7 +90,7 @@ def run_device_eval(
     :param params: model params on ``device`` (default ``cuda``).
     :param batch_sampler: a host batch sampler with a deterministic pass
         and a ``triple_mask`` output (``RigidShardedBatchSampler``).
-    :param mesh: must be ``None`` (one device; ROADMAP A15).
+    :param mesh: must be ``None`` (one device; a mesh: ROADMAP A15b).
     :param steps_per_block: steps per copy to the device (bounds the
         device-resident block to ``steps_per_block`` × per-step bytes).
     :return: ``(metrics dict averaged per query, n_queries)``.

@@ -1,0 +1,107 @@
+"""The three collectives of the BESS scheme over a :class:`ShardMesh`.
+
+The port's home for ``besskge_tpu/bess.py:164-180``, where the JAX package
+calls ``jax.lax.all_to_all``, ``all_gather`` and ``psum`` inside
+``shard_map``:
+
+* :func:`all_to_all`: tiled, split and concatenated on axis 0 (rank ``i``'s
+  block ``j`` becomes rank ``j``'s block ``i``), as ``jax.lax.all_to_all(...,
+  split_axis=0, concat_axis=0, tiled=True)``. A
+  ``torch.autograd.Function`` whose backward is the same all-to-all of the
+  gradient: the transpose of a tiled axis-0 all-to-all is itself, so an
+  entity row's gradient goes back to the rank that gathered it;
+* :func:`all_gather`: ``tiled=False``, stacking a new axis 0 of the ranks'
+  tensors; no gradient (the slice's paths gather only without one);
+* :func:`psum`: the sum over ranks of a tree of tensors, flattened into one
+  buffer per dtype, so that a tree of one dtype costs one ``all_reduce``.
+
+Each goes through ``torch.distributed`` on the mesh's group, on the tensors'
+own device: NCCL on a card, gloo on the CPU or on a card (gloo takes CUDA
+tensors in all three on torch 2.11 on the H100, so nothing is staged through
+the host). While :attr:`ShardMesh.recording` is a list, each call appends its
+kind, payload bytes (the bytes of its result on this rank, as the JAX
+package's census counts an HLO collective's result) and
+elements for :mod:`~besskge_tpu_torch.parallel.census`.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List, Tuple
+
+import torch
+import torch.distributed as dist
+
+from besskge_tpu_torch.parallel.mesh import ShardMesh
+
+__all__ = ["all_to_all", "all_gather", "psum"]
+
+
+def _record(mesh: ShardMesh, kind: str, result: torch.Tensor) -> None:
+    if mesh.recording is not None:
+        mesh.recording.append((kind, result.numel() * result.element_size(), result.numel()))
+
+
+def _all_to_all(x: torch.Tensor, mesh: ShardMesh) -> torch.Tensor:
+    if x.shape[0] % mesh.n_shard:
+        raise ValueError(f"all_to_all splits axis 0 ({x.shape[0]}) into {mesh.n_shard} blocks")
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    dist.all_to_all_single(out, x, group=mesh.group)
+    _record(mesh, "all-to-all", out)
+    return out
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(x: torch.Tensor, mesh: ShardMesh) -> torch.Tensor:
+        return _all_to_all(x, mesh)
+
+    @staticmethod
+    def setup_context(ctx: Any, inputs: Tuple, output: torch.Tensor) -> None:
+        ctx.mesh = inputs[1]
+
+    @staticmethod
+    def backward(ctx: Any, g: torch.Tensor) -> Tuple[torch.Tensor, None]:
+        return _all_to_all(g, ctx.mesh), None
+
+
+def all_to_all(x: torch.Tensor, mesh: ShardMesh) -> torch.Tensor:
+    """Tiled all-to-all of ``x`` over axis 0, differentiable."""
+    return _AllToAll.apply(x, mesh)
+
+
+def all_gather(x: torch.Tensor, mesh: ShardMesh) -> torch.Tensor:
+    """``(n_shard, *x.shape)``: every rank's ``x``, in rank order."""
+    x = x.detach().contiguous()
+    out = x.new_empty(mesh.n_shard * x.numel())
+    dist.all_gather_into_tensor(out, x.reshape(-1), group=mesh.group)
+    _record(mesh, "all-gather", out)
+    return out.view(mesh.n_shard, *x.shape)
+
+
+def _leaves(tree: Any, path: Tuple = ()) -> List[Tuple[Tuple, torch.Tensor]]:
+    if isinstance(tree, dict):
+        return [leaf for k, v in tree.items() for leaf in _leaves(v, path + (k,))]
+    return [(path, tree)]
+
+
+def _rebuild(tree: Any, new: Dict[Tuple, torch.Tensor], path: Tuple = ()) -> Any:
+    if isinstance(tree, dict):
+        return {k: _rebuild(v, new, path + (k,)) for k, v in tree.items()}
+    return new[path]
+
+
+def psum(tree: Any, mesh: ShardMesh) -> Any:
+    """The sum over the mesh of a tensor or a nested dict of tensors: new
+    tensors, each leaf's own shape and dtype. The leaves of one dtype go
+    through one ``all_reduce`` of their concatenation."""
+    leaves = _leaves(tree)
+    new: Dict[Tuple, torch.Tensor] = {}
+    for dtype in dict.fromkeys(t.dtype for _, t in leaves):
+        group = [(p, t) for p, t in leaves if t.dtype == dtype]
+        flat = torch.cat([t.detach().reshape(-1) for _, t in group])
+        dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=mesh.group)
+        _record(mesh, "all-reduce", flat)
+        for (p, t), part in zip(group, flat.split([t.numel() for _, t in group])):
+            new[p] = part.view(t.shape)
+    return _rebuild(tree, new)

@@ -25,7 +25,7 @@ from besskge_tpu_torch.batch_sampler import ShardedBatchSampler
 from besskge_tpu_torch.bess import (
     AllScoresBESS,
     _batch_tensors,
-    _no_mesh,
+    _a15b,
     build_allscores_forward,
 )
 from besskge_tpu_torch.metric import Evaluation
@@ -45,7 +45,7 @@ class AllScoresPipeline:
         with ``return_triple_idx=True`` when filtering.
     :param corruption_scheme: "t" to complete (h, r, ?), "h" for (?, r, t).
     :param score_fn: the trained scoring function.
-    :param mesh: must be ``None`` (one device; ROADMAP A15).
+    :param mesh: must be ``None`` (one device; a mesh: ROADMAP A15b).
     :param evaluation: metrics module.
     :param filter_triples: list of triple arrays (GLOBAL IDs) whose
         completions must be filtered out of the rankings.
@@ -73,7 +73,7 @@ class AllScoresPipeline:
         device: Optional[Union[str, torch.device]] = None,
     ) -> None:
         if mesh is not None:
-            _no_mesh("shard")
+            raise _a15b("AllScoresPipeline")
         if not (evaluation or return_scores):
             raise ValueError(
                 "Nothing to return. Provide `evaluation` or set"

@@ -38,6 +38,7 @@ import torch
 from besskge_tpu_torch.device_sampler import _uniform, split_key
 from besskge_tpu_torch.embedding import (
     Initializer,
+    _device_blocks,
     device_table_init,
     init_KGE_normal,
     init_KGE_uniform,
@@ -115,9 +116,9 @@ class BaseScoreFunction(ABC):
     #: Optional compute precision for scoring (e.g. ``torch.bfloat16``):
     #: gathered rows are cast to it while storage stays in ``dtype``.
     compute_dtype: Optional[torch.dtype] = None
-    #: Mesh axis name set by a BESS module over a mesh (``None`` on one
-    #: device, the only case ported: ROADMAP A15); read by cross-shard ops
-    #: such as ConvE's SyncBN.
+    #: Mesh axis name set by a BESS module (``None`` on one device,
+    #: ``"shard"`` over a mesh); read by cross-shard ops such as ConvE's
+    #: SyncBN (over a mesh: ROADMAP A15b).
     mesh_axis: Any = None
     #: Scoring a shared pool broadcasts each query against it: one
     #: (queries, pool, ≤ entity row) intermediate per elementwise op, which
@@ -193,9 +194,17 @@ class BaseScoreFunction(ABC):
         from ``generator`` (default: a generator on ``device`` seeded with
         :attr:`seed`). Values differ from :meth:`initial_params`; the
         non-table params (:meth:`_extra_params`) equal its, as in the JAX
-        package. ``mesh`` must be ``None``: one device only (ROADMAP A15)."""
+        package.
+
+        The entity table is drawn shard block by shard block (one block on
+        one shard). Over a ``mesh`` (a
+        :class:`~besskge_tpu_torch.parallel.mesh.ShardMesh`, whose device
+        the params go to) each rank keeps its own block of the same stream
+        (:func:`~besskge_tpu_torch.embedding.device_table_init`): the rank's
+        rows of the mesh-free call's table, and the same replicated params
+        on every rank."""
         if mesh is not None:
-            raise NotImplementedError("tables sharded over a mesh are not ported yet (ROADMAP A15)")
+            device = mesh.device
         device = resolve_device(device)
         if generator is None:
             generator = torch.Generator(device).manual_seed(self.seed)
@@ -204,9 +213,14 @@ class BaseScoreFunction(ABC):
             self.sharding.n_shard * self.sharding.max_entity_per_shard,
             self.entity_row_size,
         )
-        ent = device_table_init(
-            *self._entity_spec, ent_shape, self.seed, self.dtype, None, device, generator
-        )
+        if mesh is not None or isinstance(self._entity_spec[0], np.ndarray):
+            ent = device_table_init(
+                *self._entity_spec, ent_shape, self.seed, self.dtype, mesh, device, generator
+            )
+        else:
+            blocks = _device_blocks(*self._entity_spec, ent_shape, self.sharding.n_shard, None,
+                                    self.dtype, device, generator)
+            ent = blocks[0] if len(blocks) == 1 else torch.cat(blocks)
         if self.packed_entity_storage:
             if self.sharding.max_entity_per_shard % 2:
                 raise ValueError("a packed table needs an even max_entity_per_shard")
@@ -745,7 +759,7 @@ class ConvE(MatrixDecompositionScoreFunction):
       ``F.batch_norm``, whose running var is unbiased). The training step
       refreshes the running stats (``trainer._bn_ema``);
       ``sync_batch_norm`` is the identity on one device (a mesh: ROADMAP
-      A15);
+      A15b);
     * dropout with ``train=True`` and an ``rng`` (a key, as
       :mod:`~besskge_tpu_torch.device_sampler` keys): the key splits three
       ways (input, feature map, hidden), each mask drawn by
@@ -845,10 +859,10 @@ class ConvE(MatrixDecompositionScoreFunction):
     def _batch_stats(self, x: torch.Tensor, axes: Tuple[int, ...], sync: bool):
         """(mean, var) over ``axes``: the biased ``E[x²] − mean²``. With
         ``sync`` over a mesh the JAX package pmeans both moments, which
-        waits on the multi-device port (ROADMAP A15); on one device
-        (``mesh_axis`` ``None``) it is the identity."""
+        is not ported yet (ROADMAP A15b); on one device (``mesh_axis``
+        ``None``) it is the identity."""
         if sync and self.mesh_axis is not None:
-            raise NotImplementedError("SyncBN over a mesh is not ported yet (ROADMAP A15)")
+            raise NotImplementedError("SyncBN over a mesh is not ported yet (ROADMAP A15b)")
         mean = torch.mean(x, dim=axes)
         sq = torch.mean(torch.square(x), dim=axes)
         return mean, sq - torch.square(mean)

@@ -1,4 +1,4 @@
-"""Training step and loop for BESS-KGE on one device (torch).
+"""Training step and loop for BESS-KGE on one device or over a mesh (torch).
 
 Counterpart of ``besskge_tpu/trainer.py``:
 
@@ -32,16 +32,29 @@ Counterpart of ``besskge_tpu/trainer.py``:
   a device sampler, and saves checkpoints in the JAX package's formats
   (:mod:`besskge_tpu_torch.checkpoint`).
 
+Over a ``mesh`` (:class:`~besskge_tpu_torch.parallel.mesh.ShardMesh`, a
+module with ``axis_name="shard"``) every rank runs the same step on its own
+params (its block of the entity table, its optimizer state of that block,
+and copies of the replicated params and their state) and its column of each
+batch, as the JAX package's ``shard_map`` step runs on each device: the
+micro-batches run one after another (the AllToAll of each cannot sit under
+``vmap``), the entity rows' gradients stay on their rank, and the
+replicated params' summed gradients go through one all-reduce with the loss
+(:func:`besskge_tpu_torch.bess._reduce_outputs`). A device-sampled call
+draws the global batch on every rank from the same key and keeps its own
+column. With NCCL a call's collectives are captured in its CUDA graph; a
+gloo mesh runs its calls uncaptured (:func:`build_device_train_step`).
+
 A scorer with dropout (ConvE) takes a dropout key per step (``rng``), split
-per micro-batch as the JAX package splits its key; its masks come from the
-device sampler's counter hash, so a replayed graph draws anew from the key
-in its buffer. A scorer with BatchNorm has its running stats refreshed in
-every step form (:func:`_bn_ema`). The params may nest (ConvE's trunk); the
-dense optimizers' states mirror them.
+per micro-batch as the JAX package splits its key (over a mesh after folding
+in the rank); its masks come from the device sampler's counter hash, so a
+replayed graph draws anew from the key in its buffer. A scorer with
+BatchNorm has its running stats refreshed in every step form
+(:func:`_bn_ema`; over a mesh that needs SyncBN, ROADMAP A15b). The params
+may nest (ConvE's trunk); the dense optimizers' states mirror them.
 
 Params and optimizer state are updated in place, as the JAX package donates
-them to the step; ``donate=False`` updates copies instead. Only one device
-is ported: a mesh raises (ROADMAP A15).
+them to the step; ``donate=False`` updates copies instead.
 """
 
 from __future__ import annotations
@@ -58,14 +71,17 @@ from besskge_tpu_torch.bess import (
     BessKGE,
     _batch_tensors,
     _device_step,
-    _format_outputs,
+    _reduce_outputs,
+    _stack,
+    _step_device,
 )
 from besskge_tpu_torch.checkpoint import save_checkpoint, save_checkpoint_sharded
-from besskge_tpu_torch.device_sampler import DeviceBatchSampler, _as_key, split_key
+from besskge_tpu_torch.device_sampler import DeviceBatchSampler, _as_key, _fold_in, split_key
 from besskge_tpu_torch.optim import AdamW, SGD, EntityRowOptimizer, FusedDenseAdamW
 from besskge_tpu_torch.packed import is_packed, take_rows
+from besskge_tpu_torch.parallel.mesh import ShardMesh, replicate_tree, shard_params
 from besskge_tpu_torch.scoring import ConvE
-from besskge_tpu_torch.utils import _tree_map, resolve_device
+from besskge_tpu_torch.utils import _tree_map
 
 __all__ = ["build_train_step", "build_device_train_step", "init_optimizer_state", "Trainer"]
 
@@ -75,13 +91,6 @@ Device = Optional[Union[str, torch.device]]
 #: A dense optimizer of the port: ``init(params)``, ``update_(grads, state, params)``.
 DenseOptimizer = Union[SGD, AdamW]
 EntityOptimizer = Union[EntityRowOptimizer, FusedDenseAdamW]
-
-
-def _no_mesh(mesh: Any) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "multi-device training (a mesh) is not ported yet (ROADMAP A15)"
-        )
 
 
 def init_optimizer_state(
@@ -94,12 +103,19 @@ def init_optimizer_state(
     """Optimizer state on the params' device: ``optimizer``'s state of every
     param without an ``entity_optimizer``; with one, ``{"entity": its state
     of the entity table, "other": optimizer's state of the other params}``.
+    Over a ``mesh``, ``params`` are the rank's, so the state of the entity
+    table is the state of the rank's block, and the rest is replicated.
 
     :param n_logical: the logical entity count
         (``sharding.n_shard * sharding.max_entity_per_shard``), with which the
-        row optimizer checks the table's height.
+        row optimizer checks the table's height (of a block: over the mesh,
+        ``n_logical / n_shard``).
     """
-    _no_mesh(mesh)
+    if mesh is not None:
+        if not isinstance(mesh, ShardMesh):
+            raise TypeError(f"mesh must be a ShardMesh, got {type(mesh).__name__}")
+        if n_logical is not None:
+            n_logical //= mesh.n_shard
     if entity_optimizer is None:
         return optimizer.init(params)
     other = {k: v for k, v in params.items() if k != "entity_embedding"}
@@ -161,25 +177,38 @@ def _sparse_train_step(
             g_gathered, g_other = vjp_fn(one)
             return out, g_gathered, g_other
 
-        # Micro-batches fused with vmap, as jax.vmap(mb_fn) does, each with
-        # its own dropout key.
-        if rng is None:
-            outs, g_rows, g_other = torch.func.vmap(mb_fn)(mbs, gathered)
+        bps = idx.shape[0]
+        if bess.axis_name is None:
+            # Micro-batches fused with vmap, as jax.vmap(mb_fn) does, each
+            # with its own dropout key.
+            if rng is None:
+                outs, g_rows, g_other = torch.func.vmap(mb_fn)(mbs, gathered)
+            else:
+                outs, g_rows, g_other = torch.func.vmap(mb_fn)(mbs, gathered, split_key(rng, bps))
         else:
-            rngs = split_key(rng, idx.shape[0])
-            outs, g_rows, g_other = torch.func.vmap(mb_fn)(mbs, gathered, rngs)
+            # Over a mesh the AllToAll of each micro-batch (and its transpose
+            # in the VJP) runs in turn, as the JAX package's lax.scan.
+            rngs = [None] * bps if rng is None else split_key(_fold_in(rng, bess.mesh.rank), bps)
+            res = [mb_fn({k: v[i] for k, v in mbs.items()}, gathered[i], rngs[i])
+                   for i in range(bps)]
+            outs = _stack([r[0] for r in res])
+            g_rows = torch.stack([r[1] for r in res])
+            g_other = _tree_map(lambda *g: torch.stack(g), *[r[2] for r in res])
         with torch.no_grad():
             bn_stats = _bn_ema(bess.score_fn, params, batch)
             table, ent_state = entity_optimizer.update_rows(
                 table, opt_state["entity"], idx.reshape(-1),
                 g_rows.reshape(-1, g_rows.shape[-1]),
             )
-            acc_other = _tree_map(lambda v: v.sum(0), g_other)
+            # The entity rows' gradients stay on their rank; the replicated
+            # params' go through one all-reduce with the loss.
+            formatted, acc_other = _reduce_outputs(
+                bess, outs, _tree_map(lambda v: v.sum(0), g_other))
             other_state = optimizer.update_(acc_other, opt_state["other"], other)
         new_params = dict(other)
         new_params["entity_embedding"] = table
         _write_bn_stats(new_params, bn_stats)
-        return new_params, {"entity": ent_state, "other": other_state}, _format_outputs(bess, outs)
+        return new_params, {"entity": ent_state, "other": other_state}, formatted
 
     return step
 
@@ -188,9 +217,11 @@ def _dense_train_step(
     bess: BessKGE, optimizer: DenseOptimizer, fused_dense: Optional[FusedDenseAdamW]
 ) -> Callable:
     """The step on tensors with a dense table gradient: one gradient of the
-    loss summed over the vmapped micro-batches, over the whole params dict
-    (the table's gradient is table-sized), then ``optimizer`` over every
-    param, or B10 over the table and ``optimizer`` over the rest."""
+    loss summed over the micro-batches (vmapped on one device), over the
+    whole params dict (the table's gradient is table-sized, and over a mesh
+    stays on its rank; every other gradient goes through the step's one
+    all-reduce), then ``optimizer`` over every param, or B10 over the table
+    and ``optimizer`` over the rest."""
 
     def step(params: Params, opt_state: Dict[str, Any], batch: Dict[str, torch.Tensor],
              rng: Optional[torch.Tensor] = None):
@@ -208,19 +239,22 @@ def _dense_train_step(
         grads, outs = torch.func.grad(loss_fn, has_aux=True)(params)
         with torch.no_grad():
             bn_stats = _bn_ema(bess.score_fn, params, batch)
+            ent_grad = grads.pop("entity_embedding")
+            formatted, grads = _reduce_outputs(bess, outs, grads)
             if fused_dense is None:
+                grads = {k: ent_grad if k == "entity_embedding" else grads[k] for k in params}
                 new_state = optimizer.update_(grads, opt_state, params)
                 _write_bn_stats(params, bn_stats)
-                return params, new_state, _format_outputs(bess, outs)
+                return params, new_state, formatted
             table, ent_state = fused_dense.apply_dense(
-                params["entity_embedding"], opt_state["entity"], grads.pop("entity_embedding")
+                params["entity_embedding"], opt_state["entity"], ent_grad
             )
             other = {k: v for k, v in params.items() if k != "entity_embedding"}
             other_state = optimizer.update_(grads, opt_state["other"], other)
         new_params = dict(other)
         new_params["entity_embedding"] = table
         _write_bn_stats(new_params, bn_stats)
-        return new_params, {"entity": ent_state, "other": other_state}, _format_outputs(bess, outs)
+        return new_params, {"entity": ent_state, "other": other_state}, formatted
 
     return step
 
@@ -240,7 +274,9 @@ def build_train_step(
     device: Device = None,
 ) -> Callable:
     """Build ``fn(params, opt_state, batch, rng=None) -> (params, opt_state,
-    outputs)``, the BESS training step on one device (default ``cuda``).
+    outputs)``, the BESS training step on one device (default ``cuda``), or
+    on each rank of a ``mesh`` (on the mesh's device; ``params`` and
+    ``opt_state`` the rank's, ``batch`` the global one or the rank's column).
     ``params`` and ``opt_state`` must live on that device; ``batch`` is a
     batch-sampler dict of ``(bps, 1, ...)`` numpy arrays or tensors; ``rng``
     a dropout key (an int or a 0-dim int64 tensor), split into one key per
@@ -258,8 +294,7 @@ def build_train_step(
         place (the JAX package donates them); ``False``: the step updates
         copies and leaves the caller's tensors as they were.
     """
-    _no_mesh(mesh)
-    device = resolve_device(device)
+    device = _step_device(bess, mesh, device)
     if entity_optimizer is None or isinstance(entity_optimizer, FusedDenseAdamW):
         step = _dense_train_step(bess, optimizer, entity_optimizer)
     else:
@@ -272,7 +307,7 @@ def build_train_step(
             )
         if not donate:
             params, opt_state = _clone(params), _clone(opt_state)
-        return step(params, opt_state, _batch_tensors(batch, _FORWARD_KEYS, device),
+        return step(params, opt_state, _batch_tensors(batch, _FORWARD_KEYS, device, mesh),
                     _as_key(rng, device))
 
     return fn
@@ -305,11 +340,14 @@ def _device_steps(
     sampler: DeviceBatchSampler,
     entity_optimizer: Optional[EntityOptimizer],
     steps_per_call: int,
+    mesh: Optional[ShardMesh] = None,
 ) -> Callable:
     """The eager form of one device-sampled call: ``steps_per_call`` steps
     on batches drawn from ``key`` (split into one key per step when there
     are several, as is a dropout key ``rng``), updating ``params`` and
-    ``opt_state`` in place."""
+    ``opt_state`` in place. Over a ``mesh`` every rank draws the global
+    batch from the same key and keeps its own column
+    (:meth:`~besskge_tpu_torch.device_sampler.DeviceBatchSampler.slice_local`)."""
     if entity_optimizer is None or isinstance(entity_optimizer, FusedDenseAdamW):
         step = _dense_train_step(bess, optimizer, entity_optimizer)
     else:
@@ -324,7 +362,10 @@ def _device_steps(
         rngs = [None] * steps_per_call if rng is None else split(rng)
         p, o = params, opt_state
         for k, r in zip(keys, rngs):
-            p, o, outs = step(p, o, sampler.sample(sampler_state, k), r)
+            batch = sampler.sample(sampler_state, k)
+            if mesh is not None:
+                batch = sampler.slice_local(batch, mesh.rank)
+            p, o, outs = step(p, o, batch, r)
         _write_back(params, p)
         _write_back(opt_state, o)
         return params, opt_state, (outs if steps_per_call == 1 else {"loss": outs["loss"]})
@@ -456,15 +497,24 @@ def build_device_train_step(
 
     On a card one call is one CUDA graph of all its steps, captured on the
     first call and replayed from then on (:class:`_GraphedCall`); a capture
-    that fails raises. On the CPU the same steps run eagerly.
+    that fails raises. On the CPU the same steps run eagerly. Over a
+    ``mesh`` each rank calls the step with its params and optimizer state
+    and the replicated sampler state: with NCCL the graph holds the call's
+    collectives; a gloo mesh cannot be captured (its collectives run on the
+    host), so its calls run uncaptured on the card, as
+    ``fn.uncaptured`` says (``None`` when the call is a graph or on the
+    CPU).
 
     :param donate: ``True``: ``params`` and ``opt_state`` are updated in
         place and returned; ``False``: the caller's are left as they were.
     """
-    _no_mesh(mesh)
-    device = resolve_device(device)
-    run = _device_steps(bess, optimizer, sampler, entity_optimizer, steps_per_call)
-    graphed = _GraphedCall(run, donate, device) if device.type == "cuda" else None
+    device = _step_device(bess, mesh, device)
+    run = _device_steps(bess, optimizer, sampler, entity_optimizer, steps_per_call, mesh)
+    uncaptured = None
+    if device.type == "cuda" and mesh is not None and not mesh.capturable:
+        uncaptured = f"{mesh.backend} collectives run on the host and cannot be captured"
+    graphed = (_GraphedCall(run, donate, device)
+               if device.type == "cuda" and uncaptured is None else None)
 
     def fn(params: Params, opt_state: Dict[str, Any], sampler_state: Dict[str, torch.Tensor],
            key: torch.Tensor, rng: Any = None):
@@ -480,11 +530,12 @@ def build_device_train_step(
 
     fn._eager = run  # type: ignore[attr-defined]
     fn._graph = graphed  # type: ignore[attr-defined]
+    fn.uncaptured = uncaptured  # type: ignore[attr-defined]
     return fn
 
 
 class Trainer:
-    """End-to-end training driver on one device.
+    """End-to-end training loop on one device, or on each rank of a mesh.
 
     :param bess: the BESS module (must have a ``loss_fn``).
     :param batch_sampler: host-side batch stream
@@ -494,11 +545,17 @@ class Trainer:
         keys (:func:`build_device_train_step`).
     :param optimizer: dense optimizer of the replicated params (of every
         param without an ``entity_optimizer``).
-    :param mesh: must be ``None``.
+    :param mesh: ``None`` (one device) or the rank's
+        :class:`~besskge_tpu_torch.parallel.mesh.ShardMesh`, whose device the
+        trainer runs on; the module needs ``axis_name="shard"``.
     :param params: initial params on the device; default
         ``score_fn.initial_params(device)``. A plain entity table (or a
         packed one, ``(n + 1) // 2`` rows) is widened for an interleaved
-        ``entity_optimizer``; a widened one is taken as it is.
+        ``entity_optimizer``; a widened one is taken as it is. Over a mesh,
+        the rank's own params, with its block of the table (any device,
+        numpy too): ``score_fn.initial_params_device(mesh)``, or
+        :func:`~besskge_tpu_torch.parallel.mesh.shard_params` of the global
+        ones; default the rank's block of ``score_fn.initial_params("cpu")``.
     :param seed: seed of the dropout stream: with a scorer that has
         dropout (ConvE, :attr:`needs_rng`), every step (host-fed) or call
         (device-sampled) takes the next key split from it, as the JAX
@@ -507,7 +564,7 @@ class Trainer:
         :class:`~besskge_tpu_torch.optim.FusedDenseAdamW`.
     :param steps_per_call: with a device sampler, optimizer steps per call
         (one CUDA graph on a card).
-    :param device: default ``cuda``.
+    :param device: default ``cuda``; over a mesh, the mesh's.
     """
 
     def __init__(
@@ -524,7 +581,6 @@ class Trainer:
     ) -> None:
         if bess.loss_fn is None:
             raise ValueError("Training requires a loss_fn on the BESS module")
-        _no_mesh(mesh)
         self.device_sampling = isinstance(batch_sampler, DeviceBatchSampler)
         if not (self.device_sampling or isinstance(batch_sampler, ShardedBatchSampler)):
             raise TypeError(
@@ -534,20 +590,27 @@ class Trainer:
         if steps_per_call != 1 and not self.device_sampling:
             raise ValueError("steps_per_call requires a DeviceBatchSampler")
         self.steps_per_call = steps_per_call
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = _step_device(bess, mesh, device)
         self.bess = bess
         self.batch_sampler = batch_sampler
         self.optimizer = optimizer
         self.entity_optimizer = entity_optimizer
         self.seed = seed
-        raw = dict(params) if params is not None else bess.score_fn.initial_params(self.device)
         n_global = bess.sharding.n_shard * bess.sharding.max_entity_per_shard
+        if mesh is None:
+            raw = dict(params) if params is not None else bess.score_fn.initial_params(self.device)
+            n_rows = n_global
+        else:
+            raw = (shard_params(bess.score_fn.initial_params("cpu"), mesh) if params is None
+                   else replicate_tree(params, mesh))
+            n_rows = bess.sharding.max_entity_per_shard
         if getattr(entity_optimizer, "interleaved", False):
             tab = raw["entity_embedding"]
             height = tab.shape[-2]
             # A packed table holds two logical rows per row. The optimizer
             # owns its layout: the height of a widened table.
-            plain = (n_global + 1) // 2 if is_packed(tab) else n_global
+            plain = (n_rows + 1) // 2 if is_packed(tab) else n_rows
             wide = entity_optimizer.widen_table(
                 torch.empty((plain, tab.shape[-1]), dtype=tab.dtype, device="meta")
             ).shape[-2]
@@ -561,17 +624,17 @@ class Trainer:
                 )
         self.params = _tree_map(lambda v: v.to(self.device), raw)
         self.opt_state = init_optimizer_state(
-            optimizer, self.params, None, entity_optimizer, n_logical=n_global
+            optimizer, self.params, mesh, entity_optimizer, n_logical=n_global
         )
         if self.device_sampling:
             self.sampler_state = batch_sampler.state(self.device)
             self.train_step = build_device_train_step(
-                bess, optimizer, batch_sampler, None, entity_optimizer,
+                bess, optimizer, batch_sampler, mesh, entity_optimizer,
                 steps_per_call=steps_per_call, device=self.device,
             )
         else:
             self.train_step = build_train_step(
-                bess, optimizer, None, entity_optimizer, device=self.device
+                bess, optimizer, mesh, entity_optimizer, device=self.device
             )
         #: The dropout stream: a key (0-dim int64 on the host), split anew
         #: for every step or call when :attr:`needs_rng`.
@@ -671,7 +734,7 @@ class Trainer:
         def put_ahead(it, depth=2):
             q: deque = deque()
             for b in it:
-                q.append(_batch_tensors(b, _FORWARD_KEYS, self.device))
+                q.append(_batch_tensors(b, _FORWARD_KEYS, self.device, self.mesh))
                 if len(q) >= depth:
                     yield q.popleft()
             while q:
@@ -691,14 +754,15 @@ class Trainer:
         an interleaved entity table de-interleaved on its device into the
         plain table and its state rows. With ``sharded=True``, the directory
         format (:func:`~besskge_tpu_torch.checkpoint.save_checkpoint_sharded`),
-        which keeps the table as it is stored."""
+        which keeps the table as it is stored. Over a mesh every rank calls
+        it: each writes its block, rank 0 the rest."""
         if sharded:
             save_checkpoint_sharded(path, self.params, opt_state=self.opt_state,
-                                    sharding=self.bess.sharding, step=step)
+                                    sharding=self.bess.sharding, step=step, mesh=self.mesh)
             return
         opt = self.entity_optimizer
         save_checkpoint(
             path, self.params, opt_state=self.opt_state, sharding=self.bess.sharding, step=step,
             interleaved_entity=opt.interleave_layout if getattr(opt, "interleaved", False)
-            else False,
+            else False, mesh=self.mesh,
         )

@@ -185,6 +185,28 @@ the CUDA toolkit. Phases, one line each with its elapsed seconds:
    beside its bound, and the conv's cost under deterministic cuDNN without
    TF32 against cuDNN's defaults. ``--profile=conve`` traces two calls and
    gives the conv and FC kernels' share of the device time.
+15. mesh: the BESS scheme over a mesh of ranks (``besskge_tpu_torch.parallel``).
+   One card holds no two NCCL ranks, so: (a) the wikikg2 device-sampled call
+   of phase 8 over a one-rank NCCL mesh (``make_shard_mesh(1)``,
+   ``build_device_train_step(mesh=...)``), its all-to-alls and all-reduce
+   captured in the call's CUDA graph: the census of the first call (eager
+   warm-up and capture: 2 x bps all-to-alls of the bf16 rows and one
+   all-reduce per step), B5/B6 2 x bps and B3 once per step by wrapper,
+   replays equal to their eager steps bit for bit under the sync debug
+   mode, each call held within the dense gate against the same call
+   without a mesh, and ms per step beside it (two sets); (b) four ranks
+   sharing the card over gloo at full width (625,151 rows per block,
+   ``bench.py``'s batch geometry), spawned with
+   ``parallel.multihost._spawn``: each rank's initial block equal to its
+   rows of the one-process draw, top-10 of 512 queries per batch against all
+   2,500,604 entities (B7, 2 all-gathers and 2 all-to-alls per batch) held
+   against a full-table reference, one host-fed step (B5/B6 2 x bps, B3
+   once) held within the sparse gate against the same step on CPU gloo
+   ranks from copies of one state, timed steps, device-sampled calls (which
+   gloo runs uncaptured, as the step's ``uncaptured`` says), ``Trainer.fit`` (the
+   replicated params equal on every rank) and a sharded checkpoint saved
+   and loaded back onto the four ranks bit for bit. Gloo runs uncaptured;
+   its times are gloo on one card, no measure of NCCL across cards.
 
 Each path is driven with every launch count set to 0 just before it and
 read just after. Then one JSON line describing each kernel, and the result
@@ -239,6 +261,9 @@ from besskge_tpu_torch.negative_sampler import (  # noqa: E402
     TripleBasedShardedNegativeSampler,
 )
 from besskge_tpu_torch.ops import adamw_kernels, distance, l1_kernels, row_kernels  # noqa: E402
+from besskge_tpu_torch.parallel import make_shard_mesh, multihost, shard_params  # noqa: E402
+from besskge_tpu_torch.parallel.census import collective_census  # noqa: E402
+from besskge_tpu_torch.parallel.multihost import _spawn  # noqa: E402
 from besskge_tpu_torch.pipeline import AllScoresPipeline  # noqa: E402
 from besskge_tpu_torch.profiling import DISTANCE_EDGES, device_kernels  # noqa: E402
 from besskge_tpu_torch.scoring import ComplEx, ConvE, RotatE, TransE  # noqa: E402
@@ -373,6 +398,19 @@ VALID_SPB, VALID_REPEATS, VALID_CPU_STEPS = 16, 3, 2
 VALID_TOPK_QUERIES, TOPK_BPS, FLAT_CANDIDATES = 2048, 4, 4096
 AS_ENTITY, AS_QUERIES, AS_SHARD_BS, AS_BPS, AS_WINDOW = 500_000, 1024, 256, 4, 65_536
 AS_KNOWN, AS_REPEATS, AS_SWEEPS = 8, 3, 5
+
+# The mesh (ROADMAP A15a): the wikikg2 step over a mesh of ranks on the one
+# card. NCCL cannot put two ranks on one card, so: the NCCL path at one rank
+# (the device-sampled call at WIKIKG2_SPC, its collectives captured in the
+# graph; MESH_TIMED_CALLS calls per timed set), and MESH_RANKS ranks sharing
+# the card over gloo at full width (625,151 rows per block, bench.py's batch
+# geometry): a host-fed step against the CPU ranks, MESH_TIMED_STEPS timed
+# steps, top-10 of MESH_QUERIES queries per batch against all entities
+# (MESH_TOPK_REPEATS passes timed), Trainer.fit over the first
+# MESH_FIT_TRIPLES triples (3 steps), a sharded checkpoint round trip. The
+# ranks are stopped after MESH_TIMEOUT_S seconds.
+MESH_RANKS, MESH_TIMED_CALLS, MESH_TIMED_STEPS = 4, 5, 3
+MESH_QUERIES, MESH_TOPK_REPEATS, MESH_FIT_TRIPLES, MESH_TIMEOUT_S = 512, 2, 45_000, 420
 
 L1_SOURCE = "besskge_tpu_torch/csrc/l1_distance.cu"
 ROW_SOURCE = "besskge_tpu_torch/csrc/row_update.cu"
@@ -1123,28 +1161,30 @@ def autograd(gen: torch.Generator) -> dict:
     return {"l1_distance_grads": {"launches": counts["l1_distance_grads"]}}
 
 
-def _training_setup(triples: np.ndarray, sharding: Sharding, score_fn: TransE):
-    """The wikikg2 module and its host sampler over ``triples``, and their
-    partitioned triples."""
+def _training_setup(triples: np.ndarray, sharding: Sharding, score_fn: TransE,
+                    axis_name: str = None):
+    """The wikikg2 module (over the ``axis_name`` mesh axis) and its host
+    sampler over ``triples``, and their partitioned triples."""
     dataset = KGDataset(n_entity=N_ENTITY, n_relation_type=N_RELATION, triples={"train": triples},
                         original_triple_ids={"train": np.arange(len(triples))})
     pts = PartitionedTripleSet.create_from_dataset(dataset, "train", sharding)
     ns = RandomShardedNegativeSampler(N_NEGATIVE, sharding, SEED, "ht", local_sampling=False,
                                       flat_negative_format=True)
     module = EmbeddingMovingBessKGE(ns, score_fn, SampledSoftmaxCrossEntropyLoss(N_ENTITY),
-                                    augment_negative=True)
+                                    augment_negative=True, axis_name=axis_name)
     sampler = RandomShardedBatchSampler(pts, ns, shard_bs=SHARD_BS_TRAIN, batches_per_step=BPS,
                                         seed=SEED)
     return module, sampler, pts
 
 
-def _wikikg2():
-    """The wikikg2 configuration's random triples, sharding and TransE-L1
-    scorer with bf16 scoring math, and the generator that drew the triples."""
+def _wikikg2(n_shard: int = 1):
+    """The wikikg2 configuration's random triples, sharding (over
+    ``n_shard`` shards) and TransE-L1 scorer with bf16 scoring math, and the
+    generator that drew the triples."""
     rng = np.random.default_rng(SEED)
     triples = np.stack([rng.integers(N_ENTITY, size=N_TRIPLE), rng.integers(N_RELATION, size=N_TRIPLE),
                         rng.integers(N_ENTITY, size=N_TRIPLE)], 1).astype(np.int32)
-    sharding = Sharding.create(N_ENTITY, 1, seed=SEED)
+    sharding = Sharding.create(N_ENTITY, n_shard, seed=SEED)
     score_fn = TransE(True, 1, sharding, N_RELATION, DIM, seed=SEED)
     score_fn.compute_dtype = torch.bfloat16
     return triples, sharding, score_fn, rng
@@ -3928,6 +3968,461 @@ def _conve_trunk_share(smi: str) -> dict:
     return share
 
 
+# ---------------------------------------------------------------------------
+# mesh: the BESS scheme over ranks (ROADMAP A15a)
+
+
+def _mesh_module(n_shard: int, axis_name: str = "shard") -> tuple:
+    """The wikikg2 step's score function, module and host sampler over
+    ``n_shard`` shards (bench.py's batch geometry: 8 x 512 positives per
+    shard, 32 shared "ht" negatives, bf16 scoring math)."""
+    triples, sharding, score_fn, _ = _wikikg2(n_shard)
+    module, sampler, pts = _training_setup(triples, sharding, score_fn, axis_name)
+    return triples, score_fn, module, sampler, pts
+
+
+def _touched(batch: dict, rank: int) -> torch.Tensor:
+    """The logical rows of rank ``rank``'s table block that its column of a
+    host batch gathers (its heads, its tails, its negatives)."""
+    return torch.unique(torch.cat([torch.from_numpy(batch[k][:, rank].reshape(-1)).long()
+                                   for k in ("head", "tail", "negative")]))
+
+
+_L1_PATH = ("l1_distance_matrix", "l1_distance_grads")
+
+
+def _l1_calls(run):
+    """``run()``, and the shapes and dtypes of the arguments with which it
+    called the B5 and B6 wrappers: a set of ``(name, ((shape, dtype), ...))``.
+    The step reaches them through ``ops.distance``, whose view of
+    ``l1_kernels`` is swapped for one that records each call and passes it
+    on, so each launch count is as without the record."""
+    seen = set()
+
+    def recorder(name):
+        def call(*args):
+            seen.add((name, tuple((tuple(x.shape), str(x.dtype)[6:]) for x in args)))
+            return getattr(l1_kernels, name)(*args)
+        return call
+
+    class Recording:
+        def __getattr__(self, name):
+            return recorder(name) if name in _L1_PATH else getattr(l1_kernels, name)
+
+    try:
+        distance.l1_kernels = Recording()
+        result = run()
+    finally:
+        distance.l1_kernels = l1_kernels
+    if {name for name, _ in seen} != set(_L1_PATH):
+        raise AssertionError(f"the path called {sorted(seen)}, not both of {_L1_PATH}")
+    return result, seen
+
+
+def _hold_l1_at(calls, gen: torch.Generator) -> dict:
+    """B5 and B6 at each of ``calls`` (as :func:`_l1_calls` records them),
+    on fresh card tensors with planted exact ties and a random cotangent of
+    the path's dtype, against their plain versions at
+    :func:`check_training_kernels`' gates. Returns each kernel's shapes and
+    max |err|."""
+    out = {name: {"shapes": [], "max_abs_err": 0.0} for name in _L1_PATH}
+    for name, args in sorted(calls):
+        (sa, dt), (sb, _) = args[:2]
+        dtype, d = getattr(torch, dt), sa[-1]
+        a, b = uniform(sa, gen, d).to(dtype), uniform(sb, gen, d).to(dtype)
+        k = min(sa[0], sb[0]) // 2
+        b[:k, : d // 2] = a[:k, : d // 2]  # planted exact ties
+        if name == "l1_distance_matrix":
+            ref = l1_kernels.l1_distance_matrix_plain(a, b).float()
+            err = (l1_kernels.l1_distance_matrix(a, b).float() - ref).abs()
+            tol = ATOL + (RTOL + (BF16_ULP if dtype == torch.bfloat16 else 0.0)) * ref.abs()
+            held = [(err, tol)]
+        else:
+            w = torch.randn(args[2][0], device="cuda", generator=gen).to(getattr(torch, args[2][1]))
+            da, db = l1_kernels.l1_distance_grads(a, b, w)
+            rda, rdb = l1_kernels.l1_distance_grads_batched_plain(a[None], b[None], w[None])
+            held = [((da - rda[0]).abs(), sum_tol(w.float(), 1)),
+                    ((db - rdb[0]).abs(), sum_tol(w.float().T, 1))]
+        for err, tol in held:
+            if not (err <= tol).all():
+                raise AssertionError(f"{name} at {args} off its plain version by {err.max().item()}")
+            out[name]["max_abs_err"] = max(out[name]["max_abs_err"], err.max().item())
+        out[name]["shapes"].append([list(shape) + [t] for shape, t in args])
+    torch.cuda.synchronize()
+    return out
+
+
+def _mesh_nccl(gen: torch.Generator, tmp: Path, smi: str, profile: bool = False) -> dict:
+    """The wikikg2 device-sampled call (spc WIKIKG2_SPC, one CUDA graph) over
+    a one-rank NCCL mesh, its all-to-alls and all-reduce captured in the
+    graph, against its own eager steps and against the same call without a
+    mesh."""
+    multihost.initialize(f"file://{tmp / 'nccl_store'}", 1, 0, backend="nccl")
+    try:
+        mesh = make_shard_mesh(1)
+        if mesh.backend != "nccl" or not mesh.capturable:
+            raise AssertionError(f"expected a capturable NCCL mesh, got {mesh}")
+        _, score_fn, module, _, pts = _mesh_module(1)
+        free_module = _mesh_module(1, None)[2]
+        params = score_fn.initial_params_device(device="cuda", generator=gen)
+        params["entity_embedding"] = optim.interleave_momentum(params["entity_embedding"])
+        sgd, row = optim.SGD(LR, momentum=MOMENTUM), optim.RowSGDM(LR, momentum=MOMENTUM,
+                                                                   interleaved=True)
+        dev = DeviceBatchSampler(pts, module.negative_sampler, shard_bs=SHARD_BS_TRAIN,
+                                 batches_per_step=BPS, seed=SEED, positive_mode="runs")
+        st = dev.state("cuda")
+        n_logical = module.sharding.max_entity_per_shard
+        fn = trainer.build_device_train_step(module, sgd, dev, mesh, row,
+                                             steps_per_call=WIKIKG2_SPC)
+        free = trainer.build_device_train_step(free_module, sgd, dev, None, row,
+                                               steps_per_call=WIKIKG2_SPC)
+        if fn.uncaptured is not None or fn._graph is None:
+            raise AssertionError(f"the NCCL mesh call is not a CUDA graph: {fn.uncaptured}")
+        held = (params, trainer.init_optimizer_state(sgd, params, mesh, row, n_logical=n_logical))
+        spc, results = WIKIKG2_SPC, {"replays": []}
+        for call in range(3):
+            key = dev.next_key(call)
+            # The same call from the same state: by its eager steps, and
+            # without a mesh.
+            eager = (trainer._clone(held[0]), trainer._clone(held[1]))
+            other = (trainer._clone(held[0]), trainer._clone(held[1]))
+            reset_counts()
+            if call == 0:
+                census, l1_calls = _l1_calls(lambda: collective_census(fn, *held, st, key,
+                                                                       mesh=mesh))
+                counts = read_counts()
+                # The warm-up's and the capture's: 2 x each step's.
+                expect_counts("mesh nccl first call", counts, {
+                    "l1_distance_matrix": 2 * spc * 2 * BPS, "l1_distance_grads": 2 * spc * 2 * BPS,
+                    "scatter_rows": 2 * spc})
+                ppp = SHARD_BS_TRAIN
+                payload = 1 * (ppp + 2 * N_NEGATIVE) * DIM * 2  # bf16 rows
+                if (census["all-to-all"] != [payload] * (2 * 2 * spc * BPS)
+                        or census["all-gather"] or len(census["all-reduce"]) != 2 * spc):
+                    raise AssertionError(f"mesh nccl census {census}")
+                results["first_call_wrapper_launches"] = {k: v for k, v in counts.items() if v}
+                results["l1_at_path_shape"] = _hold_l1_at(l1_calls, gen)
+                results["census_first_call"] = {
+                    "all-to-all": len(census["all-to-all"]), "all_to_all_bytes": payload,
+                    "all-gather": len(census["all-gather"]), "all-reduce": len(census["all-reduce"]),
+                    "all_reduce_bytes": census["all-reduce"][0], "steps": 2 * spc}
+            else:
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    fn(*held, st, key)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+                counts = read_counts()
+                expect_counts(f"mesh nccl replay {call}", counts, {})
+            free(*other, st, key)
+            torch.cuda.synchronize()
+            fn._eager(*eager, st, key.cuda())
+            torch.cuda.synchronize()
+            bits = [torch.equal(g, e) for (_, g), (_, e) in zip(
+                trainer._leaves({"p": held[0], "s": held[1]}),
+                trainer._leaves({"p": eager[0], "s": eager[1]}))]
+            if not all(bits):
+                raise AssertionError(f"mesh nccl call {call}: graph and eager differ")
+            # Against the mesh-free call, within the dense gate, after each call.
+            errs = _mesh_gate(f"mesh nccl call {call} vs no mesh", held, other,
+                              _touched_device(dev, key, spc), DENSE_RTOL)
+            results["replays"].append({"call": call, "bitwise_vs_eager": True, "vs_no_mesh": errs})
+            say("mesh", f"NCCL 1 rank call {call} ({'replay' if call else 'eager, then capture'}):"
+                f" equal to its eager steps bit for bit; vs the call without a mesh max|err|"
+                f" {max(errs.values()):.3g} (dense gate {DENSE_RTOL}); wrapper launches"
+                f" {dict((k, v) for k, v in counts.items() if v)}")
+        say("mesh", f"NCCL 1 rank census of the first call (eager + capture, {2 * spc} steps):"
+            f" {results['census_first_call']}")
+        timed: Dict[str, list] = {}
+        for name in ("mesh", "no mesh", "no mesh", "mesh"):
+            call = fn if name == "mesh" else free
+            args = held if name == "mesh" else other
+            call(*args, st, dev.next_key(50))
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for i in range(MESH_TIMED_CALLS):
+                call(*args, st, dev.next_key(51 + i))
+            torch.cuda.synchronize()
+            timed.setdefault(name, []).append(
+                (time.perf_counter() - t) / (MESH_TIMED_CALLS * spc) * 1e3)
+        results["ms_per_step"] = timed
+        say("mesh", f"NCCL 1 rank, device-sampled spc {spc} ({smi}): {timed['mesh'][0]:.4f} /"
+            f" {timed['mesh'][1]:.4f} ms per step over the mesh, {timed['no mesh'][0]:.4f} /"
+            f" {timed['no mesh'][1]:.4f} without ({MESH_TIMED_CALLS} calls per set); NCCL at"
+            " one rank, no measure of NCCL across cards")
+        if profile:
+            for name, call, args in (("mesh", fn, held), ("no_mesh", free, other)):
+                results.setdefault("profile", {})[name] = profile_run(
+                    lambda: [call(*args, st, dev.next_key(200 + i)) for i in range(2)],
+                    2 * spc, f"mesh_nccl_{name}_trace.json")
+        return results
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def _touched_device(dev: DeviceBatchSampler, key: torch.Tensor, spc: int) -> torch.Tensor:
+    """The logical rows that the steps of one device-sampled call gather
+    (one shard)."""
+    cpu = dev.state("cpu")
+    keys = split_key(key, spc) if spc > 1 else key[None]
+    batches = [dev.sample(cpu, k) for k in keys]
+    return torch.unique(torch.cat([b[k].reshape(-1).long() for b in batches
+                                   for k in ("head", "tail", "negative")]))
+
+
+def _mesh_gate(what: str, got: tuple, want: tuple, rows: torch.Tensor, rtol: float) -> dict:
+    """The sparse form's (params, state) against another's (the relation
+    table, its momentum and the entity rows ``rows``, params and momentum)
+    within rtol x (|want| + max|want|), each param also with lr x |m_got −
+    m_want| (the step moved it by lr·m). Returns each array's max |err|."""
+    errs = {}
+    for name, g, w, extra in _sparse_arrays(got, want, rows, LR):
+        err = (g - w).abs()
+        tol = rtol * (w.abs() + w.abs().max()) + extra
+        if not (err <= tol).all() or not torch.isfinite(g).all():
+            raise AssertionError(f"{what}: {name} off by {err.max().item()}")
+        errs[name] = err.max().item()
+    return errs
+
+
+#: The constants a rank of the mesh phase reads, passed from the parent (so
+#: that a shrunk CPU rehearsal shrinks its ranks too).
+_MESH_CONFIG = ("N_ENTITY", "N_RELATION", "DIM", "N_TRIPLE", "SHARD_BS_TRAIN", "BPS", "N_NEGATIVE",
+                "MESH_RANKS", "MESH_QUERIES", "MESH_TOPK_REPEATS", "MESH_TIMED_STEPS",
+                "MESH_FIT_TRIPLES", "N_REFERENCE")
+
+
+def _mesh_rank(tmp: str, config: dict, device: str) -> dict:
+    """One of MESH_RANKS ranks sharing the card over gloo, at full wikikg2
+    width: one host-fed step held against the same step on CPU gloo ranks
+    from copies of one state, timed steps, top-k against all entities held
+    against a full-table reference, Trainer.fit, and a sharded checkpoint
+    saved and loaded back bit for bit. ``device`` "cpu" rehearses it with
+    the plain versions and without the launch gates."""
+    globals().update(config)
+    n = MESH_RANKS
+    rank = torch.distributed.get_rank()
+    on_card = device == "cuda"
+    card = make_shard_mesh(n, devices=[device] * n, backend="gloo")
+    host = make_shard_mesh(n, devices=["cpu"] * n, backend="gloo")
+    out: Dict[str, object] = {"rank": rank}
+
+    triples, score_fn, module, sampler, pts = _mesh_module(n)
+    *_, cpu_module, _, _ = _mesh_module(n)
+    # The rank's block of the initial tables, drawn on the card: the rows of
+    # the one-process draw of the global table.
+    params = score_fn.initial_params_device(card, generator=torch.Generator(device).manual_seed(SEED))
+    whole = score_fn.initial_params_device(device=device,
+                                           generator=torch.Generator(device).manual_seed(SEED))
+    rows = out["rows_per_block"] = module.sharding.max_entity_per_shard
+    if not (torch.equal(params["entity_embedding"],
+                        whole["entity_embedding"][rank * rows:(rank + 1) * rows])
+            and torch.equal(params["relation_embedding"], whole["relation_embedding"])):
+        raise AssertionError(f"rank {rank}: its initial block is not the global draw's")
+
+    # Top-k against all entities over the 4 blocks (B7 chunk merge).
+    rng = np.random.default_rng(SEED)
+    heads = rng.integers(N_ENTITY, size=MESH_QUERIES).astype(np.int32)
+    rels = rng.integers(N_RELATION, size=MESH_QUERIES).astype(np.int32)
+    dataset = KGDataset(n_entity=N_ENTITY, n_relation_type=N_RELATION,
+                        triples={"test": np.zeros((1, 3), np.int32)},
+                        original_triple_ids={"test": np.arange(1)})
+    qpts = PartitionedTripleSet.create_from_queries(dataset, module.sharding,
+                                                    np.stack([heads, rels], 1), "hr")
+    ns = PlaceholderNegativeSampler(corruption_scheme="t", seed=SEED)
+    qsampler = RigidShardedBatchSampler(qpts, ns, shard_bs=MESH_QUERIES // n, batches_per_step=1,
+                                        seed=SEED)
+    qbatches = [qsampler.sample_batch(b) for b in qsampler.epoch_index_blocks(shuffle=False)]
+    # fp32 scoring, as the serving phase serves.
+    topk = TopKQueryBessKGE(k=K, candidate_sampler=ns, return_scores=True, axis_name="shard",
+                            score_fn=TransE(True, 1, module.sharding, N_RELATION, DIM, seed=SEED))
+    fwd = build_topk_forward(topk, card)
+    reset_counts()
+    census = collective_census(fwd, params, qbatches[0], mesh=card)
+    sync(device)
+    topk_counts = read_counts()
+    windows = -(-rows // topk.window_size)
+    if on_card:
+        expect_counts(f"mesh rank {rank} top-k batch", topk_counts, {"l1_scores_chunkmax": windows})
+    if (len(census["all-gather"]), len(census["all-to-all"]), len(census["all-reduce"])) != (2, 2, 0):
+        raise AssertionError(f"rank {rank}: top-k census {census}")
+    got = fwd(params, qbatches[0])
+    # The full-table reference of the rank's first N_REFERENCE queries.
+    table, rel = whole["entity_embedding"], whole["relation_embedding"]
+    h = torch.from_numpy(rank * rows + qbatches[0]["head"][0, rank, :N_REFERENCE].astype(np.int64))
+    r = torch.from_numpy(qbatches[0]["relation"][0, rank, :N_REFERENCE].astype(np.int64))
+    ref = -l1_kernels.l1_distance_matrix_plain(table[h.to(device)] + rel[r.to(device)], table)
+    real = torch.from_numpy((np.arange(rows)[None, :] < module.sharding.shard_counts[:, None])
+                            .reshape(-1)).to(device)
+    ref = torch.where(real, ref, torch.full_like(ref, -float("inf")))
+    ref_top, ref_pos = torch.topk(ref, K + 1, dim=1)
+    s2e = torch.from_numpy(module.sharding.shard_and_idx_to_entity.reshape(-1)).to(device)
+    ref_ids = s2e[ref_pos[:, :K]].long()
+    del ref
+    ids = got["topk_global_id"][0, 0, :N_REFERENCE].long()
+    scores = got["topk_scores"][0, 0, :N_REFERENCE]
+    torch.testing.assert_close(scores, ref_top[:, :K], rtol=RTOL, atol=ATOL)
+    sure = (ref_top[:, K - 1] - ref_top[:, K]) > ATOL
+    if not (ids.sort(1).values == ref_ids.sort(1).values).all(1)[sure].all():
+        raise AssertionError(f"rank {rank}: top-{K} IDs differ from the full-table reference")
+    sync(device)
+    t = time.perf_counter()
+    for b in qbatches * MESH_TOPK_REPEATS:
+        fwd(params, b)
+    sync(device)
+    out["topk"] = {"ms_per_batch": (time.perf_counter() - t) / (len(qbatches) * MESH_TOPK_REPEATS)
+                   * 1e3, "launches_per_batch": topk_counts, "census": {
+                       k: len(census[k]) for k in ("all-gather", "all-to-all", "all-reduce")},
+                   "sure": int(sure.sum()), "window": topk.window_size}
+
+    # One host-fed step on the card against the same step on the CPU.
+    sgd, row = optim.SGD(LR, momentum=MOMENTUM), optim.RowSGDM(LR, momentum=MOMENTUM,
+                                                               interleaved=True)
+    params["entity_embedding"] = row.widen_table(params["entity_embedding"])
+    state = trainer.init_optimizer_state(sgd, params, card, row, n_logical=n * rows)
+    cpu = (_to(params, "cpu"), _to(state, "cpu"))
+    step = trainer.build_train_step(module, sgd, card, row, device=device)
+    cpu_step = trainer.build_train_step(cpu_module, sgd, host, row, device="cpu")
+    blocks = sampler.epoch_index_blocks(True)
+    batch = sampler.sample_batch(next(blocks))
+    reset_counts()
+    census, l1_calls = _l1_calls(lambda: collective_census(step, params, state, batch, mesh=card))
+    sync(device)
+    step_counts = read_counts()
+    if on_card:
+        expect_counts(f"mesh rank {rank} step", step_counts, {
+            "l1_distance_matrix": 2 * BPS, "l1_distance_grads": 2 * BPS, "scatter_rows": 1})
+        # B5 and B6 at the shapes this step gave them, after its counts.
+        out["l1_at_path_shape"] = _hold_l1_at(
+            l1_calls, torch.Generator(device).manual_seed(SEED + rank))
+    ppp = SHARD_BS_TRAIN // n
+    payload = n * (ppp + 2 * N_NEGATIVE) * DIM * 2  # bf16 rows
+    if (census["all-to-all"] != [payload] * (2 * BPS) or census["all-gather"]
+            or len(census["all-reduce"]) != 1 or census["all-reduce"][0] >= rows * DIM * 4):
+        raise AssertionError(f"rank {rank}: step census {census}")
+    t = time.perf_counter()
+    cpu_step(*cpu, batch)
+    cpu_s = time.perf_counter() - t
+    errs = _mesh_gate(f"mesh rank {rank} step vs the CPU", (params, state), cpu,
+                      _touched(batch, rank), BF16_STEP_RTOL)
+    out["step"] = {"vs_cpu": errs, "cpu_s": cpu_s, "launches": step_counts, "census": {
+        "all-to-all": len(census["all-to-all"]), "all_to_all_bytes": payload,
+        "all-gather": 0, "all-reduce": 1, "all_reduce_bytes": census["all-reduce"][0]}}
+    del cpu
+    batches = [sampler.sample_batch(next(blocks)) for _ in range(MESH_TIMED_STEPS)]
+    ms = []
+    for _ in range(2):
+        sync(device)
+        t = time.perf_counter()
+        for b in batches:
+            _, _, o = step(params, state, b)
+        sync(device)
+        ms.append((time.perf_counter() - t) / len(batches) * 1e3)
+    out["step"]["ms_per_step"] = ms
+    out["step"]["loss"] = float(o["loss"])
+
+    # A device-sampled call over the gloo mesh: it runs uncaptured, as the
+    # step says; each rank draws the global batch and keeps its column.
+    dev = DeviceBatchSampler(pts, module.negative_sampler, shard_bs=SHARD_BS_TRAIN,
+                             batches_per_step=BPS, seed=SEED, positive_mode="runs")
+    dev_state = dev.state(device)
+    call = trainer.build_device_train_step(module, sgd, dev, card, row, device=device)
+    if on_card and (call._graph is not None or not call.uncaptured):
+        raise AssertionError(f"rank {rank}: a gloo call must run uncaptured and say so")
+    _, _, o = call(params, state, dev_state, dev.next_key(0))
+    sync(device)
+    t = time.perf_counter()
+    for i in range(MESH_TIMED_STEPS):
+        _, _, o = call(params, state, dev_state, dev.next_key(1 + i))
+    sync(device)
+    if not np.isfinite(float(o["loss"])):
+        raise AssertionError(f"rank {rank}: device-sampled call loss {float(o['loss'])}")
+    out["device_call"] = {"uncaptured": call.uncaptured, "graph": call._graph is not None,
+                          "ms_per_step": (time.perf_counter() - t) / MESH_TIMED_STEPS * 1e3}
+
+    # Trainer.fit over a few steps, saved sharded and loaded back.
+    fit_module, fit_sampler, _ = _training_setup(triples[:MESH_FIT_TRIPLES], module.sharding,
+                                                 score_fn, "shard")
+    fit = trainer.Trainer(fit_module, fit_sampler, sgd, card, params=shard_params(whole, card),
+                          entity_optimizer=row)
+    del whole
+    summary = fit.fit(n_epochs=1, log_every=1)
+    out["fit"] = {"steps": summary["steps"], "losses": [r["loss"] for r in fit.history],
+                  "relation": fit.params["relation_embedding"].cpu().numpy()}
+    path = Path(tmp) / "mesh_ckpt"
+    t = time.perf_counter()
+    fit.save(str(path), step=summary["steps"], sharded=True)
+    save_s = time.perf_counter() - t
+    t = time.perf_counter()
+    lp, ls, lsh, meta = checkpoint.load_checkpoint_sharded(path, card, like=fit.opt_state)
+    load_s = time.perf_counter() - t
+    if lsh.n_shard != n or meta["step"] != summary["steps"]:
+        raise AssertionError(f"rank {rank}: checkpoint {meta}, {lsh.n_shard} shards")
+    same = _same_tree(f"mesh rank {rank} checkpoint", {"p": lp, "s": ls},
+                      {"p": trainer._tree_map(lambda v: v.cpu(), fit.params),
+                       "s": trainer._tree_map(lambda v: v.cpu(), fit.opt_state)})
+    out["checkpoint"] = {"arrays_equal": same, "save_s": save_s, "load_s": load_s}
+    return out
+
+
+def mesh_phase(gen: torch.Generator, smi: str = "", device: str = "cuda",
+               profile: bool = False) -> dict:
+    """The BESS scheme over a mesh of ranks on the one card: the NCCL path
+    at one rank (captured in the call's CUDA graph), and MESH_RANKS ranks
+    sharing the card over gloo at full wikikg2 width. No time here measures
+    NCCL across cards. ``device`` "cpu" rehearses the gloo ranks (with the
+    constants of this module, shrunk) and leaves out the NCCL rank;
+    ``profile`` traces two calls of the NCCL rank and of the mesh-free
+    call."""
+    t0 = time.perf_counter()
+    nccl = None
+    with tempfile.TemporaryDirectory() as tmp:
+        if device == "cuda":
+            nccl = _mesh_nccl(gen, Path(tmp), smi, profile)
+            say("mesh", f"NCCL 1 rank done ({time.perf_counter() - t0:.1f}s)")
+        t = time.perf_counter()
+        config = {name: globals()[name] for name in _MESH_CONFIG}
+        ranks = _spawn(_mesh_rank, MESH_RANKS, (tmp, config, device), backend="gloo",
+                       timeout=MESH_TIMEOUT_S)
+        say("mesh", f"{MESH_RANKS} gloo ranks sharing the card done"
+            f" ({time.perf_counter() - t:.1f}s, processes included)")
+    rel = ranks[0]["fit"]["relation"]
+    if not all(np.array_equal(r["fit"]["relation"], rel) and
+               r["fit"]["losses"] == ranks[0]["fit"]["losses"] for r in ranks):
+        raise AssertionError("mesh Trainer.fit: the replicated params differ between ranks")
+    if not all(np.isfinite(ranks[0]["fit"]["losses"])) or ranks[0]["fit"]["steps"] < 1:
+        raise AssertionError(f"mesh Trainer.fit: {ranks[0]['fit']}")
+    for r in ranks:
+        say("mesh", f"gloo rank {r['rank']} of {MESH_RANKS} on one card ({smi}): step vs the CPU"
+            f" ranks max|err| {max(r['step']['vs_cpu'].values()):.3g} (sparse gate), CPU step"
+            f" {r['step']['cpu_s']:.1f}s; {r['step']['ms_per_step'][0]:.2f} /"
+            f" {r['step']['ms_per_step'][1]:.2f} ms per host-fed step; top-{K} of"
+            f" {MESH_QUERIES} queries over {N_ENTITY} entities {r['topk']['ms_per_batch']:.2f} ms"
+            f" per batch, {r['topk']['sure']} of {N_REFERENCE} held to the full-table reference;"
+            f" checkpoint round trip bit for bit ({r['checkpoint']['arrays_equal']} arrays,"
+            f" save {r['checkpoint']['save_s']:.1f}s, load {r['checkpoint']['load_s']:.1f}s)")
+    if device == "cuda":
+        for where, held in (("NCCL 1 rank", nccl["l1_at_path_shape"]),
+                            (f"gloo rank 0 of {MESH_RANKS}", ranks[0]["l1_at_path_shape"])):
+            say("mesh", f"{where}: B5 at {held['l1_distance_matrix']['shapes']} max|err|"
+                f" {held['l1_distance_matrix']['max_abs_err']:.3g}, B6 at"
+                f" {held['l1_distance_grads']['shapes']} max|err|"
+                f" {held['l1_distance_grads']['max_abs_err']:.3g}, against their plain versions"
+                " (ties planted), at the shapes the step gave them")
+    say("mesh", f"gloo device-sampled call (steps_per_call 1): a CUDA graph:"
+        f" {ranks[0]['device_call']['graph']}, uncaptured: {ranks[0]['device_call']['uncaptured']};"
+        f" {', '.join(format(r['device_call']['ms_per_step'], '.2f') for r in ranks)} ms per step"
+        f" by rank ({smi}, gloo on one card)")
+    say("mesh", f"Trainer.fit over {ranks[0]['fit']['steps']} steps: loss"
+        f" {ranks[0]['fit']['losses'][0]:.3f} -> {ranks[0]['fit']['losses'][-1]:.3f}, replicated"
+        f" params equal bit for bit on every rank; per-rank census of a step"
+        f" {ranks[0]['step']['census']}, of a top-k batch {ranks[0]['topk']['census']}"
+        f" ({time.perf_counter() - t0:.1f}s)")
+    for r in ranks:
+        del r["fit"]["relation"]
+    return {"nccl_1_rank": nccl, "gloo_ranks": ranks}
+
+
 def profile_steps(step, params, state, batches, trace: str) -> dict:
     """Device time by kernel and the device's busy share over a few host-fed
     steps (``torch.profiler``); the trace goes to chiprun_out/."""
@@ -4008,7 +4503,7 @@ def ptxas_report(names=("l1_distance", "dense_adamw")) -> None:
                 raise AssertionError(f"{k['name']} spills {k['spills']}")
 
 
-PHASES = ("training", "dense", "device", "packed", "yago", "scorers", "eval", "conve")
+PHASES = ("training", "dense", "device", "packed", "yago", "scorers", "eval", "conve", "mesh")
 
 
 def profiled_phases(argv) -> set:
@@ -4077,6 +4572,24 @@ def main() -> int:
     eval_run = eval_phase(gen, profile="eval" in profile, smi=smi)
     torch.cuda.empty_cache()
     conve_run = conve(gen, profile="conve" in profile, smi=smi)
+    torch.cuda.empty_cache()
+    mesh_run = mesh_phase(gen, smi=smi, profile="mesh" in profile)
+    nccl, gloo = mesh_run["nccl_1_rank"], mesh_run["gloo_ranks"]
+    for name in KERNELS:
+        results[name]["launches_mesh"] = {
+            "nccl_1_rank_first_call": nccl["first_call_wrapper_launches"].get(name, 0),
+            "nccl_1_rank_steps_in_first_call": 2 * WIKIKG2_SPC,
+            "gloo_4_ranks_step_per_rank": [r["step"]["launches"][name] for r in gloo],
+            "gloo_4_ranks_topk_batch_per_rank": [r["topk"]["launches_per_batch"][name]
+                                                 for r in gloo]}
+    # B5 and B6 held against their plain versions at the mesh paths' shapes.
+    for name in _L1_PATH:
+        held = [nccl["l1_at_path_shape"][name]] + [r["l1_at_path_shape"][name] for r in gloo]
+        err = max(h["max_abs_err"] for h in held)
+        results[name]["launches_mesh"]["held_at_the_path_shape"] = {
+            "nccl_1_rank": held[0]["shapes"], "gloo_4_ranks": held[1]["shapes"],
+            "max_abs_err": err}
+        results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
     results["dense_adamw_update"]["launches_yago"] = {
         "host_step": yago_run["host_step_launches"],
         "first_device_call": yago_run["device"]["first_call_wrapper_launches"],
@@ -4131,7 +4644,7 @@ def main() -> int:
         if "library_kernel_ms" in r:
             entry["library_kernel_ms"] = r["library_kernel_ms"]
         for key in ("launches_yago", "launches_scorers", "launches_eval", "launches_conve",
-                    "conve_shape"):
+                    "conve_shape", "launches_mesh"):
             if key in r:
                 entry[key] = r[key]
         if "allscores_shape" in r:  # B5 at the all-scores window's shape too
@@ -4229,6 +4742,25 @@ def main() -> int:
         "conv_cost": conve_run["conv_cost"],
         "deviations": ["one shard", "random triples standing for YAGO3-10's 1,079,040",
                        "all-scores over 20,000 entities"],
+        "card": smi}}), flush=True)
+    print(json.dumps({"mesh": {
+        "nccl_1_rank": {"ms_per_step": nccl["ms_per_step"], "steps_per_call": WIKIKG2_SPC,
+                        "census_first_call": nccl["census_first_call"],
+                        "vs_no_mesh": [r["vs_no_mesh"] for r in nccl["replays"]],
+                        "replays_bitwise_equal_to_eager": all(
+                            r["bitwise_vs_eager"] for r in nccl["replays"])},
+        "gloo_ranks_on_one_card": {
+            "ranks": MESH_RANKS, "rows_per_block": gloo[0]["rows_per_block"],
+            "ms_per_step": [r["step"]["ms_per_step"] for r in gloo],
+            "topk_ms_per_batch": [r["topk"]["ms_per_batch"] for r in gloo],
+            "topk_queries_per_batch": MESH_QUERIES,
+            "step_vs_cpu": [r["step"]["vs_cpu"] for r in gloo],
+            "step_census": gloo[0]["step"]["census"], "topk_census": gloo[0]["topk"]["census"],
+            "device_call_uncaptured": gloo[0]["device_call"]["uncaptured"],
+            "device_call_ms_per_step": [r["device_call"]["ms_per_step"] for r in gloo],
+            "fit_steps": gloo[0]["fit"]["steps"], "fit_losses": gloo[0]["fit"]["losses"],
+            "checkpoint": [r["checkpoint"] for r in gloo]},
+        "note": "gloo ranks share one card: no time here measures NCCL across cards",
         "card": smi}}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

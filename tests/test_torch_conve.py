@@ -390,7 +390,7 @@ def test_raises_where_the_jax_package_does():
 
 def test_sync_batch_norm_is_the_identity_on_one_device():
     """sync_batch_norm=True without a mesh axis normalises as without it;
-    over a mesh it waits on ROADMAP A15."""
+    over a mesh it waits on ROADMAP A15b."""
     sync, plain = conve("port", sync_batch_norm=True), conve("port")
     pp = to_port(random_params(conve("jax")))
     head, rel, tail, _ = inputs()

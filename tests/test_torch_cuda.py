@@ -581,7 +581,7 @@ def test_dense_adamw_corrections_match_plain(cuda, t, count_dtype):
 # AdamW param, lr x the difference of m^/(v^1/2 + eps) of the two sides.
 
 
-def _device_setup(device, form, spc, typed=False, hrt=False, donate=True):
+def _device_setup(device, form, spc, typed=False, hrt=False, donate=True, mesh=None):
     n_entity, n_rel = 3000, 13
     rng = np.random.default_rng(0)
     triples = np.stack([rng.integers(n_entity, size=6000), rng.integers(n_rel, size=6000),
@@ -597,7 +597,8 @@ def _device_setup(device, form, spc, typed=False, hrt=False, donate=True):
         score_fn.compute_dtype = torch.bfloat16
         ns = RandomShardedNegativeSampler(32, sharding, 0, "ht", False, flat_negative_format=True)
         module = bess.EmbeddingMovingBessKGE(
-            ns, score_fn, loss.SampledSoftmaxCrossEntropyLoss(n_entity), augment_negative=True)
+            ns, score_fn, loss.SampledSoftmaxCrossEntropyLoss(n_entity), augment_negative=True,
+            axis_name=None if mesh is None else "shard")
         opt, ent = optim.SGD(0.05, momentum=0.9), optim.RowSGDM(0.05, momentum=0.9,
                                                                  interleaved=True)
     else:
@@ -614,8 +615,9 @@ def _device_setup(device, form, spc, typed=False, hrt=False, donate=True):
     if form == "sparse":
         params["entity_embedding"] = optim.interleave_momentum(params["entity_embedding"])
     params = {k: v.to(device) for k, v in params.items()}
-    state = trainer.init_optimizer_state(opt, params, None, ent, n_logical=n_entity)
-    fn = trainer.build_device_train_step(module, opt, dev, None, ent, donate, spc, device)
+    state = trainer.init_optimizer_state(opt, params, mesh, ent, n_logical=n_entity)
+    fn = trainer.build_device_train_step(module, opt, dev, mesh, ent, donate, spc,
+                                         device if mesh is None else None)
     return fn, params, state, dev
 
 
@@ -1220,3 +1222,43 @@ def test_conve_device_call_replays_equal_eager(cuda):
             assert torch.equal(g, e), (call, name)
     kernels = device_kernels(lambda: fn(params, state, sampler_state, dev.next_key(9), 9), 1)
     assert sum(c for name, (_, c) in kernels.items() if "dense_adamw_kernel" in name) == spc
+
+
+def test_one_rank_nccl_call_captures_its_collectives(cuda, tmp_path):
+    """The sparse device-sampled call over a one-rank NCCL mesh is one CUDA
+    graph with its collectives: the first call records 2 x bps all-to-alls
+    and one all-reduce per step in its warm-up and again in its capture, a
+    replay records none; each call equals its eager steps bit for bit and
+    the same call without a mesh within 1e-5 x (|want| + max|want|)."""
+    from besskge_tpu_torch.parallel import make_shard_mesh, multihost
+    from besskge_tpu_torch.parallel.census import collective_summary
+
+    multihost.initialize(f"file://{tmp_path / 'store'}", 1, 0, backend="nccl")
+    try:
+        mesh = make_shard_mesh(1)
+        assert mesh.backend == "nccl" and mesh.capturable
+        spc, bps = 2, 4
+        fn, params, state, dev = _device_setup(cuda, "sparse", spc, mesh=mesh)
+        free, _, _, _ = _device_setup(cuda, "sparse", spc)
+        assert fn.uncaptured is None and fn._graph is not None
+        sampler_state = dev.state(cuda)
+        for call in range(3):
+            key = dev.next_key(call)
+            eager = (trainer._clone(params), trainer._clone(state))
+            other = (trainer._clone(params), trainer._clone(state))
+            counts = collective_summary(fn, params, state, sampler_state, key, mesh=mesh)
+            runs = 2 if call == 0 else 0  # the warm-up and the capture; a replay none
+            assert counts["all-to-all"] == runs * spc * 2 * bps, counts
+            assert counts["all-reduce"] == runs * spc and counts["all-gather"] == 0, counts
+            fn._eager(*eager, sampler_state, key.to(cuda))
+            free(*other, sampler_state, key)
+            torch.cuda.synchronize()
+            for (name, g), (_, e), (_, o) in zip(
+                    trainer._leaves({"p": params, "s": state}),
+                    trainer._leaves({"p": eager[0], "s": eager[1]}),
+                    trainer._leaves({"p": other[0], "s": other[1]})):
+                assert torch.equal(g, e), (call, name)
+                if g.is_floating_point():
+                    assert ((g - o).abs() <= 1e-5 * (o.abs() + o.abs().max())).all(), (call, name)
+    finally:
+        torch.distributed.destroy_process_group()

@@ -333,12 +333,13 @@ def test_donate_and_outputs():
 
 
 def test_unported_device_step_options_raise():
-    """A mesh raises (ROADMAP A15). A dropout key, ported with ConvE (A11),
-    changes nothing for a scorer without dropout: the same bits as without
-    one."""
+    """A mesh is ported (ROADMAP A15a, tests/test_torch_mesh.py): one that
+    is not a ShardMesh raises, and so does a mesh for a module without
+    ``axis_name``. A dropout key, ported with ConvE (A11), changes nothing
+    for a scorer without dropout: the same bits as without one."""
     score_fn, module, dev = _setup(PORT, "dense")
     opt = port_optim.AdamW(LR_DENSE)
-    with pytest.raises(NotImplementedError, match="A15"):
+    with pytest.raises(TypeError, match="ShardMesh"):
         port_trainer.build_device_train_step(module, opt, dev, "mesh", device="cpu")
     step = port_trainer.build_device_train_step(module, opt, dev, device="cpu")
     params = score_fn.initial_params(device="cpu")

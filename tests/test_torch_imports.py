@@ -25,7 +25,9 @@ def test_port_imports_without_jax():
     modules = ["besskge_tpu_torch", *_port_modules()]
     for name in ("bess", "native", "trainer", "optim", "loss", "scoring", "utils", "embedding",
                  "convert", "checkpoint", "ops.distance", "ops.l1_kernels", "ops.row_kernels",
-                 "ops.adamw_kernels", "eval_loop", "pipeline", "dataset", "negative_sampler"):
+                 "ops.adamw_kernels", "eval_loop", "pipeline", "dataset", "negative_sampler",
+                 "parallel", "parallel.mesh", "parallel.collectives", "parallel.census",
+                 "parallel.multihost"):
         assert f"besskge_tpu_torch.{name}" in modules, name
     code = (
         "import importlib, sys\n"

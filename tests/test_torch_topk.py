@@ -219,11 +219,15 @@ def test_entry_points_default_to_cuda_and_refuse_a_mesh(monkeypatch):
         fn.initial_params()
     with pytest.raises(RuntimeError, match="CUDA"):
         params_from_jax({"x": np.zeros(3, np.float32)})
-    with pytest.raises(NotImplementedError, match="A15"):
+    # Top-k over a mesh is ported (tests/test_torch_mesh.py): a mesh must be
+    # a ShardMesh, a module over one needs it, and one without needs one shard.
+    with pytest.raises(TypeError, match="ShardMesh"):
         port_bess.build_topk_forward(topk, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="A15"):
-        port_bess.TopKQueryBessKGE(k=5, candidate_sampler=ns, score_fn=fn, axis_name="shard")
-    with pytest.raises(NotImplementedError, match="A15"):
+    over_mesh = port_bess.TopKQueryBessKGE(k=5, candidate_sampler=ns, score_fn=fn,
+                                           axis_name="shard")
+    with pytest.raises(ValueError, match="mesh is required"):
+        port_bess.build_topk_forward(over_mesh, device="cpu")
+    with pytest.raises(ValueError, match="n_shard == 1"):
         port_bess.TopKQueryBessKGE(
             k=5, candidate_sampler=ns,
             score_fn=port_scoring.TransE(True, 1, port_sh.Sharding.create(300, 2, seed=0), 3, 16),

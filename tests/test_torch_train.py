@@ -375,7 +375,8 @@ def test_unported_training_paths_raise():
     fn, module, sampler = _setup(PORT)
     sgd = port_optim.SGD(LR, momentum=0.9)
     row = port_optim.RowSGDM(LR, momentum=0.9, interleaved=True)
-    with pytest.raises(NotImplementedError, match="A15"):
+    # A mesh is ported (tests/test_torch_mesh.py); it must be a ShardMesh.
+    with pytest.raises(TypeError, match="ShardMesh"):
         port_trainer.build_train_step(module, sgd, "mesh", row, device="cpu")
     # The dense step is ported (tests/test_torch_dense_train.py); a packed
     # table cannot take its dense gradient.
@@ -384,9 +385,9 @@ def test_unported_training_paths_raise():
     packed = dict(plain, entity_embedding=plain["entity_embedding"].view(torch.int32))
     with pytest.raises(ValueError, match="packed"):
         dense(packed, port_trainer.init_optimizer_state(sgd, plain), _batches(sampler, 1)[0])
-    # Checkpoints are ported (tests/test_torch_checkpoint.py); loading one
-    # onto a mesh is not.
-    with pytest.raises(NotImplementedError, match="A15"):
+    # Checkpoints are ported (tests/test_torch_checkpoint.py), onto a mesh
+    # too (tests/test_torch_mesh.py), which must be a ShardMesh.
+    with pytest.raises(TypeError, match="ShardMesh"):
         port_checkpoint.load_checkpoint_sharded("ckpt", mesh="mesh")
     # Metrics in the forward are ported (tests/test_torch_eval.py): a module
     # with an evaluation no longer raises.
