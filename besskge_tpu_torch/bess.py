@@ -30,10 +30,10 @@ rank holds its block of the entity table and its column of each batch, and
 the collectives of :mod:`besskge_tpu_torch.parallel.collectives` cross the
 mesh, as ``shard_map`` runs the JAX package's modules. Over a mesh the micro-batches
 of a step run one after another (collectives cannot sit under
-``torch.func.vmap``), as the JAX package scans them. Ported over a mesh:
-:class:`EmbeddingMovingBessKGE` (training and :func:`build_bess_forward`) and
-:class:`TopKQueryBessKGE`; :class:`ScoreMovingBessKGE` and
-:class:`AllScoresBESS` raise there (ROADMAP A15b).
+``torch.func.vmap``), as the JAX package scans them. Every module runs over a
+mesh: the two :class:`BessKGE` forms (training and
+:func:`build_bess_forward`), :class:`TopKQueryBessKGE` and
+:class:`AllScoresBESS`.
 
 The entity table may be in any layout the optimizers keep: plain, pair- or
 treble-major fp32, row-pair-packed 16-bit, or its triplet or quintuplet
@@ -132,10 +132,6 @@ def _row_cap(t_flat: torch.Tensor, n_rows: int) -> int:
     return t_flat.shape[0]
 
 
-def _a15b(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} over a mesh is not ported yet (ROADMAP A15b)")
-
-
 class _Collectives:
     """The collectives of a module (``besskge_tpu/bess.py:164-180``): the
     identity with ``axis_name=None``, else over :attr:`mesh`, the mesh the
@@ -162,6 +158,10 @@ class _Collectives:
             return x[None]
         return collectives.all_gather(x, self._bound_mesh())
 
+    def _rank(self) -> int:
+        """This rank's shard index: 0 on one device (``jax.lax.axis_index``)."""
+        return 0 if self.axis_name is None else self._bound_mesh().rank
+
     def psum(self, x: Any) -> Any:
         """Sum a (tree of) per-rank value(s) over the mesh."""
         if self.axis_name is None:
@@ -177,8 +177,9 @@ def _check_axis(module: Any, axis_name: Optional[str]) -> None:
 def _bind_mesh(module: Any, mesh: Optional[ShardMesh]) -> None:
     """Bind ``module`` to ``mesh`` for its collectives (as ``shard_map``
     binds an axis name), or check that a module without a mesh needs none.
-    A module is bound to one mesh: binding it to another raises, since the
-    steps built before would move their collectives to the new group."""
+    A module and its score function are bound to one mesh: binding either
+    to another raises, since the steps built before would move their
+    collectives to the new group."""
     if mesh is None:
         if module.axis_name is not None:
             raise ValueError("A mesh is required unless axis_name is None")
@@ -193,7 +194,12 @@ def _bind_mesh(module: Any, mesh: Optional[ShardMesh]) -> None:
             f"the sharding has {module.sharding.n_shard} shards, the mesh {mesh.n_shard} ranks")
     if module.mesh is not None and module.mesh is not mesh:
         raise ValueError("the module is bound to another mesh: build one module per mesh")
+    if module.score_fn.mesh is not None and module.score_fn.mesh is not mesh:
+        raise ValueError(
+            "the score function is bound to another mesh: build one score function per mesh")
     module.mesh = mesh
+    # The score function's own collectives (ConvE's SyncBN) run over it too.
+    module.score_fn.mesh = mesh
 
 
 class BessKGE(_Collectives, ABC):
@@ -249,8 +255,6 @@ class BessKGE(_Collectives, ABC):
                 "Negative sample sharing cannot be used with non-flat triple-specific negatives"
             )
         _check_axis(self, axis_name)
-        if axis_name is not None and isinstance(self, ScoreMovingBessKGE):
-            raise _a15b("ScoreMovingBessKGE")
         # Let the score function reach mesh collectives (ConvE's SyncBN).
         score_fn.mesh_axis = axis_name
         self.entity_embedding_size: int = score_fn.entity_row_size
@@ -476,13 +480,15 @@ class ScoreMovingBessKGE(BessKGE):
     """Score negatives on the shard that stores them: queries are replicated
     with AllGathers, each shard scores its local negatives against all
     queries, and an AllToAll returns the scores (reference
-    ``besskge/bess.py:471-603``). On one device every collective is the
-    identity, and the arithmetic is the JAX package's: the positives that
-    the JAX package scores on the tail's home shard ("t", and the
+    ``besskge/bess.py:471-603``). The arithmetic is the JAX package's: the
+    positives that it scores on the tail's home shard ("t", and the
     tail-corrupted half of "ht") are packed into a trailing column of the
-    score block, go through the (identity) AllToAll with it and are summed
-    back out of it, so they are cast to the scores' dtype on the way, as
-    there. No local sampling or augmentation.
+    score block at this rank's rows, go through the AllToAll with it and
+    are summed back out of it, so they are cast to the scores' dtype on the
+    way, as there. On one device every collective is the identity and the
+    rank is 0. The gathered rows' gradients come back through the
+    AllGathers' backward (a reduce-scatter). No local sampling or
+    augmentation.
     """
 
     def score_batch(self, params, head, relation, tail, negative, train=False, rng=None,
@@ -509,45 +515,47 @@ class ScoreMovingBessKGE(BessKGE):
             # score one copy only.
             neg_emb = neg_emb[0:1]
 
-        # One device: the AllGathers add a unit query-shard axis, and this
-        # device is shard 0.
-        relation_all = relation[None]  # (S_q, S, ppp)
+        relation_all = self._all_gather(relation)  # (S_q, S, ppp)
+        my = self._rank()
         kw = {"train": train, "rng": rng}
         pos_local = None
         pos_col = None
 
         def home_pos_column(pos_home, col_offset, col_width):
             """Home-shard positives (S_dest, col_width) in the (S_dest, bs, 1)
-            ride-along column, at this device's block (rows ``col_offset`` on)."""
+            ride-along column, at this rank's block (rows ``my · ppp +
+            col_offset`` on)."""
             zeros = pos_home.new_zeros
+            start = my * ppp + col_offset
             return torch.cat([
-                zeros((n_shard, col_offset, 1)),
+                zeros((n_shard, start, 1)),
                 pos_home.reshape(n_shard, col_width, 1),
-                zeros((n_shard, bs - col_offset - col_width, 1)),
+                zeros((n_shard, bs - start - col_width, 1)),
             ], dim=1)
 
         if scheme == "h":
-            # (query shard, home shard, ...) order of the gathered tails.
-            tail_all = tail_emb[None].transpose(0, 1)
+            # Tails are host-pre-transposed: the gathered axis is the tails'
+            # home shard; swap to (query shard, home shard, ...) order.
+            tail_all = self._all_gather(tail_emb).transpose(0, 1)
             negative_score = self.score_fn.score_heads(
                 params, neg_emb.reshape(-1, n_neg, d), relation_all.reshape(-1),
                 tail_all.reshape(-1, d), **kw
             )
-            # This device's own tails sit at row 0 of the gathered tensor.
+            # This rank's own tails sit at row ``my`` of the gathered tensor.
             pos_local = self.score_fn.score_triple(
                 params, head_emb.reshape(bs, d), relation.reshape(bs),
-                tail_all[0].reshape(bs, d), **kw
+                tail_all[my].reshape(bs, d), **kw
             )
         elif scheme == "t":
-            head_all = head_emb[None]  # (S_q, S_home, ppp, d)
+            head_all = self._all_gather(head_emb)  # (S_q, S_home, ppp, d)
             negative_score = self.score_fn.score_tails(
                 params, head_all.reshape(-1, d), relation_all.reshape(-1),
                 neg_emb.reshape(-1, n_neg, d), **kw
             )
-            # Tails of every query device's block 0 live here; their heads
+            # Tails of every query rank's block ``my`` live here; their heads
             # and relations arrived with the AllGathers.
             pos_home = self.score_fn.score_triple(
-                params, head_all[:, 0].reshape(bs, d), relation_all[:, 0].reshape(bs),
+                params, head_all[:, my].reshape(bs, d), relation_all[:, my].reshape(bs),
                 tail_emb.reshape(bs, d), **kw
             )
             pos_col = home_pos_column(pos_home.reshape(n_shard, ppp), 0, ppp)
@@ -555,8 +563,8 @@ class ScoreMovingBessKGE(BessKGE):
             cut = ppp // 2
             rel1 = relation_all[:, :, :cut].reshape(-1)
             rel2 = relation_all[:, :, cut:].reshape(-1)
-            tail_all = tail_emb[:, :cut][None].transpose(0, 1)  # (S_q, S_home, cut, d)
-            head_all = head_emb[:, cut:][None]  # (S_q, S_home, ppp - cut, d)
+            tail_all = self._all_gather(tail_emb[:, :cut]).transpose(0, 1)  # (S_q, S_home, cut, d)
+            head_all = self._all_gather(head_emb[:, cut:])  # (S_q, S_home, ppp - cut, d)
             if flat:
                 neg_h = neg_emb[:, 0]
                 neg_t = neg_emb[:, 1]
@@ -573,24 +581,23 @@ class ScoreMovingBessKGE(BessKGE):
             # Head-corrupted half: own tails are in the gathered tensor.
             pos_local = self.score_fn.score_triple(
                 params, head_emb[:, :cut].reshape(-1, d), relation[:, :cut].reshape(-1),
-                tail_all[0].reshape(-1, d), **kw
+                tail_all[my].reshape(-1, d), **kw
             ).reshape(n_shard, cut)
             # Tail-corrupted half: scored here (the tails' home), shipped back.
             pos_home = self.score_fn.score_triple(
-                params, head_all[:, 0].reshape(-1, d), relation_all[:, 0][:, cut:].reshape(-1),
+                params, head_all[:, my].reshape(-1, d), relation_all[:, my][:, cut:].reshape(-1),
                 tail_emb[:, cut:].reshape(-1, d), **kw
             )
             pos_col = home_pos_column(pos_home.reshape(n_shard, ppp - cut), cut, ppp - cut)
         else:
             raise ValueError(f"Unsupported corruption scheme {scheme}")
 
-        # Scores back to the queries' device (source-shard-major columns),
-        # the home-scored positives in a trailing column; the AllToAll is
-        # the identity.
+        # Scores back to the queries' rank (source-shard-major columns), the
+        # home-scored positives in a trailing column.
         negative_score = negative_score.reshape(n_shard, bs, -1)
         if pos_col is not None:
             negative_score = torch.cat([negative_score, pos_col.to(negative_score.dtype)], dim=2)
-        negative_score = negative_score.transpose(0, 1)  # (bs, S_src, .)
+        negative_score = self._all_to_all(negative_score).transpose(0, 1)  # (bs, S_src, .)
         if pos_col is not None:
             # Each row's column is zero except at its tail's home shard.
             pos_recv = negative_score[..., -1].sum(dim=1)  # (bs,)
@@ -908,16 +915,19 @@ class TopKQueryBessKGE(_Collectives):
 
 
 class AllScoresBESS(_Collectives):
-    """Scores of (h, r, ?) / (?, r, t) queries against one window of the
-    entity table (reference ``besskge/bess.py:924-1062``), on one device (a
-    mesh: ROADMAP A15b);
+    """Scores of (h, r, ?) / (?, r, t) queries against one window of every
+    shard's entities (reference ``besskge/bess.py:924-1062``);
     :class:`besskge_tpu_torch.pipeline.AllScoresPipeline` stitches the
-    windows into the full score matrix. Inference only.
+    windows into the full score matrix. Inference only. Over a mesh the
+    queries' relations and known rows are all-gathered, each rank scores
+    every rank's queries against its window of its block, and one
+    all-to-all of the ``(n_shard, shard_bs, window)`` scores returns each
+    query's row of every shard's window.
 
     :param candidate_sampler: a :class:`PlaceholderNegativeSampler`.
     :param score_fn: scoring function, with sample sharing.
-    :param window_size: entities scored per call.
-    :param axis_name: must be ``None`` (one device; a mesh raises).
+    :param window_size: entities scored per shard per call.
+    :param axis_name: ``None`` (one device, ``n_shard == 1``) or ``"shard"``.
     """
 
     def __init__(
@@ -927,8 +937,6 @@ class AllScoresBESS(_Collectives):
         window_size: int = 1000,
         axis_name: Optional[str] = None,
     ) -> None:
-        if axis_name is not None:
-            raise _a15b("AllScoresBESS")
         self.sharding = score_fn.sharding
         self.score_fn = score_fn
         self.negative_sampler = candidate_sampler
@@ -940,8 +948,7 @@ class AllScoresBESS(_Collectives):
             raise ValueError("AllScoresBESS only supports 'h', 't' corruption")
         if not isinstance(candidate_sampler, PlaceholderNegativeSampler):
             raise ValueError("AllScoresBESS requires a PlaceholderNegativeSampler")
-        if self.sharding.n_shard != 1:
-            raise ValueError("axis_name=None requires n_shard == 1")
+        _check_axis(self, axis_name)
         self.entity_embedding_size = score_fn.entity_row_size
         self.n_step = -(-self.sharding.max_entity_per_shard // window_size)
 
@@ -953,8 +960,9 @@ class AllScoresBESS(_Collectives):
         head: Optional[torch.Tensor] = None,
         tail: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
-        """Scores (shard_bs, window) of this device's queries against window
-        ``step`` of the local entities.
+        """Scores (shard_bs, n_shard · window) of this rank's queries against
+        window ``step`` of every shard's local entities, the columns in
+        (shard, window position) order.
 
         The window is one contiguous read wherever it fits: the final window
         clamps its start, re-scoring a prefix of the previous window (the
@@ -965,8 +973,12 @@ class AllScoresBESS(_Collectives):
         """
         table = params["entity_embedding"]
         n_rows = self.sharding.max_entity_per_shard
+        n_shard = self.sharding.n_shard
+        shard_bs = relation.shape[0]
         scheme = self.negative_sampler.corruption_scheme
-        known = take_rows(table, tail if scheme == "h" else head, n_rows)
+        # Every rank's queries (the identity on one device).
+        relation = self._all_gather(relation).reshape(-1)
+        known = self._all_gather(take_rows(table, tail if scheme == "h" else head, n_rows))
         cd = self.score_fn.compute_dtype
         known = _cast_gathered(known.reshape(-1, self.entity_embedding_size), cd)
 
@@ -984,9 +996,8 @@ class AllScoresBESS(_Collectives):
             scores = self.score_fn.score_heads(params, emb, relation, known, train=False)
         else:
             scores = self.score_fn.score_tails(params, known, relation, emb, train=False)
-        # One shard: the AllToAll of the (n_shard, shard_bs, window) block is
-        # the identity.
-        return scores.reshape(relation.shape[0], w)
+        scores = self._all_to_all(scores.reshape(n_shard, shard_bs, w))
+        return scores.transpose(0, 1).reshape(shard_bs, n_shard * w)
 
 
 #: Batch keys that :meth:`BessKGE.forward` takes.
@@ -1116,19 +1127,15 @@ def build_bess_forward(
 
     ``batch`` is a batch-sampler dict of ``(bps, 1, ...)`` numpy arrays or
     tensors; ``params`` must already live on ``device`` (default ``cuda``).
-    Over a ``mesh`` (an :class:`EmbeddingMovingBessKGE` with
-    ``axis_name="shard"``) each rank calls the step with its params (its
+    Over a ``mesh`` (a module with ``axis_name="shard"``) each rank calls the step with its params (its
     table block, :func:`~besskge_tpu_torch.parallel.mesh.shard_params`) and
-    the global batch or its own column, on the mesh's device; a
-    :class:`ScoreMovingBessKGE` raises there (ROADMAP A15b).
+    the global batch or its own column, on the mesh's device.
 
     Outputs: ``loss`` () sum (over the mesh); ``positive_score`` (bps, 1,
     bs); ``negative_score`` (bps, 1, bs, n_col); ``ranks`` as the positive
     scores; ``metrics`` (bps, 1, n_metric) sums (sum reduction, over the
     mesh) or (bps, 1, n_metric, bs).
     """
-    if mesh is not None and isinstance(bess, ScoreMovingBessKGE):
-        raise _a15b("ScoreMovingBessKGE")
     device = _step_device(bess, mesh, device)
 
     def fn(params: Dict[str, torch.Tensor], batch: Dict[str, Any],
@@ -1195,17 +1202,17 @@ def build_allscores_forward(
     device: Optional[Union[str, torch.device]] = None,
 ) -> Callable[[Dict[str, torch.Tensor], Dict[str, Any], int], torch.Tensor]:
     """Build ``fn(params, batch, step) -> scores`` of window ``step``:
-    (bps, 1, shard_bs, window), the micro-batches one after another.
-    ``batch`` holds ``(bps, 1, ...)`` numpy arrays or tensors; ``params``
-    must already live on ``device`` (default ``cuda``). A mesh raises
-    (ROADMAP A15b)."""
-    if mesh is not None:
-        raise _a15b("build_allscores_forward")
-    device = resolve_device(device)
+    (bps, 1, shard_bs, n_shard · window), the micro-batches one after
+    another. ``batch`` holds ``(bps, 1, ...)`` numpy arrays or tensors
+    (over a ``mesh``, the global batch or the rank's column); ``params``
+    must already live on ``device`` (default ``cuda``; over a mesh, the
+    rank's params on the mesh's device)."""
+    device = _step_device(allscores, mesh, device)
 
     def fn(params: Dict[str, torch.Tensor], batch: Dict[str, Any], step: int) -> torch.Tensor:
         _check_device(params, device)
-        mbs = {k: v[:, 0] for k, v in _batch_tensors(batch, _ALLSCORES_KEYS, device).items()}
+        mbs = {k: v[:, 0]
+               for k, v in _batch_tensors(batch, _ALLSCORES_KEYS, device, mesh).items()}
         bps = mbs["relation"].shape[0]
         with torch.no_grad():
             outs = [allscores.forward(params, step, **{k: v[i] for k, v in mbs.items()})

@@ -7,6 +7,9 @@ and metric sums) but copies a BLOCK of steps to the device at once and runs
 it step by step with no host synchronisation inside it: the metric sums stay
 on the device until the block ends. The ragged final block is padded with
 steps whose ``triple_mask`` is all False, so every block has the same shape.
+Over a mesh every rank runs the same blocks on its params and its column of
+each step, and the metric sums leave the mesh as global sums, equal on every
+rank (the JAX package's ``shard_map`` of the block with ``out_specs=P()``).
 """
 
 from __future__ import annotations
@@ -22,9 +25,9 @@ from besskge_tpu_torch.bess import (
     _check_device,
     _device_step,
     _format_outputs,
-    _a15b,
+    _step_device,
 )
-from besskge_tpu_torch.utils import resolve_device
+from besskge_tpu_torch.parallel.mesh import ShardMesh
 
 __all__ = ["run_device_eval", "make_block_runner"]
 
@@ -43,10 +46,17 @@ def make_block_runner(
     :func:`besskge_tpu_torch.bess._device_step`, and nothing in the loop
     waits for the device. Exposed apart from :func:`run_device_eval` so
     that callers can stage blocks beforehand and time the device alone.
+
+    Over a ``mesh`` each rank calls it with its params and its own
+    ``(steps, bps, 1, ...)`` column of the block (as :func:`_stack_block`
+    stages it for the rank), on the mesh's device. Each step's metric sums go through the step's one all-reduce
+    (:func:`~besskge_tpu_torch.bess._format_outputs`), so the sums are
+    global and equal on every rank. With NCCL the loop still holds no host
+    synchronisation; on gloo every collective copies its CUDA tensors
+    through the host and the calling thread waits for it, so the loop waits
+    for the card at each AllGather, AllToAll and metric sum.
     """
-    if mesh is not None or bess.axis_name is not None:
-        raise _a15b("run_device_eval")
-    device = resolve_device(device)
+    device = _step_device(bess, mesh, device)
     n_metric = len(bess.evaluation.metrics)
 
     def run_block(params: Dict[str, torch.Tensor], block: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -63,16 +73,21 @@ def make_block_runner(
     return run_block
 
 
-def _stack_block(steps: list, steps_per_block: int, device: torch.device) -> Dict[str, torch.Tensor]:
+def _stack_block(steps: list, steps_per_block: int, device: torch.device,
+                 mesh: Optional[ShardMesh] = None) -> Dict[str, torch.Tensor]:
     """One block of forward batches (dicts of numpy arrays) as tensors on
     ``device``, stacked on a leading axis and padded to ``steps_per_block``
     with copies of the last step whose ``triple_mask`` is all False; one
-    copy per array."""
+    copy per array, of the rank's ``(steps, bps, 1, ...)`` column over a
+    ``mesh`` (the JAX package shards a block on axis 2)."""
     pad = steps_per_block - len(steps)
     steps = steps + [
         {k: (np.zeros_like(v) if k == "triple_mask" else v) for k, v in steps[-1].items()}
     ] * pad
-    return {k: torch.from_numpy(np.stack([s[k] for s in steps])).to(device) for k in steps[0]}
+    block = {k: np.stack([s[k] for s in steps]) for k in steps[0]}
+    if mesh is not None:
+        block = {k: v[:, :, mesh.rank : mesh.rank + 1] for k, v in block.items()}
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device) for k, v in block.items()}
 
 
 def run_device_eval(
@@ -90,7 +105,11 @@ def run_device_eval(
     :param params: model params on ``device`` (default ``cuda``).
     :param batch_sampler: a host batch sampler with a deterministic pass
         and a ``triple_mask`` output (``RigidShardedBatchSampler``).
-    :param mesh: must be ``None`` (one device; a mesh: ROADMAP A15b).
+    :param mesh: ``None`` (one device), or the rank's
+        :class:`~besskge_tpu_torch.parallel.mesh.ShardMesh`: every rank
+        calls it with its params (its block of the entity table), and
+        copies only its column of each block to its device. Every rank
+        returns the same global metrics.
     :param steps_per_block: steps per copy to the device (bounds the
         device-resident block to ``steps_per_block`` × per-step bytes).
     :return: ``(metrics dict averaged per query, n_queries)``.
@@ -100,7 +119,7 @@ def run_device_eval(
         raise ValueError("bess.evaluation is required for run_device_eval")
     if ev.reduction(torch.zeros((2,))).dim() != 0:
         raise ValueError('run_device_eval needs reduction="sum"')
-    device = resolve_device(device)
+    device = _step_device(bess, mesh, device)
     run_block = make_block_runner(bess, mesh, device)
     totals = np.zeros(len(ev.metrics), np.float64)
     n_queries = 0
@@ -109,7 +128,7 @@ def run_device_eval(
     def flush():
         nonlocal totals
         if buf:
-            block = _stack_block(buf, steps_per_block, device)
+            block = _stack_block(buf, steps_per_block, device, mesh)
             totals += run_block(params, block).cpu().numpy().astype(np.float64)
             buf.clear()
 

@@ -11,9 +11,17 @@ calls ``jax.lax.all_to_all``, ``all_gather`` and ``psum`` inside
   gradient: the transpose of a tiled axis-0 all-to-all is itself, so an
   entity row's gradient goes back to the rank that gathered it;
 * :func:`all_gather`: ``tiled=False``, stacking a new axis 0 of the ranks'
-  tensors; no gradient (the slice's paths gather only without one);
+  tensors. Differentiable: its backward is a reduce-scatter over the
+  stacked axis, each rank taking the sum over ranks of the cotangent's
+  slice at its own index (ScoreMoving gathers the queries' rows, whose
+  gradient comes back so). That is the transpose that ``jax.lax.all_gather``
+  has under ``shard_map(check_vma=False)``;
+* :func:`pmean`: the mean over ranks of a tensor (ConvE's SyncBN moments),
+  differentiable: its backward is the mean over ranks of the cotangent, as
+  ``jax.lax.pmean``'s transpose under ``check_vma=False``;
 * :func:`psum`: the sum over ranks of a tree of tensors, flattened into one
-  buffer per dtype, so that a tree of one dtype costs one ``all_reduce``.
+  buffer per dtype, so that a tree of one dtype costs one ``all_reduce``
+  (no gradient: the steps sum only gradients and metrics with it).
 
 Each goes through ``torch.distributed`` on the mesh's group, on the tensors'
 own device: NCCL on a card, gloo on the CPU or on a card (gloo takes CUDA
@@ -21,7 +29,10 @@ tensors in all three on torch 2.11 on the H100, so nothing is staged through
 the host). While :attr:`ShardMesh.recording` is a list, each call appends its
 kind, payload bytes (the bytes of its result on this rank, as the JAX
 package's census counts an HLO collective's result) and
-elements for :mod:`~besskge_tpu_torch.parallel.census`.
+elements for :mod:`~besskge_tpu_torch.parallel.census`; a backward records
+its own collective (``"all-to-all"``, ``"reduce-scatter"`` or
+``"all-reduce"``) when it runs. Top-k and the forwards run without a
+gradient and record none.
 """
 
 from __future__ import annotations
@@ -33,7 +44,7 @@ import torch.distributed as dist
 
 from besskge_tpu_torch.parallel.mesh import ShardMesh
 
-__all__ = ["all_to_all", "all_gather", "psum"]
+__all__ = ["all_to_all", "all_gather", "pmean", "psum"]
 
 
 def _record(mesh: ShardMesh, kind: str, result: torch.Tensor) -> None:
@@ -70,13 +81,73 @@ def all_to_all(x: torch.Tensor, mesh: ShardMesh) -> torch.Tensor:
     return _AllToAll.apply(x, mesh)
 
 
-def all_gather(x: torch.Tensor, mesh: ShardMesh) -> torch.Tensor:
-    """``(n_shard, *x.shape)``: every rank's ``x``, in rank order."""
-    x = x.detach().contiguous()
+def _all_gather(x: torch.Tensor, mesh: ShardMesh) -> torch.Tensor:
+    x = x.contiguous()
     out = x.new_empty(mesh.n_shard * x.numel())
     dist.all_gather_into_tensor(out, x.reshape(-1), group=mesh.group)
     _record(mesh, "all-gather", out)
     return out.view(mesh.n_shard, *x.shape)
+
+
+def _reduce_scatter(g: torch.Tensor, mesh: ShardMesh) -> torch.Tensor:
+    """``(n_shard, *shape)`` -> ``shape``: the sum over ranks of slice
+    ``rank`` of every rank's ``g``. Computed as an all-to-all of the slices
+    and their sum in rank order (the same bits on every backend):
+    ``reduce_scatter_tensor`` on gloo copies into its output with
+    ``copy_``, which ``torch.func``'s transforms refuse inside a backward."""
+    g = g.contiguous()
+    parts = torch.empty_like(g)
+    dist.all_to_all_single(parts, g, group=mesh.group)
+    out = parts.sum(0)
+    _record(mesh, "reduce-scatter", out)
+    return out
+
+
+def _all_reduce(x: torch.Tensor, mesh: ShardMesh) -> torch.Tensor:
+    out = x.contiguous().clone()
+    dist.all_reduce(out, op=dist.ReduceOp.SUM, group=mesh.group)
+    _record(mesh, "all-reduce", out)
+    return out
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(x: torch.Tensor, mesh: ShardMesh) -> torch.Tensor:
+        return _all_gather(x, mesh)
+
+    @staticmethod
+    def setup_context(ctx: Any, inputs: Tuple, output: torch.Tensor) -> None:
+        ctx.mesh = inputs[1]
+
+    @staticmethod
+    def backward(ctx: Any, g: torch.Tensor) -> Tuple[torch.Tensor, None]:
+        return _reduce_scatter(g, ctx.mesh), None
+
+
+class _PMean(torch.autograd.Function):
+    @staticmethod
+    def forward(x: torch.Tensor, mesh: ShardMesh) -> torch.Tensor:
+        return _all_reduce(x, mesh) / mesh.n_shard
+
+    @staticmethod
+    def setup_context(ctx: Any, inputs: Tuple, output: torch.Tensor) -> None:
+        ctx.mesh = inputs[1]
+
+    @staticmethod
+    def backward(ctx: Any, g: torch.Tensor) -> Tuple[torch.Tensor, None]:
+        return _all_reduce(g, ctx.mesh) / ctx.mesh.n_shard, None
+
+
+def all_gather(x: torch.Tensor, mesh: ShardMesh) -> torch.Tensor:
+    """``(n_shard, *x.shape)``: every rank's ``x``, in rank order;
+    differentiable (a reduce-scatter of the cotangent)."""
+    return _AllGather.apply(x, mesh)
+
+
+def pmean(x: torch.Tensor, mesh: ShardMesh) -> torch.Tensor:
+    """The mean over ranks of ``x``, on every rank; differentiable (the mean
+    over ranks of the cotangent)."""
+    return _PMean.apply(x, mesh)
 
 
 def _leaves(tree: Any, path: Tuple = ()) -> List[Tuple[Tuple, torch.Tensor]]:

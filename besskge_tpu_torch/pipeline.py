@@ -11,6 +11,13 @@ masks the filtered and non-candidate entries, ranks and takes the top-k,
 and only what the caller asked for is copied to the host. The filter pairs
 are found on the host (:func:`besskge_tpu_torch.utils.get_entity_filter`)
 and the outputs are numpy arrays, as the JAX package's.
+
+Over a mesh each rank stitches, filters, ranks and takes the top-k of its
+own queries on its device (the score matrix is not moved); the ranks, top-k
+IDs and, when asked for, the scores of every rank's queries are then
+all-gathered in the JAX package's row order (batch, ``bps``, shard,
+``shard_bs``, under ``triple_mask``), and every rank returns the dict that
+the JAX pipeline returns over the same mesh.
 """
 
 from __future__ import annotations
@@ -25,14 +32,15 @@ from besskge_tpu_torch.batch_sampler import ShardedBatchSampler
 from besskge_tpu_torch.bess import (
     AllScoresBESS,
     _batch_tensors,
-    _a15b,
+    _step_device,
     build_allscores_forward,
 )
 from besskge_tpu_torch.metric import Evaluation
 from besskge_tpu_torch.negative_sampler import PlaceholderNegativeSampler
 from besskge_tpu_torch.packed import is_packed
+from besskge_tpu_torch.parallel import collectives
 from besskge_tpu_torch.scoring import BaseScoreFunction
-from besskge_tpu_torch.utils import _tree_map, get_entity_filter, resolve_device
+from besskge_tpu_torch.utils import _tree_map, get_entity_filter
 
 __all__ = ["AllScoresPipeline"]
 
@@ -45,7 +53,9 @@ class AllScoresPipeline:
         with ``return_triple_idx=True`` when filtering.
     :param corruption_scheme: "t" to complete (h, r, ?), "h" for (?, r, t).
     :param score_fn: the trained scoring function.
-    :param mesh: must be ``None`` (one device; a mesh: ROADMAP A15b).
+    :param mesh: ``None`` (one device), or the rank's
+        :class:`~besskge_tpu_torch.parallel.mesh.ShardMesh`: every rank
+        builds the pipeline and calls :meth:`forward` with its own params.
     :param evaluation: metrics module.
     :param filter_triples: list of triple arrays (GLOBAL IDs) whose
         completions must be filtered out of the rankings.
@@ -54,7 +64,8 @@ class AllScoresPipeline:
     :param return_topk: return top-k most likely completions per query.
     :param k: how many completions when ``return_topk``.
     :param window_size: entities per shard scored per device call.
-    :param device: where the scores are computed (default ``cuda``).
+    :param device: where the scores are computed (default ``cuda``; over a
+        mesh, the mesh's).
     """
 
     def __init__(
@@ -72,8 +83,6 @@ class AllScoresPipeline:
         window_size: int = 1000,
         device: Optional[Union[str, torch.device]] = None,
     ) -> None:
-        if mesh is not None:
-            raise _a15b("AllScoresPipeline")
         if not (evaluation or return_scores):
             raise ValueError(
                 "Nothing to return. Provide `evaluation` or set"
@@ -87,7 +96,6 @@ class AllScoresPipeline:
                 f"Corruption scheme '{corruption_scheme}' requires"
                 f" '{expected_mode}'-partitioned triples"
             )
-        self.device = resolve_device(device)
         self.batch_sampler = batch_sampler
         self.score_fn = score_fn
         self.evaluation = evaluation
@@ -96,9 +104,11 @@ class AllScoresPipeline:
         self.k = k
         self.corruption_scheme = corruption_scheme
         self.candidate_sampler = PlaceholderNegativeSampler(corruption_scheme=corruption_scheme)
-        self.bess_module = AllScoresBESS(self.candidate_sampler, score_fn, window_size)
+        self.bess_module = AllScoresBESS(self.candidate_sampler, score_fn, window_size,
+                                         axis_name=None if mesh is None else "shard")
         self.mesh = mesh
-        self._fwd = build_allscores_forward(self.bess_module, None, self.device)
+        self.device = _step_device(self.bess_module, mesh, device)
+        self._fwd = build_allscores_forward(self.bess_module, mesh, self.device)
         sharding = self.bess_module.sharding
 
         # The stitched-column -> global-entity map: columns are ordered
@@ -152,7 +162,10 @@ class AllScoresPipeline:
 
         ``params`` are tensors (or arrays) of the score function's tables,
         and nested dicts of them (ConvE's trunk); they are moved to the
-        pipeline's device if they are not there.
+        pipeline's device if they are not there. Over a mesh, the rank's
+        params (its block of the entity table,
+        :func:`~besskge_tpu_torch.parallel.mesh.shard_params`); every rank
+        returns the outputs of every rank's queries.
         Returns numpy arrays: ``scores`` (queries, n_entity) fp32,
         ``topk_global_id``, ``triple_idx``, ``ranks``, ``metrics`` and
         ``metrics_avg``, each where asked for.
@@ -173,22 +186,25 @@ class AllScoresPipeline:
         n_step = self.bess_module.n_step
         gt_key = "head" if self.corruption_scheme == "h" else "tail"
         for batch in self.batch_sampler.get_dataloader(shuffle=False):
-            triple_mask = batch["triple_mask"].reshape(-1)
+            mask_all = batch["triple_mask"]  # (bps, n_shard, shard_bs)
+            mine = self._column(batch)
+            triple_mask = mine["triple_mask"].reshape(-1)
             keep = torch.from_numpy(np.flatnonzero(triple_mask)).to(device)
             ground_truth = None
             if gt_key in batch:
                 ground_truth = torch.from_numpy(
-                    batch[gt_key].reshape(-1)[triple_mask].astype(np.int64)
+                    mine[gt_key].reshape(-1)[triple_mask].astype(np.int64)
                 ).to(device)
             triple_id = None
             if self.batch_sampler.return_triple_idx:
-                triple_id = batch["triple_idx"].reshape(-1)
-                ids.append(triple_id[triple_mask])
-            n_triple += int(triple_mask.sum())
+                triple_id = mine["triple_idx"].reshape(-1)
+                ids.append(batch["triple_idx"].reshape(-1)[mask_all.reshape(-1)])
+            n_triple += int(mask_all.sum())
 
-            dbatch = _batch_tensors(batch, ("relation", "head", "tail"), device)
-            # (bps, 1, shard_bs, ws) x n_step -> (bs_total, n_step * ws),
-            # then the real queries' rows and the map's columns, in fp32.
+            dbatch = _batch_tensors(batch, ("relation", "head", "tail"), device, self.mesh)
+            # (bps, 1, shard_bs, n_shard * ws) x n_step -> (rows, n_step *
+            # n_shard * ws), then the real queries' rows and the map's
+            # columns, in fp32.
             batch_scores = torch.cat(
                 [self._fwd(params, dbatch, i).flatten(0, 2) for i in range(n_step)], dim=-1
             )
@@ -205,26 +221,29 @@ class AllScoresPipeline:
                     raise ValueError(
                         "Filtering requires return_triple_idx=True in the batch sampler"
                     )
-                batch_filter = torch.from_numpy(get_entity_filter(
-                    self.triples[triple_id[triple_mask]],
-                    self.filter_triples,
-                    filter_mode=self.corruption_scheme,
-                )).to(device)
-                filt[batch_filter[:, 0], batch_filter[:, 1]] = -np.inf
+                if len(keep):  # a rank's column may hold padding only
+                    batch_filter = torch.from_numpy(get_entity_filter(
+                        self.triples[triple_id[triple_mask]],
+                        self.filter_triples,
+                        filter_mode=self.corruption_scheme,
+                    )).to(device)
+                    filt[batch_filter[:, 0], batch_filter[:, 1]] = -np.inf
             if self.evaluation is not None:
                 if ground_truth is None:
                     raise ValueError("Evaluation requires ground truth entities")
                 filt[rows, ground_truth] = -np.inf
-                batch_ranks = self.evaluation.ranks_from_scores(true_scores, filt)
+                batch_ranks = self._all_rows(
+                    self.evaluation.ranks_from_scores(true_scores, filt), keep, mask_all)
                 metrics.append(self.evaluation.dict_metrics_from_ranks(batch_ranks))
                 if self.evaluation.return_ranks:
                     ranks.append(batch_ranks)
             if ground_truth is not None:
                 filt[rows, ground_truth] = true_scores
             if self.return_scores:
-                scores.append(filt.cpu().numpy())
+                scores.append(self._all_rows(filt, keep, mask_all).cpu().numpy())
             if self.return_topk:
-                topk_ids.append(torch.topk(filt, self.k, dim=-1).indices)
+                topk_ids.append(self._all_rows(torch.topk(filt, self.k, dim=-1).indices, keep,
+                                               mask_all))
 
         out: Dict[str, Any] = {}
         if scores:
@@ -245,3 +264,28 @@ class AllScoresPipeline:
             if ranks:
                 out["ranks"] = torch.cat(ranks).cpu().numpy()
         return out
+
+    def _column(self, batch: Dict[str, Any]) -> Dict[str, Any]:
+        """The rank's ``(bps, 1, shard_bs)`` column of each batch array (the
+        whole batch on one device)."""
+        if self.mesh is None:
+            return batch
+        rank = self.mesh.rank
+        return {k: v[:, rank : rank + 1] for k, v in batch.items()}
+
+    def _all_rows(self, local: torch.Tensor, keep: torch.Tensor,
+                  mask_all: np.ndarray) -> torch.Tensor:
+        """The rows of every rank's real queries, in the JAX package's order
+        (``bps``, shard, ``shard_bs`` under the global ``mask_all``), from
+        this rank's rows ``local`` of its real queries (at ``keep`` of its
+        column): one all-gather over a mesh, ``local`` itself on one device."""
+        if self.mesh is None:
+            return local
+        bps, n_shard, shard_bs = mask_all.shape
+        tail = local.shape[1:]
+        full = local.new_zeros((bps * shard_bs, *tail))
+        full[keep] = local
+        every = collectives.all_gather(full, self.mesh)  # (n_shard, bps * shard_bs, ...)
+        every = every.reshape(n_shard, bps, shard_bs, *tail).transpose(0, 1)
+        real = torch.from_numpy(mask_all.reshape(-1)).to(local.device)
+        return every.reshape(bps * n_shard * shard_bs, *tail)[real]

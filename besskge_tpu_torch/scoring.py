@@ -59,6 +59,7 @@ from besskge_tpu_torch.packed import (
     pack_table_host,
     unpack_table_host,
 )
+from besskge_tpu_torch.parallel import collectives
 from besskge_tpu_torch.sharding import Sharding
 from besskge_tpu_torch.utils import (
     _tree_map,
@@ -118,8 +119,12 @@ class BaseScoreFunction(ABC):
     compute_dtype: Optional[torch.dtype] = None
     #: Mesh axis name set by a BESS module (``None`` on one device,
     #: ``"shard"`` over a mesh); read by cross-shard ops such as ConvE's
-    #: SyncBN (over a mesh: ROADMAP A15b).
+    #: SyncBN.
     mesh_axis: Any = None
+    #: The :class:`~besskge_tpu_torch.parallel.mesh.ShardMesh` whose
+    #: collectives those ops use: bound with the module's
+    #: (``bess._bind_mesh``), ``None`` on one device.
+    mesh: Any = None
     #: Scoring a shared pool broadcasts each query against it: one
     #: (queries, pool, ≤ entity row) intermediate per elementwise op, which
     #: top-k serving scores in blocks of queries.
@@ -758,8 +763,9 @@ class ConvE(MatrixDecompositionScoreFunction):
       ``params`` otherwise, with ``rsqrt(var + 1e-5)`` (not
       ``F.batch_norm``, whose running var is unbiased). The training step
       refreshes the running stats (``trainer._bn_ema``);
-      ``sync_batch_norm`` is the identity on one device (a mesh: ROADMAP
-      A15b);
+      ``sync_batch_norm`` takes the statistics of the global batch over a
+      mesh (the mean and E[x²] pmeaned over the ranks) and is the identity
+      on one device;
     * dropout with ``train=True`` and an ``rng`` (a key, as
       :mod:`~besskge_tpu_torch.device_sampler` keys): the key splits three
       ways (input, feature map, hidden), each mask drawn by
@@ -858,13 +864,19 @@ class ConvE(MatrixDecompositionScoreFunction):
 
     def _batch_stats(self, x: torch.Tensor, axes: Tuple[int, ...], sync: bool):
         """(mean, var) over ``axes``: the biased ``E[x²] − mean²``. With
-        ``sync`` over a mesh the JAX package pmeans both moments, which
-        is not ported yet (ROADMAP A15b); on one device (``mesh_axis``
-        ``None``) it is the identity."""
-        if sync and self.mesh_axis is not None:
-            raise NotImplementedError("SyncBN over a mesh is not ported yet (ROADMAP A15b)")
+        ``sync`` over a mesh both moments are pmeaned over the ranks in one
+        all-reduce (:func:`~besskge_tpu_torch.parallel.collectives.pmean`,
+        whose backward pmeans the cotangent), the global batch's statistics
+        for equal per-rank batches, as the JAX package's ``jax.lax.pmean``;
+        on one device (``mesh_axis`` ``None``) it is the identity."""
         mean = torch.mean(x, dim=axes)
         sq = torch.mean(torch.square(x), dim=axes)
+        if sync and self.mesh_axis is not None:
+            if self.mesh is None:
+                raise RuntimeError(
+                    "SyncBN over a mesh: build the module's step over its mesh (mesh=) first")
+            both = collectives.pmean(torch.cat([mean, sq]), self.mesh)
+            mean, sq = both[: mean.shape[0]], both[mean.shape[0] :]
         return mean, sq - torch.square(mean)
 
     @staticmethod

@@ -38,8 +38,11 @@ params (its block of the entity table, its optimizer state of that block,
 and copies of the replicated params and their state) and its column of each
 batch, as the JAX package's ``shard_map`` step runs on each device: the
 micro-batches run one after another (the AllToAll of each cannot sit under
-``vmap``), the entity rows' gradients stay on their rank, and the
-replicated params' summed gradients go through one all-reduce with the loss
+``vmap``), the entity rows' gradients come back to their rank through the
+collectives' backwards (the AllToAll's, and with
+:class:`~besskge_tpu_torch.bess.ScoreMovingBessKGE` the AllGathers'
+reduce-scatters) and stay there, and the replicated params' summed
+gradients go through one all-reduce with the loss
 (:func:`besskge_tpu_torch.bess._reduce_outputs`). A device-sampled call
 draws the global batch on every rank from the same key and keeps its own
 column. With NCCL a call's collectives are captured in its CUDA graph; a
@@ -50,7 +53,8 @@ per micro-batch as the JAX package splits its key (over a mesh after folding
 in the rank); its masks come from the device sampler's counter hash, so a
 replayed graph draws anew from the key in its buffer. A scorer with
 BatchNorm has its running stats refreshed in every step form
-(:func:`_bn_ema`; over a mesh that needs SyncBN, ROADMAP A15b). The params
+(:func:`_bn_ema`; over a mesh from the global batch's statistics, pmeaned
+over the ranks). The params
 may nest (ConvE's trunk); the dense optimizers' states mirror them.
 
 Params and optimizer state are updated in place, as the JAX package donates

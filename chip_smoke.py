@@ -384,6 +384,15 @@ CONVE_RNG = 12345
 # held against the largest moment of the state, and the phase prints their
 # CPU gradients beside the largest.
 CONVE_NOISE = ("conv_b", "bn0.scale")
+# Over a mesh with sync_batch_norm (the mesh phase's (d)), bn0's bias too:
+# with one input channel its gradient is one value that sums a term per
+# pixel of every positive's input map, per rank and then over the ranks
+# (1,536,000 terms at YAGO3-10 width). The per-array gate leaves a
+# one-value array 2e-5 of it, under that sum's fp32 rounding (sqrt(terms) x
+# 2^-24 = 7.4e-5): the card strays 2.3e-5 from float64 there (NVIDIA H100
+# 80GB HBM3, 700.00 W), and the phase prints that reading beside the
+# bound. So its moments are held against the largest moment too.
+MESH_CONVE_NOISE = CONVE_NOISE + ("bn0.bias",)
 # Evaluation: bench.py's run_valid (TransE-L1 at wikikg2's counts, bf16
 # scoring, no sharing; 40,960 random valid triples with 500 random tail
 # candidates each; ScoreMoving through run_device_eval, 16 steps of 10 x 256
@@ -410,7 +419,20 @@ AS_KNOWN, AS_REPEATS, AS_SWEEPS = 8, 3, 5
 # MESH_FIT_TRIPLES triples (3 steps), a sharded checkpoint round trip. The
 # ranks are stopped after MESH_TIMEOUT_S seconds.
 MESH_RANKS, MESH_TIMED_CALLS, MESH_TIMED_STEPS = 4, 5, 3
-MESH_QUERIES, MESH_TOPK_REPEATS, MESH_FIT_TRIPLES, MESH_TIMEOUT_S = 512, 2, 45_000, 420
+MESH_QUERIES, MESH_TOPK_REPEATS, MESH_FIT_TRIPLES, MESH_TIMEOUT_S = 512, 2, 45_000, 600
+# The rest of the mesh (ROADMAP A15b) in the same phase, at the widths of the
+# eval and conve phases: (a) bench.py's valid through run_device_eval, (b) its
+# allscores pipeline (over the gloo ranks MESH_AS_BPS micro-batches of
+# AS_SHARD_BS queries per rank, so that the 1,024 queries, about 256 per
+# shard, fit one batch: each window scores (4 x 256, 65,536) per
+# micro-batch), (c) a ScoreMoving sparse wikikg2 step, (d) ConvE with
+# sync_batch_norm at YAGO3-10 width over the gloo ranks.
+MESH_AS_BPS = 2
+# The valid pass over the mesh against the mesh-free pass: the same
+# per-candidate scores and ranks, whose fp32 metric sums differ in order
+# only: at most (steps per block + log2 of a step's queries + the ranks'
+# sum) roundings of the sum on each side, under 32 each.
+VALID_SUM_ULPS = 64
 
 L1_SOURCE = "besskge_tpu_torch/csrc/l1_distance.cu"
 ROW_SOURCE = "besskge_tpu_torch/csrc/row_update.cu"
@@ -3111,13 +3133,11 @@ def _hold_candidate_topk(what: str, out: dict, params: dict, score_fn: TransE,
     return int(sure.sum())
 
 
-def _valid(gen: torch.Generator, profile: bool, device: str, smi: str) -> dict:
-    """bench.py's run_valid: ScoreMoving candidate-set validation of random
-    triples, 500 tail candidates each, through run_device_eval; and
-    candidate-set top-k over the same candidates."""
-    on_card = device == "cuda"
-    t = time.perf_counter()
-    sharding = Sharding.create(N_ENTITY, 1, seed=SEED)
+def _valid_setup(n_shard: int, axis_name: str = "shard") -> tuple:
+    """bench.py's valid over ``n_shard`` shards: (triples, candidates,
+    sharding, ScoreMoving module with sum metrics, sampler, dataset, and the
+    generator that drew the triples and candidates)."""
+    sharding = Sharding.create(N_ENTITY, n_shard, seed=SEED)
     rng = np.random.default_rng(SEED)
     triples = _distinct_queries(rng, N_ENTITY, VALID_QUERIES)
     # Candidates never hold the triple's own tail, which would tie its score.
@@ -3132,9 +3152,37 @@ def _valid(gen: torch.Generator, profile: bool, device: str, smi: str) -> dict:
     sampler = RigidShardedBatchSampler(pts, ns, shard_bs=VALID_SHARD_BS,
                                        batches_per_step=VALID_BPS, seed=SEED,
                                        duplicate_batch=False)
-    score_fn = _eval_fn(sharding, sharing=False)
-    module = ScoreMovingBessKGE(ns, score_fn,
+    module = ScoreMovingBessKGE(ns, _eval_fn(sharding, sharing=False), axis_name=axis_name,
                                 evaluation=Evaluation(["mrr", "hits@10"], reduction="sum"))
+    return triples, cands, sharding, module, sampler, dataset, rng
+
+
+def _as_setup(n_shard: int, bps: int) -> tuple:
+    """bench.py's allscores over ``n_shard`` shards: (triples, sharding,
+    score function, pts, sampler of ``bps`` x AS_SHARD_BS, and the generator
+    that drew the triples)."""
+    sharding = Sharding.create(AS_ENTITY, n_shard, seed=SEED)
+    rng = np.random.default_rng(SEED + 1)
+    triples = _distinct_queries(rng, AS_ENTITY, AS_QUERIES)
+    dataset = KGDataset(n_entity=AS_ENTITY, n_relation_type=N_RELATION,
+                        triples={"test": np.zeros((1, 3), np.int32)},
+                        original_triple_ids={"test": np.arange(1)})
+    pts = PartitionedTripleSet.create_from_queries(dataset, sharding, triples[:, :2], "hr",
+                                                   ground_truth=triples[:, 2])
+    sampler = RigidShardedBatchSampler(pts, PlaceholderNegativeSampler("t", seed=SEED),
+                                       shard_bs=AS_SHARD_BS, batches_per_step=bps, seed=SEED,
+                                       return_triple_idx=True)
+    return triples, sharding, _eval_fn(sharding, sharing=True), pts, sampler, rng
+
+
+def _valid(gen: torch.Generator, profile: bool, device: str, smi: str) -> dict:
+    """bench.py's run_valid: ScoreMoving candidate-set validation of random
+    triples, 500 tail candidates each, through run_device_eval; and
+    candidate-set top-k over the same candidates."""
+    on_card = device == "cuda"
+    t = time.perf_counter()
+    triples, cands, sharding, module, sampler, dataset, rng = _valid_setup(1, None)
+    ns, score_fn = module.negative_sampler, module.score_fn
     params = score_fn.initial_params_device(device=device, generator=gen)
     steps = [{k: v for k, v in b.items() if k in _FORWARD_KEYS}
              for b in sampler.get_dataloader(shuffle=False)]
@@ -3282,18 +3330,7 @@ def _allscores(gen: torch.Generator, profile: bool, device: str, smi: str) -> di
     against every entity, window by window, with a filtered pass."""
     on_card = device == "cuda"
     t = time.perf_counter()
-    sharding = Sharding.create(AS_ENTITY, 1, seed=SEED)
-    rng = np.random.default_rng(SEED + 1)
-    triples = _distinct_queries(rng, AS_ENTITY, AS_QUERIES)
-    dataset = KGDataset(n_entity=AS_ENTITY, n_relation_type=N_RELATION,
-                        triples={"test": np.zeros((1, 3), np.int32)},
-                        original_triple_ids={"test": np.arange(1)})
-    pts = PartitionedTripleSet.create_from_queries(dataset, sharding, triples[:, :2], "hr",
-                                                   ground_truth=triples[:, 2])
-    ns = PlaceholderNegativeSampler(corruption_scheme="t", seed=SEED)
-    sampler = RigidShardedBatchSampler(pts, ns, shard_bs=AS_SHARD_BS, batches_per_step=AS_BPS,
-                                       seed=SEED, return_triple_idx=True)
-    score_fn = _eval_fn(sharding, sharing=True)
+    triples, sharding, score_fn, pts, sampler, rng = _as_setup(1, AS_BPS)
     params = score_fn.initial_params_device(device=device, generator=gen)
     n_batches = len(list(sampler.epoch_index_blocks(False)))
     # Filtered pass on the random table: every query has AS_KNOWN other known tails.
@@ -3468,9 +3505,11 @@ def _conve_fn(sharding: Sharding) -> ConvE:
     return ConvE(True, sharding, YAGO_RELATION, CONVE_EMB, CONVE_H, CONVE_W, seed=SEED)
 
 
-def _conve_module(triples: np.ndarray, sharding: Sharding, score_fn: ConvE) -> tuple:
-    """EmbeddingMovingBessKGE with YAGO_NEGATIVE shared flat "t" negatives
-    and SSCE over the triples with their inverses."""
+def _conve_module(triples: np.ndarray, sharding: Sharding, score_fn: ConvE,
+                  axis_name: str = None) -> tuple:
+    """EmbeddingMovingBessKGE (over the ``axis_name`` mesh axis) with
+    YAGO_NEGATIVE shared flat "t" negatives and SSCE over the triples with
+    their inverses."""
     dataset = KGDataset(n_entity=sharding.n_entity, n_relation_type=YAGO_RELATION,
                         triples={"train": triples},
                         original_triple_ids={"train": np.arange(len(triples))})
@@ -3479,7 +3518,7 @@ def _conve_module(triples: np.ndarray, sharding: Sharding, score_fn: ConvE) -> t
     ns = RandomShardedNegativeSampler(YAGO_NEGATIVE, sharding, SEED, "t", local_sampling=False,
                                       flat_negative_format=True)
     return EmbeddingMovingBessKGE(ns, score_fn, SampledSoftmaxCrossEntropyLoss(
-        sharding.n_entity)), pts
+        sharding.n_entity), axis_name=axis_name), pts
 
 
 def _conve_masks(score_fn: ConvE, rng: torch.Tensor, bps: int, b: int) -> list:
@@ -3498,14 +3537,17 @@ def _conve_masks(score_fn: ConvE, rng: torch.Tensor, bps: int, b: int) -> list:
 
 
 def _conve_within(got: torch.Tensor, want: torch.Tensor, scale=None, extra=0.0) -> tuple:
-    """(max |got - want|, its largest ratio to DENSE_RTOL x (|want| +
-    ``scale``) + ``extra``; inf where ``got`` is not finite), ``scale``
-    max|want| unless given: ConvE's steps are fp32 throughout."""
+    """(max |got - want|, the largest ratio of its excess over ``extra`` to
+    DENSE_RTOL x (|want| + ``scale``): at most 1 within the gate; inf where
+    ``got`` is not finite), ``scale`` max|want| unless given: ConvE's steps
+    are fp32 throughout. ``extra`` is a param's share of its moments'
+    difference (held apart), which on Adam's first step is all of the
+    difference where a gradient is near 0: the ratio reads what is left."""
     got, want = got.float(), want.float()
-    err = (got - want).abs()
-    tol = DENSE_RTOL * (want.abs() + (want.abs().max() if scale is None else scale)) + extra
-    ratio = torch.where(err > 0, err / tol, torch.zeros_like(err)).max().item()
-    return err.max().item(), ratio if torch.isfinite(got).all() else float("inf")
+    over = ((got - want).abs() - extra).clamp_min(0.0)
+    base = DENSE_RTOL * (want.abs() + (want.abs().max() if scale is None else scale))
+    ratio = torch.where(over > 0, over / base, torch.zeros_like(over)).max().item()
+    return (got - want).abs().max().item(), ratio if torch.isfinite(got).all() else float("inf")
 
 
 def _conve_gate(what: str, errs: dict) -> dict:
@@ -3518,24 +3560,26 @@ def _conve_gate(what: str, errs: dict) -> dict:
     return errs
 
 
-def _conve_hold_dense(what: str, got: tuple, want: tuple, count: int) -> dict:
-    """:func:`_hold_dense`'s gate, with the moments of CONVE_NOISE held
+def _conve_hold_dense(what: str, got: tuple, want: tuple, count: int,
+                      noise: tuple = CONVE_NOISE) -> dict:
+    """:func:`_hold_dense`'s gate, with the moments of ``noise`` held
     against the largest moment (mu or nu) of the state. Returns name ->
     (max|err|, ratio to the gate)."""
     arrays = _dense_arrays(got, want, count, CONVE_LR)
     largest = {m: max(w.abs().max().item() for _, part, _, w, _ in arrays if part.endswith(m))
                for m in (" mu", " nu")}
     return _conve_gate(what, {part: _conve_within(g, w, largest[part[-3:]] if (
-        name in CONVE_NOISE and part != name) else None, extra)
+        name in noise and part != name) else None, extra)
         for name, part, g, w, extra in arrays})
 
 
-def _conve_hold_sparse(what: str, got: tuple, want: tuple, rows: torch.Tensor) -> dict:
+def _conve_hold_sparse(what: str, got: tuple, want: tuple, rows: torch.Tensor,
+                       noise: tuple = CONVE_NOISE) -> dict:
     """The sparse step's (params, state) against another's within the dense
     gate (DENSE_RTOL x (|want| + max|want|); the step is fp32 throughout):
     the touched rows of the pair-major table (params and momentum) and the
     relations as :func:`_hold_sparse` takes them, each trunk param plus lr x
-    the difference of its momenta, the momenta (those of CONVE_NOISE against
+    the difference of its momenta, the momenta (those of ``noise`` against
     the largest momentum of the state), and the BN running stats. The step
     sums a row's slots as the difference of two running sums over the
     sorted slots (``optim._dedup_row_grads``, the JAX package's rounding),
@@ -3554,7 +3598,7 @@ def _conve_hold_sparse(what: str, got: tuple, want: tuple, rows: torch.Tensor) -
         if path == "relation_embedding":
             continue
         g, w = g_m[path].cpu(), w.cpu()
-        errs[f"{path} momentum"] = _conve_within(g, w, largest if path in CONVE_NOISE else None)
+        errs[f"{path} momentum"] = _conve_within(g, w, largest if path in noise else None)
         errs[path] = _conve_within(g_p[path].cpu(), w_p[path].cpu(), None,
                                    CONVE_LR * (g - w).abs())
     for path in g_p:
@@ -3703,6 +3747,12 @@ def _conve_allscores(params: dict, gen: torch.Generator, device: str) -> dict:
         f" {DENSE_RTOL:g} x (|want| + max|want|) of a full-table matrix (max|err|"
         f" {err.max().item():.3g})")
     return {"pass_s": pass_s, "max_abs_err": err.max().item(), "entities": CONVE_AS_ENTITY}
+
+
+def _rel_stray(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got − want| over max |want| (0 for an all-zero ``want``)."""
+    scale = want.abs().max().item()
+    return (got.double() - want.double()).abs().max().item() / scale if scale else 0.0
 
 
 def conve(gen: torch.Generator, profile: bool = False, device: str = "cuda",
@@ -3869,7 +3919,8 @@ def conve(gen: torch.Generator, profile: bool = False, device: str = "cuda",
     # The reference: the same step on the CPU in float64, and in fp32 beside
     # it (on the card's host the CPU's fp32 step strays from the float64 one
     # by ~2e-3 of an array's largest value at this state, the card's by
-    # ~1e-6: the fp32 CPU step cannot hold the card to the dense gate).
+    # ~1e-6: the fp32 CPU step cannot hold the card to the dense gate;
+    # tools/conve_cpu_stray.py follows the stray stage by stage).
     cpu_sparse = {dtype: tuple(_tree_map(
         lambda v: v.to("cpu", dtype if v.is_floating_point() else v.dtype, copy=True), t)
         for t in (sparse_params, sparse_state)) for dtype in (torch.float64, torch.float32)}
@@ -3889,18 +3940,20 @@ def conve(gen: torch.Generator, profile: bool = False, device: str = "cuda",
     touched = torch.unique(torch.from_numpy(ids.astype(np.int64)))
     errs = _conve_hold_sparse("conve sparse step vs the CPU (float64)", (
         sparse_params, sparse_state), cpu_sparse[torch.float64][:2], touched)
-    strays = {side: max((g.double().cpu() - w).abs().max().item() / w.abs().max().item()
-                        for (name, g), (_, w) in zip(
-                            trainer._leaves(state_[1]["other"]["trace"]),
-                            trainer._leaves(cpu_sparse[torch.float64][1]["other"]["trace"]))
-                        if w.abs().max().item() > 0 and name not in CONVE_NOISE)
-              for side, state_ in (("card", (sparse_params, sparse_state)),
-                                   ("cpu_fp32", cpu_sparse[torch.float32]))}
+    by_array = {side: {name: _rel_stray(g.cpu(), w) for (name, g), (_, w) in zip(
+        trainer._leaves(state_[1]["other"]["trace"]),
+        trainer._leaves(cpu_sparse[torch.float64][1]["other"]["trace"]))
+        if w.abs().max().item() > 0 and name not in CONVE_NOISE}
+        for side, state_ in (("card", (sparse_params, sparse_state)),
+                             ("cpu_fp32", cpu_sparse[torch.float32]))}
+    strays = {side: max(v.values()) for side, v in by_array.items()}
+    worst = {side: max(v, key=v.get) for side, v in by_array.items()}
     say("conve", f"(c) sparse host-fed step (RowSGDM interleaved, B3): card vs the CPU's"
         f" float64 step: loss {loss:.6f} vs {cpu_loss:.6f}, {_conve_gate_report(errs)}; the"
         f" relations' and trunk's momenta but CONVE_NOISE off the float64 step by at most"
-        f" {strays['card']:.3g} of their largest value on the card, {strays['cpu_fp32']:.3g} in"
-        f" the CPU's fp32 step; launches {_launched()}")
+        f" {strays['card']:.3g} of their largest value on the card ({worst['card']}),"
+        f" {strays['cpu_fp32']:.3g} in the CPU's fp32 step ({worst['cpu_fp32']}); launches"
+        f" {_launched()}")
     result["sparse_vs_cpu"] = {"reference": "float64",
                                "max_abs_err": max(e for e, _ in errs.values()),
                                "max_gate_ratio": max(r for _, r in errs.values()),
@@ -3991,12 +4044,13 @@ def _touched(batch: dict, rank: int) -> torch.Tensor:
 _L1_PATH = ("l1_distance_matrix", "l1_distance_grads")
 
 
-def _l1_calls(run):
+def _l1_calls(run, names=_L1_PATH):
     """``run()``, and the shapes and dtypes of the arguments with which it
     called the B5 and B6 wrappers: a set of ``(name, ((shape, dtype), ...))``.
     The step reaches them through ``ops.distance``, whose view of
     ``l1_kernels`` is swapped for one that records each call and passes it
-    on, so each launch count is as without the record."""
+    on, so each launch count is as without the record. The path must call
+    each of ``names``, and nothing else of them."""
     seen = set()
 
     def recorder(name):
@@ -4014,8 +4068,8 @@ def _l1_calls(run):
         result = run()
     finally:
         distance.l1_kernels = l1_kernels
-    if {name for name, _ in seen} != set(_L1_PATH):
-        raise AssertionError(f"the path called {sorted(seen)}, not both of {_L1_PATH}")
+    if {name for name, _ in seen} != set(names):
+        raise AssertionError(f"the path called {sorted(seen)}, not just {names}")
     return result, seen
 
 
@@ -4062,7 +4116,7 @@ def _mesh_nccl(gen: torch.Generator, tmp: Path, smi: str, profile: bool = False)
         mesh = make_shard_mesh(1)
         if mesh.backend != "nccl" or not mesh.capturable:
             raise AssertionError(f"expected a capturable NCCL mesh, got {mesh}")
-        _, score_fn, module, _, pts = _mesh_module(1)
+        _, score_fn, module, sampler, pts = _mesh_module(1)
         free_module = _mesh_module(1, None)[2]
         params = score_fn.initial_params_device(device="cuda", generator=gen)
         params["entity_embedding"] = optim.interleave_momentum(params["entity_embedding"])
@@ -4155,6 +4209,9 @@ def _mesh_nccl(gen: torch.Generator, tmp: Path, smi: str, profile: bool = False)
                 results.setdefault("profile", {})[name] = profile_run(
                     lambda: [call(*args, st, dev.next_key(200 + i)) for i in range(2)],
                     2 * spc, f"mesh_nccl_{name}_trace.json")
+        del held, other
+        torch.cuda.empty_cache()
+        results["rest"] = _mesh_nccl_rest(gen, mesh, free_module, sampler, smi)
         return results
     finally:
         torch.distributed.destroy_process_group()
@@ -4185,11 +4242,499 @@ def _mesh_gate(what: str, got: tuple, want: tuple, rows: torch.Tensor, rtol: flo
     return errs
 
 
+# ---------------------------------------------------------------------------
+# mesh, the rest (ROADMAP A15b): ScoreMoving evaluation and training, the
+# all-scores pipeline and ConvE's SyncBN over ranks
+
+
+def _valid_blocks(sampler, mesh, device: str) -> tuple:
+    """The pass of ``sampler`` staged as device blocks of VALID_SPB steps
+    (the rank's column over ``mesh``), and its number of queries."""
+    steps = [{k: v for k, v in b.items() if k in _FORWARD_KEYS}
+             for b in sampler.get_dataloader(shuffle=False)]
+    n_q = sum(int(s["triple_mask"].sum()) for s in steps)
+    return [_stack_block(steps[i:i + VALID_SPB], VALID_SPB, torch.device(device), mesh)
+            for i in range(0, len(steps), VALID_SPB)], n_q
+
+
+def _blocks_rate(run_block, params, blocks, n_q: int, device: str) -> float:
+    """Queries per second of the staged blocks run back to back (after one
+    warm-up block), to the fetch of the sums."""
+    run_block(params, blocks[0])
+    sync(device)
+    t = time.perf_counter()
+    float(sum(run_block(params, blk) for blk in blocks)[0])
+    return n_q / (time.perf_counter() - t)
+
+
+def _global_rows(sharding: Sharding, device) -> torch.Tensor:
+    """The row of each entity in the global (n_shard x rows) table."""
+    return torch.from_numpy((sharding.entity_to_shard * sharding.max_entity_per_shard
+                             + sharding.entity_to_idx).astype(np.int64)).to(device)
+
+
+def _valid_one_shard(whole: dict, sharding: Sharding, device: str) -> dict:
+    """run_device_eval's metrics of the valid pass without a mesh, on the
+    global table ``whole`` (rows in ``sharding``'s order) laid out in the
+    one-shard order: each candidate's score is the mesh's, by the same
+    code."""
+    _, _, one_sh, one_module, one_sampler, _, _ = _valid_setup(1, None)
+    flat = torch.zeros((one_sh.max_entity_per_shard, DIM), device=device)
+    flat[torch.from_numpy(one_sh.entity_to_idx.astype(np.int64)).to(device)] = whole[
+        "entity_embedding"][_global_rows(sharding, device)]
+    metrics, _ = run_device_eval(one_module, {"entity_embedding": flat, "relation_embedding":
+                                              whole["relation_embedding"]}, one_sampler, None,
+                                 steps_per_block=VALID_SPB, device=device)
+    return metrics
+
+
+def _hold_valid(what: str, got: dict, want: dict) -> None:
+    """The mesh's metrics against the mesh-free pass's: the same per-query
+    ranks summed in other orders, so within VALID_SUM_ULPS fp32 ulps of
+    each metric (hits@10 counts whole queries, exact in fp32)."""
+    for k, w in want.items():
+        if abs(got[k] - w) > VALID_SUM_ULPS * U32 * w:
+            raise AssertionError(f"{what}: {k} {got[k]} over the mesh, {w} without")
+
+
+def _as_pipeline(sampler, score_fn, mesh, device: str, scores: bool = False) -> AllScoresPipeline:
+    """The all-scores pipeline with per-query ranks and metrics and the
+    top-K (and the score matrix with ``scores``)."""
+    return AllScoresPipeline(sampler, "t", score_fn, mesh=mesh,
+                             evaluation=Evaluation(["mrr", "hits@10"], return_ranks=True),
+                             return_scores=scores, return_topk=True, k=K, window_size=AS_WINDOW,
+                             device=device)
+
+
+def _by_query(out: dict, pts) -> dict:
+    """A pipeline's per-query outputs in the queries' own order."""
+    order = np.argsort(pts.triple_sort_idx[out["triple_idx"]])
+    return {"ranks": out["ranks"][order], "topk": out["topk_global_id"][order],
+            "mrr": out["metrics"]["mrr"][order]}
+
+
+def _hold_as_ties(got: dict, want: dict, whole: dict, sharding: Sharding,
+                  triples: np.ndarray) -> dict:
+    """The mesh pipeline's ranks and top-K (``got``, by query) against the
+    mesh-free one's (``want``) up to ties within the bf16 gate: a query
+    whose rank differs has at least that many entities whose plain score
+    lies within 2^-7 of its true score; a top-K that differs as a set
+    differs only in entities whose plain score lies within 2^-7 of the K-th
+    best. Returns the counts of such queries."""
+    table, rel = whole["entity_embedding"], whole["relation_embedding"]
+    device = table.device
+    row = _global_rows(sharding, device)
+    pool = table[row].to(torch.bfloat16)  # the global order
+
+    def scores(q):
+        h, r = (torch.tensor([int(triples[q, j])], device=device) for j in (0, 1))
+        query = table[row[h]].to(torch.bfloat16) + rel[r].to(torch.bfloat16)
+        return l1_kernels.l1_distance_matrix_plain(query, pool).float().neg()[0]
+
+    rank_diff = np.flatnonzero(got["ranks"] != want["ranks"])
+    set_diff = np.flatnonzero(~(np.sort(got["topk"], 1) == np.sort(want["topk"], 1)).all(1))
+    for q in rank_diff:
+        s = scores(q)
+        true = s[int(triples[q, 2])]
+        near = int(((s - true).abs() <= BF16_ULP * true.abs()).sum()) - 1
+        if abs(float(got["ranks"][q]) - float(want["ranks"][q])) > near:
+            raise AssertionError(f"mesh allscores: query {q} ranks {got['ranks'][q]} and"
+                                 f" {want['ranks'][q]}, {near} entities tie its true score")
+    for q in set_diff:
+        s = scores(q)
+        kth = torch.topk(s, K).values[-1]
+        odd = np.setxor1d(got["topk"][q], want["topk"][q])
+        if not ((s[torch.from_numpy(odd).to(device)] - kth).abs() <= BF16_ULP * kth.abs()).all():
+            raise AssertionError(f"mesh allscores: query {q} top-{K} differs beyond ties")
+    return {"rank_ties": len(rank_diff), "topk_ties": len(set_diff)}
+
+
+def _sm_module(module, axis_name: str = "shard") -> ScoreMovingBessKGE:
+    """ScoreMoving on the wikikg2 step's score function and negatives (32
+    shared "ht" negatives, SSCE; no augmentation, which it does not take)."""
+    return ScoreMovingBessKGE(module.negative_sampler, module.score_fn,
+                              SampledSoftmaxCrossEntropyLoss(N_ENTITY), axis_name=axis_name)
+
+
+def _mesh_nccl_rest(gen: torch.Generator, mesh, wikikg2, sampler, smi: str) -> dict:
+    """The rest of the mesh at one NCCL rank against the same calls without
+    a mesh: (a) ScoreMoving validation through run_device_eval, the metric
+    sums bit for bit, no host sync in a block; (b) the all-scores pipeline,
+    scores, ranks, metrics and top-K bit for bit; (c) one ScoreMoving
+    sparse wikikg2 step, every array bit for bit. B5 and B6 recorded at
+    the shapes (b) and (c) give them."""
+    out: Dict[str, object] = {}
+    # (a) Validation.
+    triples, cands, sharding, module, sampler_v, _, _ = _valid_setup(1)
+    free = ScoreMovingBessKGE(module.negative_sampler, module.score_fn,
+                              evaluation=module.evaluation, axis_name=None)
+    params = module.score_fn.initial_params_device(device="cuda", generator=gen)
+    got = run_device_eval(module, params, sampler_v, mesh, steps_per_block=VALID_SPB)
+    want = run_device_eval(free, params, sampler_v, None, steps_per_block=VALID_SPB,
+                           device="cuda")
+    if got != want:
+        raise AssertionError(f"mesh nccl valid: {got} over the mesh, {want} without")
+    blocks, n_q = _valid_blocks(sampler_v, mesh, "cuda")
+    runners = {"mesh": make_block_runner(module, mesh), "no mesh": make_block_runner(free)}
+    rates: Dict[str, list] = {}
+    for name in ("mesh", "no mesh", "no mesh", "mesh"):
+        rates.setdefault(name, []).append(_blocks_rate(runners[name], params, blocks, n_q,
+                                                       "cuda"))
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        runners["mesh"](params, blocks[0])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    # Kernels of one block over the mesh and without: launches and device ms.
+    per_block = {}
+    for name, run in runners.items():
+        kernels = device_kernels(lambda: run(params, blocks[0]), 2)
+        per_block[name] = {"launches": sum(n for _, n in kernels.values()),
+                           "kernel_ms": sum(ms for ms, _ in kernels.values())}
+    out["valid"] = {"metrics": got[0], "n_queries": got[1], "queries_per_s": rates,
+                    "per_block": per_block}
+    say("mesh", f"(a) NCCL 1 rank valid ({VALID_QUERIES} x {VALID_CANDIDATES}, ScoreMoving,"
+        f" run_device_eval {VALID_SPB} x ({VALID_BPS} x {VALID_SHARD_BS})): metrics {got[0]}"
+        f" equal to the mesh-free pass bit for bit; no host sync in a block;"
+        f" {rates['mesh'][0]:.4g} / {rates['mesh'][1]:.4g} queries/s over the mesh,"
+        f" {rates['no mesh'][0]:.4g} / {rates['no mesh'][1]:.4g} without (blocks staged); a"
+        f" block of {VALID_SPB} steps launches {per_block['mesh']['launches']:.0f} kernels"
+        f" ({per_block['mesh']['kernel_ms']:.3f} ms of kernels) over the mesh,"
+        f" {per_block['no mesh']['launches']:.0f} ({per_block['no mesh']['kernel_ms']:.3f} ms)"
+        f" without; {smi}")
+    del params
+
+    # (b) The all-scores pipeline.
+    triples, sharding, score_fn, pts, sampler_as, _ = _as_setup(1, AS_BPS)
+    params = score_fn.initial_params_device(device="cuda", generator=gen)
+    pipe, free_pipe = (_as_pipeline(sampler_as, score_fn, m, "cuda", True) for m in (mesh, None))
+    reset_counts()
+    got, calls = _l1_calls(lambda: pipe.forward(params), ("l1_distance_matrix",))
+    counts = read_counts()
+    n_step = pipe.bess_module.n_step
+    expect_counts("mesh nccl allscores", counts, {"l1_distance_matrix": n_step * AS_BPS})
+    want = free_pipe.forward(params)
+    for key in ("scores", "ranks", "topk_global_id", "triple_idx"):
+        if not np.array_equal(got[key], want[key]):
+            raise AssertionError(f"mesh nccl allscores: {key} differ from the mesh-free pipeline")
+    if any(not np.array_equal(got["metrics"][k], want["metrics"][k]) for k in want["metrics"]):
+        raise AssertionError("mesh nccl allscores: metrics differ from the mesh-free pipeline")
+    timed = {}
+    for name, p in (("mesh", pipe), ("no mesh", free_pipe), ("no mesh", free_pipe),
+                    ("mesh", pipe)):
+        p.return_scores = False
+        t = time.perf_counter()
+        p.forward(params)
+        sync("cuda")
+        timed.setdefault(name, []).append((time.perf_counter() - t) * 1e3)
+    passes = {}
+    for name, p in (("mesh", pipe), ("no mesh", free_pipe)):
+        kernels = device_kernels(lambda: p.forward(params), 1)
+        passes[name] = {"kernel_ms": sum(ms for ms, _ in kernels.values()),
+                        "nccl_ms": sum(ms for k, (ms, _) in kernels.items() if "nccl" in k.lower()),
+                        "launches": sum(n for _, n in kernels.values())}
+    out["allscores"] = {"ms_per_batch": timed, "windows": n_step, "b5_launches": counts[
+        "l1_distance_matrix"], "l1_at_path_shape": _hold_l1_at(calls, gen), "kernels": passes}
+    say("mesh", f"(b) NCCL 1 rank allscores ({AS_QUERIES} queries x {AS_ENTITY} entities,"
+        f" {n_step} windows of {AS_WINDOW}): scores, ranks, metrics and top-{K} equal to the"
+        f" mesh-free pipeline bit for bit; {timed['mesh'][0]:.2f} / {timed['mesh'][1]:.2f} ms per"
+        f" {AS_QUERIES}-query batch over the mesh, {timed['no mesh'][0]:.2f} /"
+        f" {timed['no mesh'][1]:.2f} without (the pipeline end to end); kernels of a pass"
+        f" {passes['mesh']['kernel_ms']:.2f} ms over the mesh (NCCL's"
+        f" {passes['mesh']['nccl_ms']:.2f}), {passes['no mesh']['kernel_ms']:.2f} without; B5"
+        f" {counts['l1_distance_matrix']} launches; {smi}")
+    del params, got, want
+
+    # (c) A ScoreMoving sparse step.
+    sm, sm_free = _sm_module(wikikg2, "shard"), _sm_module(wikikg2, None)
+    params = sm.score_fn.initial_params_device(device="cuda", generator=gen)
+    params["entity_embedding"] = optim.interleave_momentum(params["entity_embedding"])
+    sgd, row = optim.SGD(LR, momentum=MOMENTUM), optim.RowSGDM(LR, momentum=MOMENTUM,
+                                                               interleaved=True)
+    state = trainer.init_optimizer_state(sgd, params, mesh, row,
+                                         n_logical=sm.sharding.max_entity_per_shard)
+    other = (trainer._clone(params), trainer._clone(state))
+    batch = sampler.sample_batch(next(sampler.epoch_index_blocks(True)))
+    step = trainer.build_train_step(sm, sgd, mesh, row)
+    reset_counts()
+    census, calls = _l1_calls(lambda: collective_census(step, params, state, batch, mesh=mesh))
+    counts = read_counts()
+    expect_counts("mesh nccl ScoreMoving step", counts, {
+        "l1_distance_matrix": 2 * BPS, "l1_distance_grads": 2 * BPS, "scatter_rows": 1})
+    trainer.build_train_step(sm_free, sgd, None, row)(*other, batch)
+    torch.cuda.synchronize()
+    diff = [name for (name, g), (_, w) in zip(trainer._leaves({"p": params, "s": state}),
+                                              trainer._leaves({"p": other[0], "s": other[1]}))
+            if not torch.equal(g, w)]
+    if diff:
+        raise AssertionError(f"mesh nccl ScoreMoving step: {diff} differ from the mesh-free step")
+    kinds = {k: len(census[k]) for k in ("all-to-all", "all-gather", "reduce-scatter",
+                                          "all-reduce")}
+    if kinds != {"all-to-all": 2 * BPS, "all-gather": 3 * BPS, "reduce-scatter": 2 * BPS,
+                 "all-reduce": 1}:
+        raise AssertionError(f"mesh nccl ScoreMoving step census {kinds}")
+    out["sm_step"] = {"launches": {k: v for k, v in counts.items() if v}, "census": kinds,
+                      "l1_at_path_shape": _hold_l1_at(calls, gen)}
+    say("mesh", f"(c) NCCL 1 rank ScoreMoving sparse wikikg2 step: every array equal to the"
+        f" mesh-free step bit for bit; census {kinds}; launches {out['sm_step']['launches']}")
+    return out
+
+
+def _conve_mesh_rank(n: int, card, host, device: str, on_card: bool) -> dict:
+    """(d) ConvE with SyncBN at YAGO3-10 width over the gloo ranks: one
+    dense host-fed step (FusedDenseAdamW, B10) and one sparse step (RowSGDM
+    interleaved, B3), each against the same step on the CPU ranks in
+    float64 within the dense gate (the dense reference runs plain AdamW on
+    the table, the same update: B10's plain version takes fp32 and bf16
+    only), with the CPU's float64 gradient of bn0's bias beside the largest
+    (MESH_CONVE_NOISE); the running stats equal on every rank and (rank 0)
+    to the EMA of the global positive batch."""
+    rank = card.rank
+    sharding = Sharding.create(YAGO_ENTITY, n, seed=SEED)
+    rng = np.random.default_rng(SEED)
+    triples = np.stack([rng.integers(YAGO_ENTITY, size=YAGO_TRIPLE),
+                        rng.integers(YAGO_RELATION, size=YAGO_TRIPLE),
+                        rng.integers(YAGO_ENTITY, size=YAGO_TRIPLE)], 1).astype(np.int32)
+
+    def conve_fn():
+        return ConvE(True, sharding, YAGO_RELATION, CONVE_EMB, CONVE_H, CONVE_W,
+                     sync_batch_norm=True, seed=SEED)
+    score_fn = conve_fn()
+    module, pts = _conve_module(triples, sharding, score_fn, "shard")
+    cpu_module = EmbeddingMovingBessKGE(module.negative_sampler, conve_fn(), module.loss_fn,
+                                        axis_name="shard")
+    sampler = RigidShardedBatchSampler(pts, module.negative_sampler, shard_bs=CONVE_SHARD_BS,
+                                       batches_per_step=CONVE_BPS, seed=SEED)
+    batch = sampler.sample_batch(next(iter(sampler.epoch_index_blocks(shuffle=True))))
+    whole = score_fn.initial_params_device(device=device,
+                                           generator=torch.Generator(device).manual_seed(SEED))
+    out: Dict[str, object] = {}
+    rows = sharding.max_entity_per_shard
+    touched = _touched(batch, rank)
+    for form in ("dense", "sparse"):
+        params = shard_params(whole, card)
+        if form == "dense":
+            opt, ent = optim.AdamW(CONVE_LR), optim.FusedDenseAdamW(CONVE_LR, weight_decay=1e-4)
+            cpu_ent = None  # AdamW's weight decay is 1e-4 too
+        else:
+            opt = optim.SGD(CONVE_LR, momentum=MOMENTUM)
+            ent = cpu_ent = optim.RowSGDM(CONVE_LR, momentum=MOMENTUM, interleaved=True)
+            params["entity_embedding"] = optim.interleave_momentum(params["entity_embedding"])
+        state = trainer.init_optimizer_state(opt, params, card, ent, n_logical=n * rows)
+        cpu = tuple(_tree_map(lambda v: v.to("cpu", torch.float64 if v.is_floating_point()
+                                             else v.dtype, copy=True), t) for t in (params, state))
+        if form == "dense":
+            cpu = (cpu[0], trainer.init_optimizer_state(opt, cpu[0], host))
+        step = trainer.build_train_step(module, opt, card, ent, device=device)
+        reset_counts()
+        t = time.perf_counter()
+        params, state, o = step(params, state, batch, CONVE_RNG)
+        sync(device)
+        card_s = time.perf_counter() - t
+        counts = read_counts()
+        if on_card:
+            expect_counts(f"mesh rank {rank} conve {form} step", counts,
+                          {"dense_adamw_update": 1} if form == "dense" else {"scatter_rows": 1})
+        cpu_params, cpu_state, cpu_o = trainer.build_train_step(
+            cpu_module, opt, host, cpu_ent, device="cpu")(*cpu, batch, CONVE_RNG)
+        loss, cpu_loss = float(o["loss"]), float(cpu_o["loss"])
+        if not np.isfinite(loss) or abs(loss - cpu_loss) > DENSE_RTOL * abs(cpu_loss):
+            raise AssertionError(f"mesh rank {rank} conve {form}: loss {loss}, CPU {cpu_loss}")
+        if form == "dense":
+            errs = _conve_hold_dense(f"mesh rank {rank} conve dense vs the CPU (float64)",
+                                     (params, state), (cpu_params, cpu_state), 1,
+                                     MESH_CONVE_NOISE)
+            # The first step's mu is (1 - 0.9) g.
+            grads = [{name: mom["mu"] / 0.1 for name, (_, mom) in _adam_params(*side).items()}
+                     for side in ((params, state), (cpu_params, cpu_state))]
+        else:
+            errs = _conve_hold_sparse(f"mesh rank {rank} conve sparse vs the CPU (float64)",
+                                      (params, state), (cpu_params, cpu_state), touched,
+                                      MESH_CONVE_NOISE)
+            # The first step's momentum trace is g.
+            grads = [dict(trainer._leaves(side["other"]["trace"])) for side in (state, cpu_state)]
+        # bn0's bias (MESH_CONVE_NOISE): one value summing a term per pixel
+        # of every positive's input map over the ranks.
+        bias = [g["bn0.bias"].double().cpu() for g in grads]
+        norms = {name: g.abs().max().item() for name, g in grads[1].items()}
+        top = max(norms, key=norms.get)
+        bn0_bias = {"grad": norms["bn0.bias"], "largest": [top, norms[top]],
+                    "card_rel_err": ((bias[0] - bias[1]).abs() / bias[1].abs()).max().item(),
+                    "terms": int(batch["head"].size) * 2 * CONVE_H * CONVE_W}
+        stats = {k: {f: params[k][f].cpu().numpy() for f in ("mean", "var")}
+                 for k in ("bn0", "bn1", "bn2")}
+        if rank == 0:  # the EMA of the global positive batch, from the global params
+            head, rel = batch["head"], batch["relation"]
+            h = torch.from_numpy(np.concatenate([s * rows + head[:, s].reshape(-1)
+                                                 for s in range(n)]).astype(np.int64))
+            r = torch.from_numpy(np.concatenate([rel[:, s].reshape(-1)
+                                                 for s in range(n)]).astype(np.int64))
+            ref = _conve_fn(sharding).update_bn_stats(
+                whole, whole["entity_embedding"][h.to(device)], r.to(device), momentum=0.1)
+            for k, fields in stats.items():
+                for f, v in fields.items():
+                    w = ref[k][f].cpu().numpy()
+                    if not np.allclose(v, w, rtol=2e-4, atol=2e-5):
+                        raise AssertionError(f"mesh conve {form}: {k} {f} off the global batch's"
+                                             f" EMA by {np.abs(v - w).max()}")
+        out[form] = {"loss": loss, "cpu_loss": cpu_loss, "card_s": card_s,
+                     "report": _conve_gate_report(errs),
+                     "max_abs_err": max(e for e, _ in errs.values()),
+                     "max_gate_ratio": max(r_ for _, r_ in errs.values()),
+                     "launches": {k: v for k, v in counts.items() if v}, "bn": stats,
+                     "bn0_bias": bn0_bias}
+        del cpu, cpu_params, cpu_state
+    return out
+
+
+def _mesh_rank_rest(card, host, device: str, wikikg2: tuple, out: dict) -> None:
+    """The rest of the mesh on a gloo rank sharing the card: (a) ScoreMoving
+    validation through run_device_eval against a full-table reference, (b)
+    the all-scores pipeline (the mesh-free pipeline over the same global
+    params on rank 0), (c) a ScoreMoving sparse wikikg2 step against the CPU
+    ranks (``wikikg2``: the rank's wikikg2 module over the card, the same
+    over the CPU ranks, and their sampler), (d) ConvE with SyncBN. Each
+    part's results go into ``out``."""
+    n, rank = card.n_shard, card.rank
+    on_card = device == "cuda"
+    gen = torch.Generator(device)
+
+    # (a) Validation.
+    t0 = time.perf_counter()
+    triples, cands, sharding, module, sampler_v, _, _ = _valid_setup(n)
+    params = module.score_fn.initial_params_device(card, generator=gen.manual_seed(SEED))
+    reset_counts()
+    t = time.perf_counter()
+    metrics, n_q = run_device_eval(module, params, sampler_v, card, steps_per_block=VALID_SPB)
+    host_qps = n_q / (time.perf_counter() - t)
+    if on_card:
+        expect_counts(f"mesh rank {rank} valid", read_counts(), {})
+    blocks, _ = _valid_blocks(sampler_v, card, device)
+    qps = _blocks_rate(make_block_runner(module, card, device=device), params, blocks, n_q,
+                       device)
+    del blocks
+    valid = {"metrics": metrics, "n_queries": n_q, "host_queries_per_s": host_qps,
+             "queries_per_s": qps, "setup_s": t - t0}
+    whole = module.score_fn.initial_params_device(device=device, generator=gen.manual_seed(SEED))
+    if rank == 0:
+        valid["no_mesh"] = _valid_one_shard(whole, sharding, device)
+        _hold_valid("mesh valid", metrics, valid["no_mesh"])
+    # Half the answers planted (each even query's tail row its head row plus
+    # the relation row, on the global table): a true score put at another
+    # query's row moves the ranks of both.
+    table, rel = whole["entity_embedding"], whole["relation_embedding"]
+    row = _global_rows(sharding, table.device)
+    tri = torch.from_numpy(triples[::2].astype(np.int64)).to(table.device)
+    table[row[tri[:, 2]]] = table[row[tri[:, 0]]] + rel[tri[:, 1]]
+    planted, _ = run_device_eval(module, shard_params(whole, card), sampler_v, card,
+                                 steps_per_block=VALID_SPB)
+    if not min(planted.values()) >= 0.5:
+        raise AssertionError(f"mesh valid: half the answers planted give {planted}")
+    if rank == 0:
+        valid["planted_no_mesh"] = _valid_one_shard(whole, sharding, device)
+        _hold_valid("mesh valid, half the answers planted", planted, valid["planted_no_mesh"])
+    valid["planted"] = planted
+    out["valid"] = valid
+    del params, whole, table
+
+    # (b) The all-scores pipeline: every rank's dict; rank 0 runs the
+    # mesh-free pipeline on the same global params.
+    triples, sharding, score_fn, pts, sampler_as, _ = _as_setup(n, MESH_AS_BPS)
+    params = score_fn.initial_params_device(card, generator=gen.manual_seed(SEED))
+    pipe = _as_pipeline(sampler_as, score_fn, card, device)
+    n_step = pipe.bess_module.n_step
+    n_batches = sum(1 for _ in sampler_as.epoch_index_blocks(False))
+    reset_counts()
+    t = time.perf_counter()
+    got, calls = _l1_calls(lambda: pipe.forward(params), ("l1_distance_matrix",))
+    sync(device)
+    first_s = time.perf_counter() - t
+    counts = read_counts()
+    if on_card:
+        expect_counts(f"mesh rank {rank} allscores", counts,
+                      {"l1_distance_matrix": n_step * MESH_AS_BPS * n_batches})
+        out["as_l1_at_path_shape"] = _hold_l1_at(calls, gen.manual_seed(SEED + rank))
+    t = time.perf_counter()
+    pipe.forward(params)
+    sync(device)
+    allscores = {"ms_per_batch": [first_s * 1e3 / n_batches,
+                                  (time.perf_counter() - t) * 1e3 / n_batches],
+                 "windows": n_step, "batches": n_batches, "rows_per_block":
+                 sharding.max_entity_per_shard, "b5_launches": counts["l1_distance_matrix"],
+                 "out": got}
+    if rank == 0:
+        whole = score_fn.initial_params_device(device=device, generator=gen.manual_seed(SEED))
+        _, one_sh, one_fn, one_pts, one_sampler, _ = _as_setup(1, AS_BPS)
+        # The same global table in the one-shard order.
+        rows = _global_rows(sharding, device)
+        flat = torch.zeros((one_sh.max_entity_per_shard, DIM), device=device)
+        flat[torch.from_numpy(one_sh.entity_to_idx.astype(np.int64)).to(device)] = whole[
+            "entity_embedding"][rows]
+        want = _as_pipeline(one_sampler, one_fn, None, device).forward(
+            {"entity_embedding": flat, "relation_embedding": whole["relation_embedding"]})
+        allscores["ties"] = _hold_as_ties(_by_query(got, pts), _by_query(want, one_pts), whole,
+                                          sharding, triples)
+        allscores["metrics_avg"] = got["metrics_avg"]
+        allscores["no_mesh_metrics_avg"] = want["metrics_avg"]
+        del whole, flat
+    out["allscores"] = allscores
+    del params
+
+    # (c) A ScoreMoving sparse wikikg2 step against the CPU ranks.
+    module, cpu_module, sampler = wikikg2
+    score_fn = module.score_fn
+    sm, cpu_sm = _sm_module(module), _sm_module(cpu_module)
+    params = score_fn.initial_params_device(card, generator=gen.manual_seed(SEED))
+    sgd, row = optim.SGD(LR, momentum=MOMENTUM), optim.RowSGDM(LR, momentum=MOMENTUM,
+                                                               interleaved=True)
+    rows = module.sharding.max_entity_per_shard
+    params["entity_embedding"] = row.widen_table(params["entity_embedding"])
+    state = trainer.init_optimizer_state(sgd, params, card, row, n_logical=n * rows)
+    cpu = (_to(params, "cpu"), _to(state, "cpu"))
+    step = trainer.build_train_step(sm, sgd, card, row, device=device)
+    blocks = sampler.epoch_index_blocks(True)
+    batch = sampler.sample_batch(next(blocks))
+    reset_counts()
+    census, l1_calls = _l1_calls(lambda: collective_census(step, params, state, batch, mesh=card))
+    sync(device)
+    counts = read_counts()
+    if on_card:
+        expect_counts(f"mesh rank {rank} ScoreMoving step", counts, {
+            "l1_distance_matrix": 2 * BPS, "l1_distance_grads": 2 * BPS, "scatter_rows": 1})
+        out["sm_l1_at_path_shape"] = _hold_l1_at(l1_calls, gen.manual_seed(SEED + rank))
+    kinds = {k: len(census[k]) for k in ("all-to-all", "all-gather", "reduce-scatter",
+                                          "all-reduce")}
+    if kinds != {"all-to-all": 2 * BPS, "all-gather": 3 * BPS, "reduce-scatter": 2 * BPS,
+                 "all-reduce": 1}:
+        raise AssertionError(f"mesh rank {rank} ScoreMoving step census {kinds}")
+    trainer.build_train_step(cpu_sm, sgd, host, row, device="cpu")(*cpu, batch)
+    errs = _mesh_gate(f"mesh rank {rank} ScoreMoving step vs the CPU", (params, state), cpu,
+                      _touched(batch, rank), BF16_STEP_RTOL)
+    del cpu
+    timed = [sampler.sample_batch(next(blocks)) for _ in range(MESH_TIMED_STEPS)]
+    sync(device)
+    t = time.perf_counter()
+    for b in timed:
+        step(params, state, b)
+    sync(device)
+    out["sm_step"] = {"vs_cpu": errs, "census": kinds, "launches": {
+        k: v for k, v in counts.items() if v},
+        "ms_per_step": (time.perf_counter() - t) / len(timed) * 1e3}
+    del params, state
+
+    # (d) ConvE with SyncBN.
+    out["conve"] = _conve_mesh_rank(n, card, host, device, on_card)
+    out["rest_s"] = time.perf_counter() - t0
+
+
 #: The constants a rank of the mesh phase reads, passed from the parent (so
 #: that a shrunk CPU rehearsal shrinks its ranks too).
 _MESH_CONFIG = ("N_ENTITY", "N_RELATION", "DIM", "N_TRIPLE", "SHARD_BS_TRAIN", "BPS", "N_NEGATIVE",
                 "MESH_RANKS", "MESH_QUERIES", "MESH_TOPK_REPEATS", "MESH_TIMED_STEPS",
-                "MESH_FIT_TRIPLES", "N_REFERENCE")
+                "MESH_FIT_TRIPLES", "N_REFERENCE", "VALID_QUERIES", "VALID_CANDIDATES",
+                "VALID_SHARD_BS", "VALID_BPS", "VALID_SPB", "AS_ENTITY", "AS_QUERIES",
+                "AS_SHARD_BS", "AS_BPS", "AS_WINDOW", "MESH_AS_BPS", "YAGO_ENTITY", "YAGO_TRIPLE",
+                "CONVE_SHARD_BS", "CONVE_BPS")
 
 
 def _mesh_rank(tmp: str, config: dict, device: str) -> dict:
@@ -4362,6 +4907,10 @@ def _mesh_rank(tmp: str, config: dict, device: str) -> dict:
                       {"p": trainer._tree_map(lambda v: v.cpu(), fit.params),
                        "s": trainer._tree_map(lambda v: v.cpu(), fit.opt_state)})
     out["checkpoint"] = {"arrays_equal": same, "save_s": save_s, "load_s": load_s}
+    del fit, lp, ls, params, state
+    if on_card:
+        torch.cuda.empty_cache()
+    _mesh_rank_rest(card, host, device, (module, cpu_module, sampler), out)
     return out
 
 
@@ -4418,9 +4967,88 @@ def mesh_phase(gen: torch.Generator, smi: str = "", device: str = "cuda",
         f" params equal bit for bit on every rank; per-rank census of a step"
         f" {ranks[0]['step']['census']}, of a top-k batch {ranks[0]['topk']['census']}"
         f" ({time.perf_counter() - t0:.1f}s)")
+    _mesh_rest_report(nccl, ranks, smi)
+    say("mesh", f"phase done ({time.perf_counter() - t0:.1f}s)")
     for r in ranks:
         del r["fit"]["relation"]
     return {"nccl_1_rank": nccl, "gloo_ranks": ranks}
+
+
+def _mesh_rest_report(nccl: dict, ranks: list, smi: str) -> None:
+    """The gloo ranks' rest of the mesh held across ranks (the metrics, the
+    pipeline's dict and ConvE's running stats equal on every rank), and
+    printed."""
+    r0 = ranks[0]
+    for r in ranks[1:]:
+        if r["valid"]["metrics"] != r0["valid"]["metrics"]:
+            raise AssertionError("mesh valid: the metrics differ between ranks")
+        a, b = r["allscores"]["out"], r0["allscores"]["out"]
+        if a.keys() != b.keys() or any(
+                not np.array_equal(a[k], b[k]) for k in ("ranks", "topk_global_id", "triple_idx")):
+            raise AssertionError("mesh allscores: the ranks return different dicts")
+        if any(not np.array_equal(a["metrics"][k], b["metrics"][k]) for k in b["metrics"]):
+            raise AssertionError("mesh allscores: the ranks return different metrics")
+        for form in ("dense", "sparse"):
+            for k, fields in r["conve"][form]["bn"].items():
+                for f, v in fields.items():
+                    if not np.array_equal(v, r0["conve"][form]["bn"][k][f]):
+                        raise AssertionError(f"mesh conve {form}: {k} {f} differ between ranks")
+    for r in ranks[1:]:
+        if r["valid"]["planted"] != r0["valid"]["planted"]:
+            raise AssertionError("mesh valid: the planted metrics differ between ranks")
+    v = r0["valid"]
+    say("mesh", f"(a) {MESH_RANKS} gloo ranks valid: metrics {v['metrics']} on every rank over"
+        f" {v['n_queries']} queries, the mesh-free pass on the same global table"
+        f" {v['no_mesh']} (held within {VALID_SUM_ULPS} fp32 ulps); half the answers planted:"
+        f" {v['planted']} on every rank, {v['planted_no_mesh']} without a mesh;"
+        f" {', '.join(format(r['valid']['queries_per_s'], '.4g') for r in ranks)} queries/s by"
+        f" rank (blocks staged), {', '.join(format(r['valid']['host_queries_per_s'], '.4g') for r in ranks)}"
+        f" through run_device_eval; {smi}")
+    a = r0["allscores"]
+    say("mesh", f"(b) {MESH_RANKS} gloo ranks allscores ({a['rows_per_block']} rows per rank,"
+        f" {a['windows']} windows of {AS_WINDOW}, {a['batches']} batch of {MESH_AS_BPS} x"
+        f" {AS_SHARD_BS} a rank): every rank returns the same dict; against the mesh-free"
+        f" pipeline on the same global params: MRR {a['metrics_avg']['mrr']:.6f} vs"
+        f" {a['no_mesh_metrics_avg']['mrr']:.6f}, {a['ties']['rank_ties']} ranks and"
+        f" {a['ties']['topk_ties']} top-{K} sets differ, each by ties within 2^-7;"
+        f" {', '.join(format(r['allscores']['ms_per_batch'][1], '.1f') for r in ranks)} ms per"
+        f" {AS_QUERIES}-query batch by rank (first pass {a['ms_per_batch'][0]:.1f}); {smi}")
+    say("mesh", f"(c) {MESH_RANKS} gloo ranks ScoreMoving sparse step vs the CPU ranks max|err| "
+        + ", ".join(format(max(r["sm_step"]["vs_cpu"].values()), ".3g") for r in ranks)
+        + f" (sparse gate); census {r0['sm_step']['census']}; "
+        + ", ".join(format(r["sm_step"]["ms_per_step"], ".1f") for r in ranks)
+        + f" ms per host-fed step by rank; launches {r0['sm_step']['launches']}; {smi}")
+    for form in ("dense", "sparse"):
+        c = r0["conve"][form]
+        say("mesh", f"(d) {MESH_RANKS} gloo ranks ConvE SyncBN {form} step: vs the CPU ranks"
+            f" (float64) loss {c['loss']:.6f} vs {c['cpu_loss']:.6f}, max|err| "
+            + ", ".join(format(r["conve"][form]["max_abs_err"], ".3g") for r in ranks)
+            + " by rank (gate ratios "
+            + ", ".join(format(r["conve"][form]["max_gate_ratio"], ".3f") for r in ranks)
+            + f"); rank 0 {c['report']}; bn0.bias: the CPU's float64 |g| "
+            + ", ".join(format(r["conve"][form]["bn0_bias"]["grad"], ".4g") for r in ranks)
+            + " by rank (the largest max|g| "
+            + ", ".join(f"{r['conve'][form]['bn0_bias']['largest'][0]}"
+                        f" {r['conve'][form]['bn0_bias']['largest'][1]:.4g}" for r in ranks)
+            + "), the card's relative error "
+            + ", ".join(format(r["conve"][form]["bn0_bias"]["card_rel_err"], ".3g")
+                        for r in ranks)
+            + f" over {c['bn0_bias']['terms']} terms (sqrt(terms) x 2^-24"
+            f" {c['bn0_bias']['terms'] ** 0.5 * U32:.3g}); running stats equal on every rank and"
+            " to the global batch's EMA; launches"
+            f" {c['launches']}; {', '.join(format(r['conve'][form]['card_s'], '.2f') for r in ranks)}"
+            f" s per step by rank; {smi}")
+    if nccl is not None:
+        for where, held in (("NCCL 1 rank allscores", nccl["rest"]["allscores"]["l1_at_path_shape"]),
+                            ("NCCL 1 rank ScoreMoving step",
+                             nccl["rest"]["sm_step"]["l1_at_path_shape"]),
+                            ("gloo rank 0 allscores", r0["as_l1_at_path_shape"]),
+                            ("gloo rank 0 ScoreMoving step", r0["sm_l1_at_path_shape"])):
+            say("mesh", f"{where}: " + "; ".join(
+                f"{name} at {h['shapes']} max|err| {h['max_abs_err']:.3g}"
+                for name, h in held.items() if h["shapes"]) + " against the plain versions")
+    say("mesh", "rest of the mesh by rank: " + ", ".join(
+        format(r["rest_s"], ".1f") for r in ranks) + " s")
 
 
 def profile_steps(step, params, state, batches, trace: str) -> dict:
@@ -4582,13 +5210,33 @@ def main() -> int:
             "gloo_4_ranks_step_per_rank": [r["step"]["launches"][name] for r in gloo],
             "gloo_4_ranks_topk_batch_per_rank": [r["topk"]["launches_per_batch"][name]
                                                  for r in gloo]}
+        rest = nccl["rest"]
+        results[name]["launches_mesh"]["rest"] = {
+            "nccl_1_rank_allscores_pass": rest["allscores"]["b5_launches"]
+            if name == "l1_distance_matrix" else 0,
+            "nccl_1_rank_score_moving_step": rest["sm_step"]["launches"].get(name, 0),
+            "gloo_4_ranks_allscores_pass_per_rank": [
+                r["allscores"]["b5_launches"] if name == "l1_distance_matrix" else 0 for r in gloo],
+            "gloo_4_ranks_score_moving_step_per_rank": [r["sm_step"]["launches"].get(name, 0)
+                                                        for r in gloo],
+            **{f"gloo_4_ranks_conve_{form}_step_per_rank": [
+                r["conve"][form]["launches"].get(name, 0) for r in gloo]
+               for form in ("dense", "sparse")}}
     # B5 and B6 held against their plain versions at the mesh paths' shapes.
     for name in _L1_PATH:
         held = [nccl["l1_at_path_shape"][name]] + [r["l1_at_path_shape"][name] for r in gloo]
-        err = max(h["max_abs_err"] for h in held)
+        rest = [nccl["rest"]["allscores"]["l1_at_path_shape"][name],
+                nccl["rest"]["sm_step"]["l1_at_path_shape"][name],
+                gloo[0]["as_l1_at_path_shape"][name], gloo[0]["sm_l1_at_path_shape"][name]]
+        err = max(h["max_abs_err"] for h in held + rest + [r["as_l1_at_path_shape"][name]
+                                                           for r in gloo] + [
+            r["sm_l1_at_path_shape"][name] for r in gloo])
         results[name]["launches_mesh"]["held_at_the_path_shape"] = {
             "nccl_1_rank": held[0]["shapes"], "gloo_4_ranks": held[1]["shapes"],
-            "max_abs_err": err}
+            "nccl_1_rank_allscores": rest[0]["shapes"],
+            "nccl_1_rank_score_moving_step": rest[1]["shapes"],
+            "gloo_4_ranks_allscores": rest[2]["shapes"],
+            "gloo_4_ranks_score_moving_step": rest[3]["shapes"], "max_abs_err": err}
         results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
     results["dense_adamw_update"]["launches_yago"] = {
         "host_step": yago_run["host_step_launches"],
@@ -4760,6 +5408,25 @@ def main() -> int:
             "device_call_ms_per_step": [r["device_call"]["ms_per_step"] for r in gloo],
             "fit_steps": gloo[0]["fit"]["steps"], "fit_losses": gloo[0]["fit"]["losses"],
             "checkpoint": [r["checkpoint"] for r in gloo]},
+        "rest": {
+            "nccl_1_rank": {"valid": nccl["rest"]["valid"],
+                            "allscores_ms_per_batch": nccl["rest"]["allscores"]["ms_per_batch"],
+                            "score_moving_step": {k: nccl["rest"]["sm_step"][k]
+                                                  for k in ("launches", "census")}},
+            "gloo_ranks_on_one_card": {
+                "valid": [{k: r["valid"][k] for k in ("metrics", "queries_per_s",
+                                                      "host_queries_per_s")} for r in gloo],
+                "valid_no_mesh": {k: gloo[0]["valid"][k] for k in (
+                    "no_mesh", "planted", "planted_no_mesh")},
+                "allscores_ms_per_batch": [r["allscores"]["ms_per_batch"] for r in gloo],
+                "allscores_ties": gloo[0]["allscores"]["ties"],
+                "allscores_mrr": [gloo[0]["allscores"]["metrics_avg"]["mrr"],
+                                  gloo[0]["allscores"]["no_mesh_metrics_avg"]["mrr"]],
+                "score_moving_step": [{k: r["sm_step"][k] for k in ("vs_cpu", "ms_per_step")}
+                                      for r in gloo],
+                "conve_sync_bn": [{form: {k: v for k, v in r["conve"][form].items() if k != "bn"}
+                                   for form in ("dense", "sparse")} for r in gloo],
+                "rest_s": [r["rest_s"] for r in gloo]}},
         "note": "gloo ranks share one card: no time here measures NCCL across cards",
         "card": smi}}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

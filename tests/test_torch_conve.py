@@ -390,7 +390,8 @@ def test_raises_where_the_jax_package_does():
 
 def test_sync_batch_norm_is_the_identity_on_one_device():
     """sync_batch_norm=True without a mesh axis normalises as without it;
-    over a mesh it waits on ROADMAP A15b."""
+    with one and no mesh bound it raises (over a mesh it pmeans the moments:
+    tests/test_torch_mesh.py)."""
     sync, plain = conve("port", sync_batch_norm=True), conve("port")
     pp = to_port(random_params(conve("jax")))
     head, rel, tail, _ = inputs()
@@ -398,7 +399,7 @@ def test_sync_batch_norm_is_the_identity_on_one_device():
     assert torch.equal(sync.score_triple(pp, *args, train=True),
                        plain.score_triple(pp, *args, train=True))
     sync.mesh_axis = "shard"
-    with pytest.raises(NotImplementedError, match="A15"):
+    with pytest.raises(RuntimeError, match="mesh="):
         sync.score_triple(pp, *args, train=True)
 
 

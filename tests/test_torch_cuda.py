@@ -1262,3 +1262,87 @@ def test_one_rank_nccl_call_captures_its_collectives(cuda, tmp_path):
                     assert ((g - o).abs() <= 1e-5 * (o.abs() + o.abs().max())).all(), (call, name)
     finally:
         torch.distributed.destroy_process_group()
+
+
+@pytest.mark.parametrize("form", ["sm_forward", "device_eval", "pipeline", "sm_step",
+                                  "conve_sync_bn"])
+def test_one_rank_nccl_rest_of_the_mesh(cuda, tmp_path, form):
+    """Each form that the rest of the mesh ported, over a one-rank NCCL mesh
+    on the card, against the same call without a mesh: the ScoreMoving
+    forward, ``run_device_eval`` and ``AllScoresPipeline`` bit for bit; the
+    ScoreMoving sparse step and ConvE's fused dense step with SyncBN (one
+    shard: the identity) within 1e-5 x (|want| + max|want|) (the mesh runs
+    its micro-batches one by one through B5/B6, the mesh-free step vmaps
+    them through B1/B2)."""
+    import torch_mesh_ranks as R
+    from besskge_tpu_torch import eval_loop
+    from besskge_tpu_torch.parallel import make_shard_mesh, multihost, shard_params
+
+    multihost.initialize(f"file://{tmp_path / 'store'}", 1, 0, backend="nccl")
+    try:
+        mesh = make_shard_mesh(1)
+        assert mesh.backend == "nccl"
+        on = lambda p: shard_params(p, mesh)  # noqa: E731
+
+        def pair(build):
+            """The form over the mesh and without one (axis_name None)."""
+            return build(mesh, "shard"), build(None, None)
+
+        if form in ("sm_forward", "device_eval"):
+            def build(m, axis):
+                score_fn, module, sampler = (R.sm_setup(R.PORT, 1, ("tb", "ht", False))
+                                             if form == "sm_forward" else R.eval_setup(R.PORT, 1))
+                module.axis_name = axis
+                return score_fn, module, sampler
+            (score_fn, module, sampler), (_, free, _) = pair(build)
+            params = on(score_fn.initial_params("cpu"))
+            if form == "sm_forward":
+                batch = sampler.sample_batch(next(sampler.epoch_index_blocks(False)))
+                got = bess.build_bess_forward(module, mesh)(params, batch)
+                want = bess.build_bess_forward(free, None)(params, batch)
+                for k in want:
+                    assert torch.equal(got[k], want[k]), k
+            else:
+                got = eval_loop.run_device_eval(module, params, sampler, mesh, steps_per_block=3)
+                want = eval_loop.run_device_eval(free, params, sampler, None, steps_per_block=3)
+                assert got == want
+        elif form == "pipeline":
+            (score_fn, pipe, _, _), (_, free, _, _) = (
+                R.pipe_setup(R.PORT, 1, "filters", m) for m in (mesh, None))
+            params = on(score_fn.initial_params("cpu"))
+            got, want = pipe.forward(params), free.forward(params)
+            assert got.keys() == want.keys()
+            for k, v in want.items():
+                if isinstance(v, dict):
+                    for name in v:
+                        np.testing.assert_array_equal(got[k][name], v[name], err_msg=name)
+                else:
+                    np.testing.assert_array_equal(got[k], v, err_msg=k)
+        else:
+            def build(m, axis):
+                if form == "sm_step":
+                    score_fn, module, sampler, _ = R.smt_setup(R.PORT, 1, "ht")
+                    opt, ent = optim.SGD(0.5), optim.RowSGDM(0.5, momentum=0.0)
+                else:
+                    score_fn, module, sampler = R.conve_setup(R.PORT, 1, True)
+                    opt, ent = R.conve_optimizers("fused")
+                module.axis_name = axis
+                score_fn.mesh_axis = axis
+                return score_fn, module, sampler, opt, ent
+            (score_fn, module, sampler, opt, ent), (_, free, _, _, _) = pair(build)
+            batch = sampler.sample_batch(next(sampler.epoch_index_blocks(False)))
+            p0 = on(score_fn.initial_params("cpu"))
+            out = []
+            for m, mod in ((mesh, module), (None, free)):
+                p = trainer._clone(p0)
+                state = trainer.init_optimizer_state(opt, p, m, ent)
+                out.append(trainer.build_train_step(mod, opt, m, ent)(p, state, batch))
+            torch.cuda.synchronize()
+            for (name, g), (_, w) in zip(trainer._leaves({"p": out[0][0], "s": out[0][1]}),
+                                         trainer._leaves({"p": out[1][0], "s": out[1][1]})):
+                if g.is_floating_point():
+                    assert ((g - w).abs() <= 1e-5 * (w.abs() + w.abs().max())).all(), name
+                else:
+                    assert torch.equal(g, w), name
+    finally:
+        torch.distributed.destroy_process_group()

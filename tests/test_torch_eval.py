@@ -307,7 +307,7 @@ def test_forward_checks_match_jax():
         port_bess.ScoreMovingBessKGE(ns, sharing, evaluation=ev, augment_negative=True)
     with pytest.raises(ValueError, match="Nothing to return"):
         port_bess.ScoreMovingBessKGE(ns, per_triple)
-    with pytest.raises(NotImplementedError, match="A15"):
+    with pytest.raises(TypeError, match="ShardMesh"):
         port_bess.build_bess_forward(module, mesh="shard", device="cpu")
     flat_ns = port_ns.RandomShardedNegativeSampler(4, per_triple.sharding, 0, "t", False, True)
     with pytest.raises(ValueError, match="flat negative format"):

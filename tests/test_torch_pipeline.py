@@ -402,7 +402,7 @@ def test_pipeline_checks_match_jax():
         port_pipeline.AllScoresPipeline(sampler, "t", fn, device="cpu")
     with pytest.raises(ValueError, match="'t_shard'"):
         port_pipeline.AllScoresPipeline(sampler, "h", fn, return_scores=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="A15"):
+    with pytest.raises(TypeError, match="ShardMesh"):
         port_pipeline.AllScoresPipeline(sampler, "t", fn, mesh="shard", return_scores=True,
                                         device="cpu")
     pipe = port_pipeline.AllScoresPipeline(sampler, "t", fn, filter_triples=[FILTER],

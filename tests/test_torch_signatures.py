@@ -244,8 +244,8 @@ def test_row_optimizer_fields_equal_the_reference(cls):
 #: Public members of the reference that the port lacks, each queued under its
 #: ROADMAP item. A gap that is not listed here fails the member scan, and so
 #: does a listed one that the port has closed. The BESS modules' ``psum``
-#: closed with the mesh (A15a); what A15b owes is behaviour over a mesh,
-#: which raises ``NotImplementedError`` naming it, not a missing member.
+#: closed with the mesh (A15a), and every module runs over a mesh (A15b,
+#: ``tests/test_torch_mesh.py::test_every_former_a15b_site_runs_over_a_mesh``).
 UNPORTED_MEMBERS: dict = {}
 
 
@@ -289,7 +289,7 @@ def _member_gaps():
 
 def test_member_scan_holds_the_gaps_to_the_roadmap():
     """C3: the public members the port lacks are exactly the queued ones."""
-    assert set(UNPORTED_MEMBERS.values()) <= {"A15b", "A16"}
+    assert set(UNPORTED_MEMBERS.values()) <= {"A16"}
     gaps = _member_gaps()
     assert gaps - set(UNPORTED_MEMBERS) == set(), "new gaps"
     assert set(UNPORTED_MEMBERS) - gaps == set(), "closed gaps still listed"
