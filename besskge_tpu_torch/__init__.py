@@ -40,6 +40,12 @@ other step functions).
 
 __version__ = "0.1.0"
 
+# Keep the host sampler's large numpy buffers on a warm heap (glibc), as the
+# JAX package does at import.
+from besskge_tpu_torch._hostmem import configure_host_allocator  # noqa: E402
+
+configure_host_allocator()
+
 from besskge_tpu_torch.checkpoint import load_checkpoint, save_checkpoint  # noqa: E402
 from besskge_tpu_torch.device_sampler import DeviceBatchSampler  # noqa: E402
 from besskge_tpu_torch.eval_loop import run_device_eval  # noqa: E402

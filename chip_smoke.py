@@ -207,6 +207,16 @@ the CUDA toolkit. Phases, one line each with its elapsed seconds:
    replicated params equal on every rank) and a sharded checkpoint saved
    and loaded back onto the four ranks bit for bit. Gloo runs uncaptured;
    its times are gloo on one card, no measure of NCCL across cards.
+16. bench: ``python3 bench_torch.py``, the port's bench entry point, in a
+   subprocess with every name and its default step counts: one line per
+   name of ``bench.py`` (``BENCH_METRICS``), each value finite and positive
+   (the overlap at one rank 0, no collective kernel running there), the
+   census contract true, each training line's device busy share, MFU and
+   HBM share in (0, 100] and its rate within ``BENCH_RATIO`` of the same
+   configuration's device-sampled step in phases 8 and 9 (the ratio is
+   printed); then one device-sampled call of its wikikg2 and wikikg2_bf16
+   set-ups counted by wrapper (first call) and by name (a replay): B1, B2
+   2 x spc and B3 spc per call, B4, B8 and B9 none.
 
 Each path is driven with every launch count set to 0 just before it and
 read just after. Then one JSON line describing each kernel, and the result
@@ -221,6 +231,7 @@ only the named ones): device time by kernel, and the device's busy share.
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import subprocess
@@ -236,7 +247,8 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
-from besskge_tpu_torch import _build, checkpoint, optim, packed, scoring, trainer  # noqa: E402
+import bench_torch  # noqa: E402
+from besskge_tpu_torch import _build, checkpoint, monitor, optim, packed, scoring, trainer  # noqa: E402
 from besskge_tpu_torch.batch_sampler import (  # noqa: E402
     RandomShardedBatchSampler,
     RigidShardedBatchSampler,
@@ -433,6 +445,25 @@ MESH_AS_BPS = 2
 # only: at most (steps per block + log2 of a step's queries + the ranks'
 # sum) roundings of the sum on each side, under 32 each.
 VALID_SUM_ULPS = 64
+
+# bench_torch.py, the port's bench entry point (ROADMAP A16), run as a user
+# runs it: bench.py's metric of each name, written out here (bench.py imports
+# JAX); the run's time limit; and the band in which a training line's rate
+# must lie against the same configuration's device-sampled step in this run's
+# device and packed phases (the same card, the same call; bench.py's timing
+# window is shorter).
+BENCH_METRICS = {
+    "census": "bess_collective_census_nshard8",
+    "overlap": "bess_collective_overlap",
+    "biokg": "biokg_rotate_train_pos_triples_per_s_per_chip",
+    "wikikg2": "wikikg2_transe_sparse_train_pos_triples_per_s_per_chip",
+    "wikikg2_bf16": "wikikg2_transe_bf16table_train_pos_triples_per_s_per_chip",
+    "wikikg2_fp16": "wikikg2_transe_fp16table_train_pos_triples_per_s_per_chip",
+    "valid": "wikikg2_scoremoving_valid500_queries_per_s_per_chip",
+    "allscores": "allscores_pipeline_candidate_scores_per_s_per_chip",
+    "topk_yago": "yago_complex_topk_vs_all_queries_per_s_per_chip",
+}
+BENCH_TIMEOUT_S, BENCH_RATIO = 600, (0.8, 1.25)
 
 L1_SOURCE = "besskge_tpu_torch/csrc/l1_distance.cu"
 ROW_SOURCE = "besskge_tpu_torch/csrc/row_update.cu"
@@ -5051,6 +5082,111 @@ def _mesh_rest_report(nccl: dict, ranks: list, smi: str) -> None:
         format(r["rest_s"], ".1f") for r in ranks) + " s")
 
 
+def hold_bench_lines(lines: list, step_rates: Dict[str, float]) -> Dict[str, dict]:
+    """``bench_torch.py``'s JSON lines, by name, held to the contract: one
+    line per name of :data:`BENCH_METRICS` with its metric; a finite positive
+    value; the census contract true; each training line's device busy share,
+    MFU and HBM share in (0, 100] and its rate within :data:`BENCH_RATIO` of
+    ``step_rates`` (positive triples/s of the same configuration's
+    device-sampled step measured in this run). The overlap line at one rank
+    holds no collective time (NCCL runs no collective kernel in a one-rank
+    group), so its value must be 0 there and positive over several ranks."""
+    by_metric = {line.get("metric"): line for line in lines}
+    out = {}
+    for name, metric in BENCH_METRICS.items():
+        if metric not in by_metric:
+            raise AssertionError(f"bench_torch.py printed no {metric} line ({name})")
+        line = out[name] = by_metric[metric]
+        value = line.get("value")
+        if not isinstance(value, (int, float)) or not np.isfinite(value):
+            raise AssertionError(f"bench {name}: value {value!r}")
+        if name == "overlap" and line.get("ranks") == 1:
+            if value != 0.0 or line.get("collective_pct_of_busy") != 0.0:
+                raise AssertionError(f"bench overlap at one rank: {line}")
+        elif value <= 0:
+            raise AssertionError(f"bench {name}: value {value!r}")
+        if name == "census" and line.get("contract_ok") is not True:
+            raise AssertionError(f"bench census: {line}")
+        if name in step_rates:
+            for key in ("device_busy_pct", "mfu_bf16_pct", "hbm_bw_pct"):
+                pct = line.get(key)
+                if not isinstance(pct, (int, float)) or not 0 < pct <= 100:
+                    raise AssertionError(f"bench {name}: {key} {pct!r}")
+            line["vs_device_phase"] = value / step_rates[name]
+            if not BENCH_RATIO[0] <= line["vs_device_phase"] <= BENCH_RATIO[1]:
+                raise AssertionError(f"bench {name}: {value} triples/s is {line['vs_device_phase']:.3f}"
+                                     f"x this run's {step_rates[name]:.1f}")
+    if len(lines) != len(BENCH_METRICS):
+        raise AssertionError(f"bench_torch.py printed {len(lines)} lines, not {len(BENCH_METRICS)}")
+    return out
+
+
+def _bench_launches(name: str, **kw) -> dict:
+    """The port's kernels that one device-sampled call of ``bench_torch.py``'s
+    ``name`` set-up launches: by wrapper over the first call (the eager
+    warm-up and the capture), by name over a replay (profiler)."""
+    s = bench_torch._setup_wikikg2(**kw)
+    dev, step, spc = s["dev"], s["dstep"], bench_torch.CONFIGS[name]["steps_per_call"]
+    st = dev.state("cuda")
+    held = (s["params"], s["opt_state"])
+    reset_counts()
+    step(*held, st, dev.next_key(0))
+    torch.cuda.synchronize()
+    first = read_counts()
+    expect_counts(f"bench {name} first call", first, {
+        "l1_distance_matrix_batched": 2 * 2 * spc, "l1_distance_grads_batched": 2 * 2 * spc,
+        "scatter_rows": 2 * spc})
+    kernels = device_kernels(lambda: step(*held, st, dev.next_key(1)), 1)
+    per_call = {k: sum(n for key, (_, n) in kernels.items() if k in key) for k in (
+        "l1_distance_small_kernel", "l1_grads_kernel", "scatter_rows_kernel",
+        "fused_pair_sgdm_kernel", "gather_rows_kernel", "scatter_rows_multi_kernel")}
+    want = {"l1_distance_small_kernel": 2 * spc, "l1_grads_kernel": 2 * spc,
+            "scatter_rows_kernel": spc, "fused_pair_sgdm_kernel": 0, "gather_rows_kernel": 0,
+            "scatter_rows_multi_kernel": 0}
+    if per_call != want:
+        raise AssertionError(f"bench {name} replay: kernels {per_call}, expected {want}")
+    return {"first_call_wrapper_launches": {k: v for k, v in first.items() if v},
+            "per_call_by_name": per_call, "steps_per_call": spc}
+
+
+def bench_phase(smi: str, device_run: dict, packed_run: dict) -> dict:
+    """``python3 bench_torch.py`` with every name and its default step
+    counts, in a subprocess; its lines held by :func:`hold_bench_lines`
+    against this run's device-sampled steps; then the kernels that one
+    device-sampled call of its wikikg2 and wikikg2_bf16 set-ups launches."""
+    t = time.perf_counter()
+    torch.cuda.empty_cache()
+    res = subprocess.run([sys.executable, "-u", str(Path(__file__).resolve().parent / "bench_torch.py")],
+                         capture_output=True, text=True, timeout=BENCH_TIMEOUT_S)
+    if res.returncode != 0:
+        raise AssertionError(f"bench_torch.py exited {res.returncode}:\n{res.stderr[-3000:]}")
+    lines = [json.loads(ln) for ln in res.stdout.splitlines() if ln.startswith("{")]
+    wiki, bio = SHARD_BS_TRAIN * BPS, DENSE_SHARD_BS * DENSE_BPS
+    steps = {"biokg": (bio, device_run["biokg_adamw"]["ms_per_step"]),
+             "wikikg2": (wiki, device_run["wikikg2"]["ms_per_step"]),
+             **{name: (wiki, packed_run[name]["ms_per_step"]) for name in PACKED}}
+    rates = {name: n / float(np.mean(ms)) * 1e3 for name, (n, ms) in steps.items()}
+    held = hold_bench_lines(lines, rates)
+    wall_s = time.perf_counter() - t
+    for name, line in held.items():
+        extra = (f", {line['vs_device_phase']:.4f}x the {rates[name]:.1f} of this run's"
+                 f" {'device' if name in ('wikikg2', 'biokg') else 'packed'} phase, busy"
+                 f" {line['device_busy_pct']} %, MFU {line['mfu_bf16_pct']} %, HBM"
+                 f" {line['hbm_bw_pct']} %" if name in rates else "")
+        say("bench", f"{name} ({smi}): {line['value']} {line['unit']}{extra}")
+    torch.cuda.empty_cache()
+    launches = {}
+    for name, kw in (("wikikg2", {}), ("wikikg2_bf16", {"bf16_table": True})):
+        launches[name] = _bench_launches(name, **kw)
+        gc.collect()
+        torch.cuda.empty_cache()
+        say("bench", f"{name} device-sampled call: first call {launches[name]['first_call_wrapper_launches']}"
+            f" by wrapper, a replay {launches[name]['per_call_by_name']} by name")
+    say("bench", f"bench_torch.py and its checks in {wall_s:.1f}s (the run), "
+        f"{time.perf_counter() - t:.1f}s in all")
+    return {"lines": held, "launches": launches, "wall_s": wall_s}
+
+
 def profile_steps(step, params, state, batches, trace: str) -> dict:
     """Device time by kernel and the device's busy share over a few host-fed
     steps (``torch.profiler``); the trace goes to chiprun_out/."""
@@ -5078,15 +5214,18 @@ def profile_run(run, n_steps: int, trace: str) -> dict:
     # Kernels only: an op's device time is its kernels' time again.
     device_us = {e.key: e.self_device_time_total for e in prof.key_averages()
                  if e.device_type == DeviceType.CUDA}
-    busy_ms = sum(device_us.values()) / 1e3
-    say("profile", f"{n_steps} steps: wall {wall_ms:.3f} ms, device kernels {busy_ms:.3f} ms"
-        f" ({100 * busy_ms / wall_ms:.1f} % busy)")
-    for key, us in sorted(device_us.items(), key=lambda kv: -kv[1])[:15]:
-        if us > 0:
-            say("profile", f"{us / 1e3 / n_steps:9.4f} ms per step  {key[:90]}")
     out = Path("chiprun_out")
     out.mkdir(exist_ok=True)
     prof.export_chrome_trace(str(out / trace))
+    # Busy: the union of the device events' intervals, so that kernels that
+    # overlap (streams, graph branches) count once.
+    with open(out / trace) as f:
+        busy_ms = monitor.device_busy_us(json.load(f)["traceEvents"]) / 1e3
+    say("profile", f"{n_steps} steps: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms"
+        f" ({100 * busy_ms / wall_ms:.1f} %), kernels {sum(device_us.values()) / 1e3:.3f} ms")
+    for key, us in sorted(device_us.items(), key=lambda kv: -kv[1])[:15]:
+        if us > 0:
+            say("profile", f"{us / 1e3 / n_steps:9.4f} ms per step  {key[:90]}")
     return {"wall_ms": wall_ms, "device_ms": busy_ms, "busy_pct": 100 * busy_ms / wall_ms}
 
 
@@ -5202,6 +5341,13 @@ def main() -> int:
     conve_run = conve(gen, profile="conve" in profile, smi=smi)
     torch.cuda.empty_cache()
     mesh_run = mesh_phase(gen, smi=smi, profile="mesh" in profile)
+    torch.cuda.empty_cache()
+    bench_run = bench_phase(smi, device, packed_run)
+    for bench_name, run in bench_run["launches"].items():
+        for name in KERNELS:
+            results[name].setdefault("launches_bench", {})[bench_name] = {
+                "first_call_wrapper": run["first_call_wrapper_launches"].get(name, 0),
+                "steps_in_first_call": 2 * run["steps_per_call"]}
     nccl, gloo = mesh_run["nccl_1_rank"], mesh_run["gloo_ranks"]
     for name in KERNELS:
         results[name]["launches_mesh"] = {
@@ -5292,7 +5438,7 @@ def main() -> int:
         if "library_kernel_ms" in r:
             entry["library_kernel_ms"] = r["library_kernel_ms"]
         for key in ("launches_yago", "launches_scorers", "launches_eval", "launches_conve",
-                    "conve_shape", "launches_mesh"):
+                    "conve_shape", "launches_mesh", "launches_bench"):
             if key in r:
                 entry[key] = r[key]
         if "allscores_shape" in r:  # B5 at the all-scores window's shape too
@@ -5429,6 +5575,12 @@ def main() -> int:
                 "rest_s": [r["rest_s"] for r in gloo]}},
         "note": "gloo ranks share one card: no time here measures NCCL across cards",
         "card": smi}}), flush=True)
+    print(json.dumps({"bench": {
+        "lines": {name: {k: v for k, v in line.items() if k not in ("peaks", "card")}
+                  for name, line in bench_run["lines"].items()},
+        "replay_kernels_per_call": {name: run["per_call_by_name"]
+                                    for name, run in bench_run["launches"].items()},
+        "wall_s": bench_run["wall_s"], "card": smi}}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1346,3 +1346,47 @@ def test_one_rank_nccl_rest_of_the_mesh(cuda, tmp_path, form):
                     assert torch.equal(g, w), name
     finally:
         torch.distributed.destroy_process_group()
+
+
+# bench_torch.py's monitor and self-test on the card (ROADMAP A16).
+
+
+def test_bench_trace_breakdown_of_a_wikikg2_call(cuda, monkeypatch, tmp_path):
+    """``monitor.trace_breakdown`` over one device-sampled wikikg2 call of
+    ``bench_torch.py``'s set-up (smoke shapes; a replay: the capture is
+    done first) returns every key of the reference's breakdown, the busy
+    share in (0, 100]; a run that puts nothing on the card raises after its
+    retries rather than returning ``{}``."""
+    import bench_torch
+    from besskge_tpu_torch import monitor
+
+    monkeypatch.setattr(bench_torch, "_SMOKE", True)
+    s = bench_torch._setup_wikikg2()
+    dev, step, held = s["dev"], s["dstep"], (s["params"], s["opt_state"])
+    st = dev.state("cuda")
+    float(step(*held, st, dev.next_key(0))[2]["loss"])  # eager, then capture
+    out = monitor.trace_breakdown(
+        lambda: float(step(*held, st, dev.next_key(1))[2]["loss"]), str(tmp_path / "call"))
+    assert set(out) == {"device_busy_pct", "collective_pct_of_busy", "collective_overlap_pct",
+                        "data_movement_pct_of_busy"}
+    assert 0 < out["device_busy_pct"] <= 100 and out["collective_pct_of_busy"] == 0.0
+    assert 0 < out["data_movement_pct_of_busy"] < 100
+    with pytest.raises(RuntimeError, match="no device event"):
+        monitor.trace_breakdown(lambda: None, str(tmp_path / "empty"))
+    stats = monitor.device_memory_stats()
+    assert stats[str(torch.device("cuda", 0))]["allocated_bytes.all.current"] > 0
+
+
+def test_bench_kernel_selftest_on_the_card(cuda):
+    """``bench_torch._cuda_kernel_selftest``: B3 (plain and h = 3, 5), B8,
+    B10 and B6 launched on the card, against numpy."""
+    import bench_torch
+
+    row_kernels.reset_launch_counts()
+    adamw_kernels.reset_launch_counts()
+    l1_kernels.reset_launch_counts()
+    bench_torch._cuda_kernel_selftest()
+    assert row_kernels.scatter_rows.launches == 3
+    assert row_kernels.scatter_rows_multi.launches == 1
+    assert adamw_kernels.dense_adamw_update.launches == 1
+    assert l1_kernels.l1_distance_grads.launches == 1

@@ -27,7 +27,7 @@ def test_port_imports_without_jax():
                  "convert", "checkpoint", "ops.distance", "ops.l1_kernels", "ops.row_kernels",
                  "ops.adamw_kernels", "eval_loop", "pipeline", "dataset", "negative_sampler",
                  "parallel", "parallel.mesh", "parallel.collectives", "parallel.census",
-                 "parallel.multihost"):
+                 "parallel.multihost", "monitor", "_hostmem"):
         assert f"besskge_tpu_torch.{name}" in modules, name
     code = (
         "import importlib, sys\n"
@@ -57,12 +57,35 @@ def _imported_roots(path):
 
 
 def test_no_source_of_the_port_names_jax():
-    sources = [ROOT / "chip_smoke.py", *sorted((ROOT / "besskge_tpu_torch").rglob("*.py"))]
+    sources = [ROOT / "chip_smoke.py", ROOT / "bench_torch.py",
+               *sorted((ROOT / "besskge_tpu_torch").rglob("*.py"))]
     for path in sources:
         roots = _imported_roots(path)
         assert not roots & {"jax", "jaxlib", "besskge_tpu", "ml_dtypes"}, (path, roots)
     assert _imported_roots(ROOT / "chip_smoke.py") <= {
-        "__future__", "json", "os", "subprocess", "sys", "tempfile", "threading", "time",
+        "__future__", "bench_torch", "gc", "json", "os", "subprocess", "sys", "tempfile", "threading", "time",
         "pathlib", "typing",
         "numpy", "torch", "besskge_tpu_torch",
+    }
+
+
+def test_bench_torch_imports_without_jax():
+    """``bench_torch.py`` runs on the card's machine: importing it, and its
+    runners' imports of the port, pull in no ``jax``, ``besskge_tpu``,
+    ``bench`` or ``__graft_entry__``."""
+    code = (
+        "import sys, bench_torch\n"
+        "import besskge_tpu_torch.parallel.multihost, besskge_tpu_torch.pipeline\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in"
+        " ('jax', 'jaxlib', 'besskge_tpu', 'optax', 'bench', '__graft_entry__'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    result = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120
+    )
+    assert result.returncode == 0, result.stderr
+    assert _imported_roots(ROOT / "bench_torch.py") <= {
+        "__future__", "gc", "json", "os", "subprocess", "sys", "tempfile", "time", "pathlib",
+        "typing", "numpy", "torch", "besskge_tpu_torch",
     }

@@ -106,7 +106,14 @@ def test_the_scan_sees_the_ported_modules():
                  "besskge_tpu_torch.dataset.KGDataset.build_ogbl_wikikg2",
                  "besskge_tpu_torch.scoring.ConvE", "besskge_tpu_torch.scoring.ConvE.hr_transform",
                  "besskge_tpu_torch.scoring.ConvE.update_bn_stats",
-                 "besskge_tpu_torch.scoring.ConvE.score_tails"):
+                 "besskge_tpu_torch.scoring.ConvE.score_tails",
+                 "besskge_tpu_torch.monitor.StepTimer", "besskge_tpu_torch.monitor.StepTimer.stop",
+                 "besskge_tpu_torch.monitor.trace", "besskge_tpu_torch.monitor.trace_breakdown",
+                 "besskge_tpu_torch.monitor.parse_trace_events",
+                 "besskge_tpu_torch.monitor.top_ops",
+                 "besskge_tpu_torch.monitor.device_memory_stats",
+                 "besskge_tpu_torch._hostmem.configure_host_allocator",
+                 "besskge_tpu_torch._hostmem.prewarm_host_memory"):
         assert must in names, must
     assert len(SHARED) > 60
 
