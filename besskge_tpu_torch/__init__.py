@@ -27,7 +27,10 @@ in the JAX package's formats, with resharding (``checkpoint``,
 ``negative_sampler.TripleBasedShardedNegativeSampler``, through
 ``bess.build_bess_forward`` or ``eval_loop.run_device_eval``), candidate-set
 top-k, and filtered all-scores evaluation (``pipeline.AllScoresPipeline``);
-the dataset builders (``dataset.KGDataset.build_*``).
+the dataset builders (``dataset.KGDataset.build_*``) and the offline
+biokg and wikikg2 fixtures (``fixtures``), which the twins of the example
+scripts (``examples/*_torch.py``) train and evaluate on; ``optax``'s
+learning-rate schedules as functions of the step count (``schedules``).
 
 Over a mesh of ranks, one process per shard (``parallel``: a
 ``torch.distributed`` group, NCCL on cards, gloo on the CPU): the sparse,

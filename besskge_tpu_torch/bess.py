@@ -1066,11 +1066,19 @@ def _device_step(
     mbs = {k: v[:, 0] for k, v in batch.items() if k in _FORWARD_KEYS}
     bps = next(iter(mbs.values())).shape[0]
     if bess.axis_name is None:
+        # Every micro-batch's rows are gathered before the vmap, as the
+        # sparse step gathers them: a row-pair-packed table's halfword
+        # views (``Tensor.view(dtype)``) have no batching rule in torch
+        # 2.11, the card's.
+        idx = torch.func.vmap(bess.gather_plan)(mbs["head"], mbs["tail"], mbs["negative"])
+        gathered = take_rows(params["entity_embedding"], idx,
+                             n_logical=bess.sharding.max_entity_per_shard)
         if rng is None:
-            return torch.func.vmap(lambda mb: bess.forward(params, train=train, **mb))(mbs)
+            return torch.func.vmap(lambda mb, g: bess.forward(
+                params, train=train, gathered_emb=g, **mb))(mbs, gathered)
         rngs = split_key(rng, bps)
-        return torch.func.vmap(lambda mb, r: bess.forward(params, train=train, rng=r, **mb))(
-            mbs, rngs)
+        return torch.func.vmap(lambda mb, g, r: bess.forward(
+            params, train=train, rng=r, gathered_emb=g, **mb))(mbs, gathered, rngs)
     rngs = [None] * bps if rng is None else split_key(_fold_in(rng, bess.mesh.rank), bps)
     return _stack([bess.forward(params, train=train, rng=rngs[i],
                                 **{k: v[i] for k, v in mbs.items()}) for i in range(bps)])

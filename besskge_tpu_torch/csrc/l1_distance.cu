@@ -49,6 +49,7 @@
 // returns cudaGetLastError() so that a refused launch reaches the caller.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -64,8 +65,10 @@ constexpr int kPad = 4;          // keeps float4 rows 16-byte aligned
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
+__device__ __forceinline__ void store(__half* p, float x) { *p = __float2half_rn(x); }
 
 // Column of the tile that register column j of thread group tx holds:
 // two float4 groups, 64 columns apart.
@@ -255,6 +258,9 @@ __device__ __forceinline__ float2 load_pair(const float* p) {
 __device__ __forceinline__ float2 load_pair(const __nv_bfloat16* p) {
   const unsigned u = *reinterpret_cast<const unsigned*>(p);
   return make_float2(__uint_as_float(u << 16), __uint_as_float(u & 0xFFFF0000u));
+}
+__device__ __forceinline__ float2 load_pair(const __half* p) {
+  return __half22float2(*reinterpret_cast<const __half2*>(p));
 }
 
 // One stream tile (rows s0 ...) of y and w into stage buffers ys and ws.
@@ -547,6 +553,15 @@ struct Quad<__nv_bfloat16> {
                        __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xFFFF0000u));
   }
 };
+template <>
+struct Quad<__half> {
+  using Raw = uint2;
+  __device__ __forceinline__ static float4 widen(uint2 u) {
+    const float2 lo = __half22float2(*reinterpret_cast<const __half2*>(&u.x));
+    const float2 hi = __half22float2(*reinterpret_cast<const __half2*>(&u.y));
+    return make_float4(lo.x, lo.y, hi.x, hi.y);
+  }
+};
 
 // One depth half's runs of a thread, as loaded.
 template <typename T, int R>
@@ -749,7 +764,8 @@ void launch_distance(const void* a, const void* b, void* out, int G, int B, int 
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (a and b alike). N must be a multiple of 128.
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16 (a and b alike). N must be a
+// multiple of 128.
 extern "C" int bess_l1_scores_chunkmax(const void* a, const void* b, const void* valid,
                                        void* scores, void* cmax, int B, int N, int d,
                                        int dtype, float bad, void* stream) {
@@ -760,9 +776,14 @@ extern "C" int bess_l1_scores_chunkmax(const void* a, const void* b, const void*
           static_cast<const float*>(a), static_cast<const float*>(b),
           static_cast<const uint8_t*>(valid), static_cast<float*>(scores),
           static_cast<float*>(cmax), B, N, d, bad);
-    else
+    else if (dtype == 1)
       l1_scores_chunkmax_kernel<__nv_bfloat16><<<grid_for(B, N), kThreads, 0, s>>>(
           static_cast<const __nv_bfloat16*>(a), static_cast<const __nv_bfloat16*>(b),
+          static_cast<const uint8_t*>(valid), static_cast<float*>(scores),
+          static_cast<float*>(cmax), B, N, d, bad);
+    else
+      l1_scores_chunkmax_kernel<__half><<<grid_for(B, N), kThreads, 0, s>>>(
+          static_cast<const __half*>(a), static_cast<const __half*>(b),
           static_cast<const uint8_t*>(valid), static_cast<float*>(scores),
           static_cast<float*>(cmax), B, N, d, bad);
   }
@@ -770,20 +791,23 @@ extern "C" int bess_l1_scores_chunkmax(const void* a, const void* b, const void*
 }
 
 // a (G, B, d), b (G, N, d), out (G, B, N), dense. dtype: 0 = float32,
-// 1 = bfloat16; out has a's dtype. G = 1 is the unbatched distance (B5).
+// 1 = bfloat16, 2 = float16; out has a's dtype (an fp16 sum past 65,504 is
+// stored as inf, as the Pallas kernel stores it). G = 1 is the unbatched distance (B5).
 extern "C" int bess_l1_distance_matrix_batched(const void* a, const void* b, void* out, int G,
                                                int B, int N, int d, int dtype, void* stream) {
   if (G > 0 && B > 0 && N > 0) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (dtype == 0)
       launch_distance<float>(a, b, out, G, B, N, d, s);
-    else
+    else if (dtype == 1)
       launch_distance<__nv_bfloat16>(a, b, out, G, B, N, d, s);
+    else
+      launch_distance<__half>(a, b, out, G, B, N, d, s);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-// a (G, B, d) and b (G, N, d) in float32 (dtype 0) or bfloat16 (dtype 1), w (G, B, N)
+// a (G, B, d) and b (G, N, d) in float32 (dtype 0), bfloat16 (1) or float16 (2), w (G, B, N)
 // float32; writes da (G, B, d) and db (G, N, d) in float32 in one launch. G = 1 is
 // the unbatched gradient (B6).
 extern "C" int bess_l1_distance_grads_batched(const void* a, const void* b, const void* w,
@@ -793,8 +817,10 @@ extern "C" int bess_l1_distance_grads_batched(const void* a, const void* b, cons
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (dtype == 0)
       launch_grads<float>(a, b, w, da, db, G, B, N, d, s);
-    else
+    else if (dtype == 1)
       launch_grads<__nv_bfloat16>(a, b, w, da, db, G, B, N, d, s);
+    else
+      launch_grads<__half>(a, b, w, da, db, G, B, N, d, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

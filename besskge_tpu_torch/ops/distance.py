@@ -52,6 +52,26 @@ def _batch_first(
     )
 
 
+class _L1GradsBatched(torch.autograd.Function):
+    """``(da, db)`` of the batched L1 distance for a cotangent ``g``, in fp32
+    (B2). First-order only. The vmap rules return it (and :class:`_L1Batched`)
+    through ``apply``, so that a transform outside the vmap (``torch.func.grad``
+    of a vmapped forward, the dense step) unwraps its tensors before the
+    kernel reads their data pointers."""
+
+    @staticmethod
+    def forward(a: torch.Tensor, b: torch.Tensor, g: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+        return l1_kernels.l1_distance_grads_batched(a, b, g)
+
+    @staticmethod
+    def setup_context(ctx: Any, inputs: Tuple, output: Tuple) -> None:
+        pass
+
+    @staticmethod
+    def backward(ctx: Any, *grads: torch.Tensor) -> None:
+        raise NotImplementedError("the L1 distance has no second derivative here")
+
+
 class _L1Grads(torch.autograd.Function):
     """``(da, db)`` of the L1 distance matrix for a cotangent ``g``, in fp32
     (B6; B2 under vmap). First-order only."""
@@ -71,7 +91,26 @@ class _L1Grads(torch.autograd.Function):
     @staticmethod
     def vmap(info: Any, in_dims: Tuple, a, b, g):
         a, b, g = _batch_first(info.batch_size, in_dims, a, b, g)
-        return l1_kernels.l1_distance_grads_batched(a, b, g), (0, 0)
+        return _L1GradsBatched.apply(a, b, g), (0, 0)
+
+
+class _L1Batched(torch.autograd.Function):
+    """The per-group L1 distance (B1), with the VJP of
+    :class:`_L1GradsBatched` (B2); what :class:`_L1`'s vmap rule returns."""
+
+    @staticmethod
+    def forward(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        return l1_kernels.l1_distance_matrix_batched(a, b)
+
+    @staticmethod
+    def setup_context(ctx: Any, inputs: Tuple, output: torch.Tensor) -> None:
+        ctx.save_for_backward(*inputs)
+
+    @staticmethod
+    def backward(ctx: Any, g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        a, b = ctx.saved_tensors
+        da, db = _L1GradsBatched.apply(a, b, g.float())
+        return da.to(a.dtype), db.to(b.dtype)
 
 
 class _L1(torch.autograd.Function):
@@ -96,7 +135,7 @@ class _L1(torch.autograd.Function):
     @staticmethod
     def vmap(info: Any, in_dims: Tuple, a, b):
         a, b = _batch_first(info.batch_size, in_dims, a, b)
-        return l1_kernels.l1_distance_matrix_batched(a, b), 0
+        return _L1Batched.apply(a, b), 0
 
 
 @contextlib.contextmanager

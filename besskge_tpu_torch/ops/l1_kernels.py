@@ -48,18 +48,15 @@ __all__ = [
 CHUNK = 128
 #: Largest temporary of the plain versions, in bytes.
 _PLAIN_TEMP_BYTES = 256 << 20
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+#: The kernels' operand types: widened to fp32 at load, as the Pallas kernels do.
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 def _check_dtypes(a: torch.Tensor, b: torch.Tensor) -> None:
-    if torch.float16 in (a.dtype, b.dtype):
-        raise NotImplementedError(
-            "the L1 kernels take float32 or bfloat16 operands, got float16: an fp16 table"
-            " scores through compute_dtype=torch.bfloat16 (fp16 operands for the L1"
-            " kernels: ROADMAP A17)"
-        )
     if a.dtype != b.dtype or a.dtype not in _DTYPE_CODE:
-        raise ValueError(f"a and b must share a dtype in float32/bfloat16, got {a.dtype}, {b.dtype}")
+        raise ValueError(
+            f"a and b must share a dtype in float32/bfloat16/float16, got {a.dtype}, {b.dtype}"
+        )
 
 
 def _check_pair(a: torch.Tensor, b: torch.Tensor) -> None:

@@ -30,7 +30,11 @@ the CUDA toolkit. Phases, one line each with its elapsed seconds:
    (1, n, D) block; B9 with h = 2 over the pair-major table; B10 over the
    (93,773, 128) biokg table in fp32 and with a bf16 param, and over a table
    whose size is not a multiple of 4, timed as a whole call (one kernel) and
-   by kernel name beside ``torch.optim.AdamW(fused=True).step()``;
+   by kernel name beside ``torch.optim.AdamW(fused=True).step()``; then
+   fp16 operands (ROADMAP A17) of B7, B5, B1, B2 and B6 at the same path
+   shapes and at ``profiling.DISTANCE_EDGES`` (:func:`check_fp16_kernels`;
+   the ``__half`` instantiations by name, timed beside ``torch.cdist`` on
+   the fp16 operands, which this torch refuses: ``library_ms`` null);
 4. serving: ``build_topk_forward`` of TransE-L1 at ogbl-wikikg2 width
    (2,500,604 entities, 535 relation types, d = 128, 512 queries per batch,
    k = 10) once with the chunk merge (B7) and once with the sort merge (B5);
@@ -92,7 +96,10 @@ the CUDA toolkit. Phases, one line each with its elapsed seconds:
    B8 k = 3) over one host-fed step, bit for bit; ``Trainer.fit``, which
    widens the packed table; sets of timed calls in turns with the fp32
    wikikg2 step; and a JSON line of times, table bytes, captures and
-   launches.
+   launches. Then the fp16 scoring step (:func:`fp16_step`): the packed
+   fp16 table with ``compute_dtype=torch.float16``, one call against the
+   CPU at the same gate, and a host-fed step's B1/B2 counted by wrapper and
+   as their fp16 instantiations by name.
 10. checkpoint: the wikikg2 (fp32 pair-major) and wikikg2_bf16 (triplet
    store) device-sampled steps of phase 9, each run for 4 calls, and again
    for 2 calls through a ``Trainer`` that ``save``s; a fresh ``Trainer``
@@ -207,7 +214,20 @@ the CUDA toolkit. Phases, one line each with its elapsed seconds:
    replicated params equal on every rank) and a sharded checkpoint saved
    and loaded back onto the four ranks bit for bit. Gloo runs uncaptured;
    its times are gloo on one card, no measure of NCCL across cards.
-16. bench: ``python3 bench_torch.py``, the port's bench entry point, in a
+16. examples (:func:`examples_phase`): the biokg fixture built at full
+   scale (seconds, temperature, oracle estimate, B5 launches; one pick by
+   name and without a host sync), the fixture at scale 0.01 on the card
+   against the CPU (rows that differ, at most 0.1 % of a split), then the
+   twins ``examples/*_torch.py`` as subprocesses: ``biokg_parity_torch.py
+   --epochs 1`` at full scale and width, ``wikikg2_parity_torch.py --scale
+   0.05 --epochs 1 --vs-all 512`` with each packed 16-bit type,
+   ``wikikg2_oracle_vsall_torch.py --scale 0.05 --vs-all 512`` and
+   ``wikikg2_bf16_torch.py`` at 250,060 entities; each exits 0 with its JSON line,
+   every MRR finite, every planted oracle and the one-epoch biokg MRR above
+   5x the uniform-rank floor, and each twin's kernels launched (B1/B2;
+   B8, the wikikg2 twins' separate momentum buffer; B3, the triplet store
+   of the bf16 twin; B7, the vs-all top-k).
+17. bench: ``python3 bench_torch.py``, the port's bench entry point, in a
    subprocess with every name and its default step counts: one line per
    name of ``bench.py`` (``BENCH_METRICS``), each value finite and positive
    (the overlap at one rank 0, no collective kernel running there), the
@@ -248,7 +268,16 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
 import bench_torch  # noqa: E402
-from besskge_tpu_torch import _build, checkpoint, monitor, optim, packed, scoring, trainer  # noqa: E402
+from besskge_tpu_torch import (  # noqa: E402
+    _build,
+    checkpoint,
+    fixtures,
+    monitor,
+    optim,
+    packed,
+    scoring,
+    trainer,
+)
 from besskge_tpu_torch.batch_sampler import (  # noqa: E402
     RandomShardedBatchSampler,
     RigidShardedBatchSampler,
@@ -296,8 +325,11 @@ SEED = 0
 # Kernel-vs-plain tolerance: fp32 sums of 128 terms in another order.
 RTOL, ATOL = 1e-5, 1e-4
 # B5 stores bf16 for bf16 inputs: an fp32 sum that differs in its last bits
-# may round to the neighbouring bf16 value, at most 2^-7 of the value.
+# may round to the neighbouring bf16 value, at most 2^-7 of the value; for
+# fp16 inputs (ROADMAP A17) one fp16 ulp, at most 2^-10.
 BF16_ULP = 2.0**-7
+FP16_ULP = 2.0**-10
+OUT_ULP = {torch.float32: 0.0, torch.bfloat16: BF16_ULP, torch.float16: FP16_ULP}
 
 # H100 SXM peaks (NVIDIA data sheet, at 700 W): 67 TFLOP/s fp32 on
 # the CUDA cores counts an FMA as two operations, so the card issues 33.5e12
@@ -464,6 +496,30 @@ BENCH_METRICS = {
     "topk_yago": "yago_complex_topk_vs_all_queries_per_s_per_chip",
 }
 BENCH_TIMEOUT_S, BENCH_RATIO = 600, (0.8, 1.25)
+
+# The examples (ROADMAP A16(4-5)): the port's twins of examples/*.py run as
+# scripts on the card, in subprocesses. The biokg fixture at full scale
+# (scale 1.0: 93,773 entities, 4,762,678 / 162,886 / 162,870 triples) is
+# built here, timed and cached where biokg_parity_torch.py looks (the twin's
+# seed 42 and defaults); then the twin trains RotatE on it for EX_BIOKG_ARGS
+# at full width (d = 64 complex, shard_bs 240, 48 micro-batches) and
+# evaluates the full valid split against 500 + 500 negatives.
+# wikikg2_parity_torch.py at EX_WIKIKG2_ARGS (scale 0.05: 125,030 entities,
+# 805,459 train triples; width kept: d = 128, 8 x 512 positives, 32
+# negatives, 500 + 500) with each packed 16-bit type;
+# wikikg2_oracle_vsall_torch.py at EX_ORACLE_ARGS; wikikg2_bf16_torch.py at
+# EX_BF16_ARGS (its B3 in the triplet store). The phase took 280 s on an
+# H100 at scale 0.1 and the bf16 twin's 2,500,604 entities (NVIDIA H100
+# 80GB HBM3, 700.00 W): those two scales are cut, nothing else. The
+# fixture is also built at EX_CPU_SCALE on the card and on the CPU from the
+# same seed, rows that differ gated at EX_ROW_SHARE of a split.
+EX_SEED, EX_BIOKG_SCALE = 42, 1.0
+EX_BIOKG_ARGS = ["--epochs", "1"]
+EX_WIKIKG2_ARGS = ["--scale", "0.05", "--epochs", "1", "--vs-all", "512"]
+EX_ORACLE_ARGS = ["--scale", "0.05", "--vs-all", "512"]
+EX_BF16_ARGS = ["--entities", "250060", "--triples", "200000", "--steps", "20"]
+EX_CPU_SCALE, EX_ROW_SHARE, EX_TIMEOUT_S = 0.01, 0.001, 600
+EX_CACHE = Path(__file__).resolve().parent / ".fixture_cache" / "torch"
 
 L1_SOURCE = "besskge_tpu_torch/csrc/l1_distance.cu"
 ROW_SOURCE = "besskge_tpu_torch/csrc/row_update.cu"
@@ -938,11 +994,13 @@ def check_training_kernels(gen: torch.Generator, table_rows: int) -> dict:
     return results
 
 
-def check_distance_edges(gen: torch.Generator) -> dict:
+def check_distance_edges(gen: torch.Generator, dtypes=(torch.float32, torch.bfloat16),
+                         time_autograd: bool = True) -> dict:
     """B1 (and B5 where G = 1) against its plain version at the edges of the
-    distance kernel's tiles (``profiling.DISTANCE_EDGES``), fp32 and bf16;
-    each call one ``l1_distance_small_kernel``, and a repeat call the same
-    bits. B5 timed at the autograd path's shape (256, 288, 128) fp32."""
+    distance kernel's tiles (``profiling.DISTANCE_EDGES``) in each of
+    ``dtypes``; each call one ``l1_distance_small_kernel`` (of the operands'
+    type), and a repeat call the same bits. With ``time_autograd``, B5
+    timed at the autograd path's shape (256, 288, 128) fp32."""
     errs = {"l1_distance_matrix_batched": 0.0, "l1_distance_matrix": 0.0}
 
     def tensor(shape, dtype, offset):
@@ -952,12 +1010,12 @@ def check_distance_edges(gen: torch.Generator) -> dict:
         return flat.view(shape)
 
     for g_, b_, n_, d_, offset in DISTANCE_EDGES:
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in dtypes:
             a, b = tensor((g_, b_, d_), dtype, offset), tensor((g_, n_, d_), dtype, offset)
             k = min(b_, n_) // 2
             b[:, :k, : d_ // 2] = a[:, :k, : d_ // 2]  # planted exact ties
             ref = l1_kernels.l1_distance_matrix_batched_plain(a, b).float()
-            tol = ATOL + (RTOL + (BF16_ULP if dtype == torch.bfloat16 else 0.0)) * ref.abs()
+            tol = ATOL + (RTOL + OUT_ULP[dtype]) * ref.abs()
             calls = [("l1_distance_matrix_batched",
                       lambda: l1_kernels.l1_distance_matrix_batched(a, b))]
             if g_ == 1:
@@ -973,14 +1031,21 @@ def check_distance_edges(gen: torch.Generator) -> dict:
                 if not (err <= tol).all():
                     raise AssertionError(f"{name} off its plain version by {err.max().item()}"
                                          f" at {a.shape}, {b.shape} {dtype}")
-                one_kernel(f"{name} at {tuple(a.shape)}, {tuple(b.shape)}",
-                           device_kernels(fn, 3), "l1_distance_small_kernel")
+                kernels = device_kernels(fn, 3)
+                one_kernel(f"{name} at {tuple(a.shape)}, {tuple(b.shape)}", kernels,
+                           "l1_distance_small_kernel")
+                if dtype == torch.float16 and "half" not in next(iter(kernels)):
+                    raise AssertionError(f"{name}: fp16 operands ran {next(iter(kernels))}")
                 errs[name] = max(errs[name], err.max().item())
             say("kernels", f"G={g_} B={b_} N={n_} d={d_} {str(dtype)[6:]} base +{offset}: B1"
                 f"{' and B5' if g_ == 1 else ''} within tolerance (max|err|"
                 f" {err.max().item():.3g}), same bits on repeat, one kernel per call")
             del ref, err
 
+    out = {"l1_distance_matrix_batched": {"max_abs_err": errs["l1_distance_matrix_batched"]},
+           "l1_distance_matrix": {"max_abs_err": errs["l1_distance_matrix"]}}
+    if not time_autograd:
+        return out
     B, N, d = SHARD_BS_TRAIN // 2, SHARD_BS_TRAIN // 2 + N_NEGATIVE, DIM
     a, b = uniform((B, d), gen, d), uniform((N, d), gen, d)
     autograd_shape = dict(
@@ -996,9 +1061,165 @@ def check_distance_edges(gen: torch.Generator) -> dict:
         f" {r['ms']:.4f} ms on the device ({r['event_ms']:.4f} ms between events), plain"
         f" {r['plain_ms']:.4f} ms, cdist {r['library_ms']:.4f} ms, bound {r['bound'][0]:.4f} ms"
         f" ({r['bound'][1]})")
-    return {"l1_distance_matrix_batched": {"max_abs_err": errs["l1_distance_matrix_batched"]},
-            "l1_distance_matrix": {"max_abs_err": errs["l1_distance_matrix"],
-                                   "autograd_shape": autograd_shape}}
+    out["l1_distance_matrix"]["autograd_shape"] = autograd_shape
+    return out
+
+
+def _half_kernel(what: str, kernels: Dict[str, tuple], name: str) -> float:
+    """:func:`one_kernel`, and the kernel is the fp16 instantiation."""
+    ms = one_kernel(what, kernels, name)
+    if "half" not in next(iter(kernels)):
+        raise AssertionError(f"{what}: fp16 operands ran {next(iter(kernels))}")
+    return ms
+
+
+def _cdist_grad(a: torch.Tensor, b: torch.Tensor, w: torch.Tensor):
+    """The backward of one ``torch.cdist(a, b, p=1)``, as a callable."""
+    a, b = a.clone().requires_grad_(), b.clone().requires_grad_()
+    out = torch.cdist(a, b, p=1)
+    return lambda: torch.autograd.grad(out, (a, b), w.to(out.dtype), retain_graph=True)
+
+
+def _cdist_fp16_ms(make, reps: int):
+    """Device ms of the callable ``make()`` returns (``torch.cdist(p=1)`` or
+    its backward on fp16 operands, the library yardstick of the fp16
+    cases); ``None`` when this torch has no fp16 ``cdist`` on the card (its
+    refusal is printed)."""
+    try:
+        return device_ms(make(), reps)
+    except RuntimeError as err:  # a refusal of the operand type, not a failure of ours
+        if "Half" not in str(err):
+            raise
+        say("kernels", f"torch.cdist takes no fp16 operands on the card here: {str(err)[:120]}")
+        return None
+
+
+def check_fp16_kernels(gen: torch.Generator) -> dict:
+    """fp16 operands (ROADMAP A17) of B7, B5, B1, B2 and B6 against their
+    plain versions on the card: B7/B5 at the serving shape and two ragged
+    ones, B1/B2/B6 at the training shape and a ragged one with planted
+    ties, B1/B5 at ``profiling.DISTANCE_EDGES``. B1/B5/B7 within the fp32
+    sum tolerance plus one fp16 ulp of the output (B7 writes fp32: the sum
+    tolerance alone), B2/B6 within the sum bound, as the bf16 cases. Each
+    timed alone at its path shape (the fp16 instantiation by name) beside
+    its bound (the same instructions, half the operand bytes of fp32) and
+    ``torch.cdist(p=1)`` on the fp16 operands."""
+    half = torch.float16
+    names = ("l1_scores_chunkmax", "l1_distance_matrix", "l1_distance_matrix_batched",
+             "l1_distance_grads_batched", "l1_distance_grads")
+    out = {name: {"max_abs_err": 0.0} for name in names}
+    serving = (SHARD_BS, 131072, DIM)
+    for B, N, d in [serving, (3, 256, 100), (64, 1024, 128)]:
+        a, b = uniform((B, d), gen, d).to(half), uniform((N, d), gen, d).to(half)
+        valid = torch.rand(N, device="cuda", generator=gen) > 0.2
+        valid[128:256] = False  # a wholly invalid chunk
+        s, cmax = l1_kernels.l1_scores_chunkmax(a, b, valid)
+        dist = l1_kernels.l1_distance_matrix(a, b)
+        torch.cuda.synchronize()
+        s_ref, cmax_ref = l1_kernels.l1_scores_chunkmax_plain(a, b, valid)
+        torch.testing.assert_close(s, s_ref, rtol=RTOL, atol=ATOL)
+        torch.testing.assert_close(cmax, cmax_ref, rtol=RTOL, atol=ATOL)
+        if not torch.equal(cmax, s.reshape(B, -1, 128).amax(-1)) or not (cmax[:, 1] < -4e4).all():
+            raise AssertionError("fp16 B7: chunk maxima off its scores or the invalid chunk")
+        ref = l1_kernels.l1_distance_matrix_plain(a, b).float()
+        err5 = (dist.float() - ref).abs()
+        if dist.dtype != half or not (err5 <= ATOL + (RTOL + FP16_ULP) * ref.abs()).all():
+            raise AssertionError(f"fp16 B5 off its plain version by {err5.max().item()}")
+        err7 = max((s - s_ref).abs().max().item(), (cmax - cmax_ref).abs().max().item())
+        for name, e in (("l1_scores_chunkmax", err7), ("l1_distance_matrix", err5.max().item())):
+            out[name]["max_abs_err"] = max(out[name]["max_abs_err"], e)
+        say("kernels", f"B={B} N={N} d={d} float16: B7 max|err| {err7:.3g}, cmax exact; B5"
+            f" max|err| {err5.max().item():.3g} (fp16 output)")
+        if (B, N, d) == serving:
+            in_bytes = (B + N) * d * 2
+            out["l1_scores_chunkmax"].update(
+                shape=[B, N, d],
+                ms=_half_kernel("fp16 B7", device_kernels(
+                    lambda: l1_kernels.l1_scores_chunkmax(a, b, valid), 20),
+                    "l1_scores_chunkmax_kernel"),
+                plain_ms=device_ms(lambda: l1_kernels.l1_scores_chunkmax_plain(a, b, valid), 3),
+                library_ms=_cdist_fp16_ms(lambda: lambda: library_chunkmax(a, b, valid), 3),
+                bound=bound_ms(B, N, d, in_bytes + N, B * N * 4 + B * (N // 128) * 4))
+            out["l1_distance_matrix"].update(
+                shape=[B, N, d],
+                ms=_half_kernel("fp16 B5", device_kernels(
+                    lambda: l1_kernels.l1_distance_matrix(a, b), 20), "l1_distance_small_kernel"),
+                plain_ms=device_ms(lambda: l1_kernels.l1_distance_matrix_plain(a, b), 3),
+                library_ms=_cdist_fp16_ms(lambda: lambda: torch.cdist(a, b, p=1), 3),
+                bound=bound_ms(B, N, d, in_bytes, B * N * 2))
+        del s, cmax, dist, s_ref, cmax_ref, ref, err5
+
+    G, B, N, d = BPS, SHARD_BS_TRAIN // 2, SHARD_BS_TRAIN // 2 + N_NEGATIVE, DIM
+    for g_, b_, n_, d_ in [(G, B, N, d), (3, 37, 211, 100)]:
+        a, b = uniform((g_, b_, d_), gen, d_).to(half), uniform((g_, n_, d_), gen, d_).to(half)
+        k = min(b_, n_) // 2
+        b[:, :k, : d_ // 2] = a[:, :k, : d_ // 2]  # planted exact ties
+        w = torch.randn(g_, b_, n_, device="cuda", generator=gen)
+        dist = l1_kernels.l1_distance_matrix_batched(a, b)
+        da, db = l1_kernels.l1_distance_grads_batched(a, b, w)
+        da6, db6 = l1_kernels.l1_distance_grads(a[0], b[0], w[0])
+        again = (*l1_kernels.l1_distance_grads_batched(a, b, w),
+                 *l1_kernels.l1_distance_grads(a[0], b[0], w[0]))
+        torch.cuda.synchronize()
+        if not all(torch.equal(x, y) for x, y in zip((da, db, da6, db6), again)):
+            raise AssertionError("fp16 B2/B6 gave other bits on a repeat call")
+        ref = l1_kernels.l1_distance_matrix_batched_plain(a, b).float()
+        err1 = (dist.float() - ref).abs()
+        if dist.dtype != half or not (err1 <= ATOL + (RTOL + FP16_ULP) * ref.abs()).all():
+            raise AssertionError(f"fp16 B1 off its plain version by {err1.max().item()}")
+        rda, rdb = l1_kernels.l1_distance_grads_batched_plain(a, b, w)
+        errs = {"l1_distance_matrix_batched": err1.max().item()}
+        for name, got, want, tol in (
+            ("l1_distance_grads_batched", da, rda, sum_tol(w, 2)),
+            ("l1_distance_grads_batched", db, rdb, sum_tol(w.transpose(1, 2), 2)),
+            ("l1_distance_grads", da6, rda[0], sum_tol(w[0], 1)),
+            ("l1_distance_grads", db6, rdb[0], sum_tol(w[0].T, 1)),
+        ):
+            err = (got - want).abs()
+            if got.dtype != torch.float32 or not (err <= tol).all():
+                raise AssertionError(f"fp16 {name} off its plain version by {err.max().item()}")
+            errs[name] = max(errs.get(name, 0.0), err.max().item())
+        for name, e in errs.items():
+            out[name]["max_abs_err"] = max(out[name]["max_abs_err"], e)
+        say("kernels", f"G={g_} B={b_} N={n_} d={d_} float16: B1 max|err|"
+            f" {errs['l1_distance_matrix_batched']:.3g}, B2 {errs['l1_distance_grads_batched']:.3g},"
+            f" B6 {errs['l1_distance_grads']:.3g} (ties planted; fp32 gradients)")
+        if (g_, b_, n_, d_) == (G, B, N, d):
+            terms = G * B * N * d
+            in_bytes = (G * B + G * N) * d * 2
+            grad_bytes = in_bytes + G * B * N * 4 + (G * B + G * N) * d * 4
+            out["l1_distance_matrix_batched"].update(
+                shape=[G, B, N, d],
+                ms=_half_kernel("fp16 B1", device_kernels(
+                    lambda: l1_kernels.l1_distance_matrix_batched(a, b), 100),
+                    "l1_distance_small_kernel"),
+                plain_ms=device_ms(lambda: l1_kernels.l1_distance_matrix_batched_plain(a, b), 10),
+                library_ms=_cdist_fp16_ms(lambda: lambda: torch.cdist(a, b, p=1), 20),
+                bound=bound_of(2.0 * terms, in_bytes + G * B * N * 2))
+            out["l1_distance_grads_batched"].update(
+                shape=[G, B, N, d],
+                ms=_half_kernel("fp16 B2", device_kernels(
+                    lambda: l1_kernels.l1_distance_grads_batched(a, b, w), 100), "l1_grads_kernel"),
+                plain_ms=device_ms(lambda: l1_kernels.l1_distance_grads_batched_plain(a, b, w), 10),
+                library_ms=_cdist_fp16_ms(lambda: _cdist_grad(a, b, w), 10),
+                bound=bound_of(4.0 * terms, grad_bytes))
+            out["l1_distance_grads"].update(
+                shape=[B, N, d],
+                ms=_half_kernel("fp16 B6", device_kernels(
+                    lambda: l1_kernels.l1_distance_grads(a[0], b[0], w[0]), 100), "l1_grads_kernel"),
+                plain_ms=device_ms(lambda: l1_kernels.l1_distance_grads_batched_plain(
+                    a[:1], b[:1], w[:1]), 10),
+                library_ms=_cdist_fp16_ms(lambda: _cdist_grad(a[0], b[0], w[0]), 10),
+                bound=bound_of(4.0 * terms / G, grad_bytes / G))
+    for name, e in check_distance_edges(gen, (half,), time_autograd=False).items():
+        out[name]["max_abs_err"] = max(out[name]["max_abs_err"], e["max_abs_err"])
+    for name in names:
+        r = out[name]
+        lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
+        say("kernels", f"{KERNELS[name]['id']} {name} fp16 at {r['shape']}: kernel {r['ms']:.4f}"
+            f" ms, plain {r['plain_ms']:.4f} ms, cdist {lib}, bound {r['bound'][0]:.4f} ms"
+            f" ({r['bound'][1]}), max|err| {r['max_abs_err']:.3g}")
+    return out
 
 
 def _sorted_slots(gen: torch.Generator, R: int, n: int):
@@ -2143,28 +2364,35 @@ def _packed_forms(gen: torch.Generator, device: str, names=("wikikg2", *PACKED))
             continue
         if half is not None:
             score_fn = _packed_score_fn(sharding, half)
-        module, _, pts = _training_setup(triples, sharding, score_fn)
-        params = score_fn.initial_params_device(device=device, generator=gen)
-        sgd, row = optim.SGD(LR, momentum=MOMENTUM), optim.RowSGDM(LR, momentum=MOMENTUM,
-                                                                   interleaved=True)
-        plain = params["entity_embedding"]
-        params["entity_embedding"] = row.widen_table(plain)
-        forms[name] = dict(
-            module=module, opt=sgd, ent=row, spc=WIKIKG2_SPC, params=params, pts=pts,
-            plain=plain, triples=triples, all_bits=half is not None, phase="packed",
-            state=trainer.init_optimizer_state(sgd, params, None, row,
-                                               n_logical=sharding.max_entity_per_shard),
-            sampler=DeviceBatchSampler(pts, module.negative_sampler, shard_bs=SHARD_BS_TRAIN,
-                                       batches_per_step=BPS, seed=SEED, positive_mode="runs"),
-            want={"l1_distance_matrix_batched": 2, "l1_distance_grads_batched": 2,
-                  "scatter_rows": 1},
-            kernels={"l1_distance_small_kernel": 2, "l1_grads_kernel": 2,
-                     "scatter_rows_kernel": 1})
-        forms[name]["fn"] = trainer.build_device_train_step(
-            module, sgd, forms[name]["sampler"], None, row, steps_per_call=WIKIKG2_SPC,
-            device=device)
-        forms[name]["sampler_state"] = forms[name]["sampler"].state(device)
+        forms[name] = _packed_form(gen, device, triples, sharding, score_fn, half is not None)
     return forms
+
+
+def _packed_form(gen: torch.Generator, device: str, triples: np.ndarray, sharding: Sharding,
+                 score_fn: TransE, all_bits: bool) -> dict:
+    """One device-sampled wikikg2 form of ``score_fn`` (RowSGDM interleaved,
+    steps_per_call 8), its params drawn on ``device``."""
+    module, _, pts = _training_setup(triples, sharding, score_fn)
+    params = score_fn.initial_params_device(device=device, generator=gen)
+    sgd, row = optim.SGD(LR, momentum=MOMENTUM), optim.RowSGDM(LR, momentum=MOMENTUM,
+                                                               interleaved=True)
+    plain = params["entity_embedding"]
+    params["entity_embedding"] = row.widen_table(plain)
+    form = dict(
+        module=module, opt=sgd, ent=row, spc=WIKIKG2_SPC, params=params, pts=pts,
+        plain=plain, triples=triples, all_bits=all_bits, phase="packed",
+        state=trainer.init_optimizer_state(sgd, params, None, row,
+                                           n_logical=sharding.max_entity_per_shard),
+        sampler=DeviceBatchSampler(pts, module.negative_sampler, shard_bs=SHARD_BS_TRAIN,
+                                   batches_per_step=BPS, seed=SEED, positive_mode="runs"),
+        want={"l1_distance_matrix_batched": 2, "l1_distance_grads_batched": 2,
+              "scatter_rows": 1},
+        kernels={"l1_distance_small_kernel": 2, "l1_grads_kernel": 2,
+                 "scatter_rows_kernel": 1})
+    form["fn"] = trainer.build_device_train_step(
+        module, sgd, form["sampler"], None, row, steps_per_call=WIKIKG2_SPC, device=device)
+    form["sampler_state"] = form["sampler"].state(device)
+    return form
 
 
 def _ordinal16(bits: torch.Tensor) -> torch.Tensor:
@@ -5082,6 +5310,276 @@ def _mesh_rest_report(nccl: dict, ranks: list, smi: str) -> None:
         format(r["rest_s"], ".1f") for r in ranks) + " s")
 
 
+def _short(kernel: str) -> str:
+    """A profiler's kernel name without ``void``, the namespace and the
+    parameter list: ``l1_grads_kernel<__half, 4, true>``."""
+    return kernel.replace("void ", "").replace("(anonymous namespace)::", "").split("(")[0]
+
+
+def fp16_step(gen: torch.Generator, device: str = "cuda") -> dict:
+    """The wikikg2 step with the packed fp16 table and
+    ``compute_dtype=torch.float16`` (ROADMAP A17; the JAX package scores
+    such a table in fp16 through its Pallas kernels): one steps_per_call=1
+    call on the card held against the same call on the CPU (the packed
+    phase's gate, :func:`_packed_call_vs_cpu`), and one host-fed step whose
+    B1/B2 launches are counted by wrapper and, as their fp16 instantiations,
+    by name."""
+    on_card = device == "cuda"
+    triples, sharding, _, _ = _wikikg2()
+    score_fn = _packed_score_fn(sharding, torch.float16)
+    score_fn.compute_dtype = torch.float16
+    form = _packed_form(gen, device, triples, sharding, score_fn, True)
+    out = {"vs_cpu": _packed_call_vs_cpu("wikikg2_fp16, fp16 scoring", form)} if on_card else {}
+    dev = form["sampler"]
+    batch = dev.sample(form["sampler_state"], dev.next_key(700).to(device))
+    step = trainer.build_train_step(form["module"], form["opt"], None, form["ent"], device=device)
+
+    def run():
+        return step(trainer._clone(form["params"]), trainer._clone(form["state"]), batch)
+
+    reset_counts()
+    _, _, res = run()
+    sync(device)
+    loss, counts = float(res["loss"]), _launched()
+    if not np.isfinite(loss):
+        raise AssertionError(f"fp16 scoring: loss {loss}")
+    out.update(loss=loss, wrapper_launches=counts)
+    if on_card:
+        expect_counts("fp16 scoring step", counts, form["want"])
+        kernels = device_kernels(run, 1)
+        by_name = {_short(k): n for k, (_, n) in kernels.items() if "l1_" in k or "scatter" in k}
+        half = {name: sum(n for k, n in by_name.items() if name in k and "half" in k)
+                for name in ("l1_distance_small_kernel", "l1_grads_kernel")}
+        if half != {"l1_distance_small_kernel": 2, "l1_grads_kernel": 2}:
+            raise AssertionError(f"fp16 scoring step: fp16 kernels per step {half}, {by_name}")
+        out["by_name"] = by_name
+    say("fp16", f"wikikg2 step, packed fp16 table, fp16 scoring: loss {loss:.6f}, launches"
+        f" {counts}{', by name ' + str(out['by_name']) if on_card else ''}")
+    del form
+    return out
+
+
+_EX_BOOT = """
+import json, runpy, sys
+wrappers = json.loads(sys.argv[1])
+sys.argv = sys.argv[2:]
+runpy.run_path(sys.argv[0], run_name="__main__")
+counts = {name: getattr(sys.modules[mod], name).launches for name, mod in wrappers.items()}
+print(json.dumps({"launches": counts}), flush=True)
+"""
+
+
+def _run_twin(name: str, script: str, args: list, device: str) -> dict:
+    """Run ``examples/<script>`` as a user runs it, in a subprocess, and
+    return its JSON line, its wall seconds and the launches of every kernel
+    wrapper in that process (printed after the script by a bootstrap)."""
+    root = Path(__file__).resolve().parent
+    wrappers = {k: spec["wrapper"].__module__ for k, spec in KERNELS.items()}
+    argv = [str(root / "examples" / script), *args, *(["--cpu"] if device == "cpu" else [])]
+    t = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", _EX_BOOT, json.dumps(wrappers), *argv], cwd=root,
+                          capture_output=True, text=True, timeout=EX_TIMEOUT_S)
+    wall = time.perf_counter() - t
+    for line in proc.stdout.strip().splitlines()[:-1]:
+        say("examples", f"  {name}| {line}")
+    if proc.returncode != 0:
+        raise AssertionError(f"{script} {' '.join(args)} exited {proc.returncode}:\n"
+                             f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    lines = proc.stdout.strip().splitlines()
+    launches = json.loads(lines[-1])["launches"]
+    say("examples", f"{name}: {wall:.1f}s, launches {dict((k, v) for k, v in launches.items() if v)}")
+    return {"line": json.loads(lines[-2]), "wall_s": wall, "launches": launches}
+
+
+def _mrr_gate(what: str, value, floor: float) -> None:
+    if value is None or not np.isfinite(value) or not value > floor:
+        raise AssertionError(f"{what}: MRR {value}, expected finite and above {floor:.4f}")
+
+
+def _fixture_rows_differ(a: KGDataset, b: KGDataset) -> Dict[str, int]:
+    """Rows of each split (triple, negative heads and tails) that differ."""
+    out = {}
+    for part, tri in a.triples.items():
+        rows = (tri != b.triples[part]).any(1)
+        if part in a.neg_heads:
+            rows |= (a.neg_heads[part] != b.neg_heads[part]).any(1)
+            rows |= (a.neg_tails[part] != b.neg_tails[part]).any(1)
+        out[part] = int(rows.sum())
+    return out
+
+
+def _scan_counts(ds: KGDataset, batch: int = 4096, chunk: int = 512) -> dict:
+    """The biokg build's scan steps, from its dataset: pick chunks (a
+    batch of ``batch`` triples of one tail type over ``chunk`` columns) and
+    ``log_z`` tiles (``chunk`` heads over ``chunk`` tails, per relation
+    drawn)."""
+    spec = fixtures._relation_spec()
+    ends = dict(zip(sorted(ds.type_offsets, key=ds.type_offsets.get),
+                    sorted(ds.type_offsets.values())[1:] + [ds.n_entity]))
+    n_of = {ty: ends[ty] - ds.type_offsets[ty] for ty in ds.type_offsets}
+    chunks, rels = 0, set()
+    for tri in ds.triples.values():
+        per_type: Dict[str, int] = {}
+        for rid, m in zip(*np.unique(tri[:, 1], return_counts=True)):
+            per_type[spec[rid][1]] = per_type.get(spec[rid][1], 0) + int(m)
+            rels.add(int(rid))
+        chunks += sum(-(-m // batch) * -(-n_of[ty] // chunk) for ty, m in per_type.items())
+    tiles = sum(-(-n_of[spec[r][0]] // chunk) * -(-n_of[spec[r][1]] // chunk) for r in rels)
+    return {"pick_chunks": chunks, "log_z_tiles": tiles}
+
+
+def examples_phase(smi: str, device: str = "cuda") -> dict:
+    """The port's examples on the card (ROADMAP A16(4-5)): the biokg fixture
+    at full scale (build seconds, calibrated temperature, oracle estimate,
+    B5 launches by wrapper and, over one pick at the build's width, by
+    name; no host sync in a pick), the fixture at EX_CPU_SCALE on the card
+    against the CPU (rows that differ, at most EX_ROW_SHARE of a split),
+    then the twins as subprocesses (``_run_twin``). Gates: each exits 0 with
+    its JSON line; every MRR finite; every planted-oracle MRR and the biokg
+    twin's one-epoch MRR above 5x the uniform-rank floor
+    (``fixtures.expected_rr(0.5)``); B5 (the build), B1/B2 (every training
+    twin), B8 (the wikikg2 twins' RowSGDM, a separate momentum buffer as in
+    the JAX script), B3 (the triplet store of wikikg2_bf16_torch.py) and B7
+    (the vs-all top-k) launched. ``device`` "cpu" rehearses it with the
+    twins' ``--cpu``."""
+    on_card = device == "cuda"
+    floor = 5 * float(fixtures.expected_rr(0.5))
+    t0 = time.perf_counter()
+    out: dict = {"launches": {}, "card": smi}
+    # 1. the full-scale fixture, built and timed here, cached for the twin
+    cache = fixtures._cache_file(str(EX_CACHE), EX_SEED, EX_BIOKG_SCALE, None, 0.86, 48, 0.35,
+                                 fixtures.N_EVAL_NEGATIVE)
+    if cache.exists():
+        say("examples", f"removing the earlier cache {cache.name} to time a fresh build")
+        cache.unlink()
+    reset_counts()
+    t = time.perf_counter()
+    ds, planted = fixtures.build_biokg_fixture(seed=EX_SEED, scale=EX_BIOKG_SCALE,
+                                               return_planted=True, device=device)
+    sync(device)
+    build_s = time.perf_counter() - t
+    build = _launched()
+    t = time.perf_counter()
+    fixtures._save_cache(cache, ds, planted)
+    cache_s = time.perf_counter() - t
+    if on_card and not build.get("l1_distance_matrix"):
+        raise AssertionError(f"the fixture build launched no B5: {build}")
+    out["launches"]["biokg_fixture_build"] = read_counts()
+    sizes = {p: len(v) for p, v in ds.triples.items()}
+    fx = {"build_s": build_s, "cache_write_s": cache_s, "n_entity": ds.n_entity, "splits": sizes,
+          "temperature": planted.temperature, "oracle_estimate": planted.oracle_estimate,
+          "b5_wrapper_launches": build.get("l1_distance_matrix", 0)}
+    if on_card:  # one pick at the build's width (the drug type), by name and sync-free
+        lo, n_ty = ds.type_offsets["drug"], fixtures.BIOKG_TYPE_COUNTS["drug"]
+        g = torch.Generator("cpu").manual_seed(EX_SEED)
+        hh = (lo + torch.randint(0, n_ty, (4096,), generator=g)).cuda()
+        rr = torch.randint(0, 38, (4096,), generator=g).cuda()
+        pick = fixtures._pick
+        e_dev, p_dev = planted._e_dev(), planted._p_dev()
+        key = torch.tensor(EX_SEED, device="cuda")
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            pick(e_dev, p_dev, hh, rr, key, lo, n_ty, 512, planted.temperature)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        run_pick = lambda: pick(e_dev, p_dev, hh, rr, key, lo, n_ty, 512,  # noqa: E731
+                                planted.temperature)
+        kernels = device_kernels(run_pick, 3)
+        by_name = {_short(k): n for k, (_, n) in kernels.items() if "l1_distance" in k}
+        if sum(by_name.values()) != -(-n_ty // 512):
+            raise AssertionError(f"a pick over {n_ty} columns launched {by_name}")
+        t = time.perf_counter()
+        for _ in range(3):
+            run_pick()
+        torch.cuda.synchronize()
+        chunks = -(-n_ty // 512)
+        fx.update(pick_b5_by_name=by_name, pick_wall_ms_per_chunk=(time.perf_counter() - t) / 3
+                  / chunks * 1e3,
+                  pick_device_ms_per_chunk=sum(ms for ms, _ in kernels.values()) / chunks,
+                  pick_b5_ms_per_chunk=sum(ms for k, (ms, _) in kernels.items()
+                                           if "l1_distance" in k) / chunks,
+                  pick_kernels_per_chunk=sum(n for _, n in kernels.values()) / chunks,
+                  **_scan_counts(ds))
+    say("examples", f"biokg fixture at scale {EX_BIOKG_SCALE}: {ds.n_entity} entities, {sizes}"
+        f" triples, built in {build_s:.1f}s (cache written in {cache_s:.1f}s); temperature"
+        f" {planted.temperature:.6g}, oracle estimate {planted.oracle_estimate:.4f}; B5"
+        f" {fx['b5_wrapper_launches']} launches{', a pick ' + str(fx.get('pick_b5_by_name')) if on_card else ''}")
+    if on_card:
+        say("examples", f"the build's scans: {fx['pick_chunks']} pick chunks, {fx['log_z_tiles']}"
+            f" log_z tiles; a pick chunk {fx['pick_wall_ms_per_chunk']:.3f} ms wall,"
+            f" {fx['pick_device_ms_per_chunk']:.3f} ms of kernels ({fx['pick_kernels_per_chunk']:.0f}"
+            f" kernels), B5 {fx['pick_b5_ms_per_chunk']:.4f} ms")
+    _mrr_gate("the planted oracle estimate", planted.oracle_estimate, floor)
+    out["fixture"] = fx
+    del ds, planted
+    # 2. the card against the CPU at EX_CPU_SCALE
+    if on_card:
+        t = time.perf_counter()
+        card = fixtures.build_biokg_fixture(seed=EX_SEED, scale=EX_CPU_SCALE, return_planted=True,
+                                            device="cuda")
+        card_s = time.perf_counter() - t
+        t = time.perf_counter()
+        host = fixtures.build_biokg_fixture(seed=EX_SEED, scale=EX_CPU_SCALE, return_planted=True,
+                                            device="cpu")
+        cpu_s = time.perf_counter() - t
+        differ = _fixture_rows_differ(card[0], host[0])
+        share = {p: differ[p] / len(card[0].triples[p]) for p in differ}
+        say("examples", f"fixture at scale {EX_CPU_SCALE}, card ({card_s:.1f}s) against CPU"
+            f" ({cpu_s:.1f}s): temperatures {card[1].temperature:.6g} / {host[1].temperature:.6g};"
+            f" rows that differ {differ} of {[len(v) for v in card[0].triples.values()]}")
+        if card[1].temperature != host[1].temperature or max(share.values()) > EX_ROW_SHARE:
+            raise AssertionError(f"fixture card vs CPU: rows differ {differ}")
+        out["card_vs_cpu"] = {"scale": EX_CPU_SCALE, "rows_differ": differ, "card_s": card_s,
+                              "cpu_s": cpu_s, "temperatures": [card[1].temperature,
+                                                               host[1].temperature]}
+        del card, host
+    # 3. the twins
+    wiki = lambda dtype: [*EX_WIKIKG2_ARGS, "--packed-dtype", dtype]  # noqa: E731
+    runs = (("biokg_parity", "biokg_parity_torch.py",
+             ["--scale", str(EX_BIOKG_SCALE), *EX_BIOKG_ARGS]),
+            ("wikikg2_parity_bf16", "wikikg2_parity_torch.py", wiki("bf16")),
+            ("wikikg2_parity_fp16", "wikikg2_parity_torch.py", wiki("fp16")),
+            ("wikikg2_oracle_vsall", "wikikg2_oracle_vsall_torch.py", EX_ORACLE_ARGS),
+            ("wikikg2_bf16", "wikikg2_bf16_torch.py", EX_BF16_ARGS))
+    twins = {}
+    for name, script, args in runs:
+        twins[name] = _run_twin(name, script, args, device)
+        out["launches"][name] = twins[name]["launches"]
+    bio = twins["biokg_parity"]["line"]
+    _mrr_gate("biokg_parity_torch.py after its epochs", bio["value"], floor)
+    _mrr_gate("biokg_parity_torch.py's planted oracle", bio["oracle_mrr"], floor)
+    for name in ("wikikg2_parity_bf16", "wikikg2_parity_fp16"):
+        line = twins[name]["line"]
+        _mrr_gate(f"{name}'s planted oracle", line["oracle_mrr"], floor)
+        for value in (line["value"], line["vs_all"]["mrr"]):  # printed, not gated
+            if not np.isfinite(value):
+                raise AssertionError(f"{name}: MRR {value}")
+    ora = twins["wikikg2_oracle_vsall"]["line"]
+    _mrr_gate("the planted oracle vs all entities", ora["value"], floor)
+    _mrr_gate("the planted oracle vs 500 + 500", ora["oracle_500_mrr"], floor)
+    if not (np.isfinite(twins["wikikg2_bf16"]["line"]["value"])
+            and twins["wikikg2_bf16"]["line"]["value"] > 0):
+        raise AssertionError(f"wikikg2_bf16_torch.py: {twins['wikikg2_bf16']['line']}")
+    if on_card:
+        need = {"biokg_parity": ("l1_distance_matrix_batched", "l1_distance_grads_batched"),
+                "wikikg2_parity_bf16": ("l1_distance_matrix_batched", "l1_distance_grads_batched",
+                                        "scatter_rows_multi", "l1_scores_chunkmax"),
+                "wikikg2_parity_fp16": ("l1_distance_matrix_batched", "l1_distance_grads_batched",
+                                        "scatter_rows_multi", "l1_scores_chunkmax"),
+                "wikikg2_oracle_vsall": ("l1_scores_chunkmax",),
+                "wikikg2_bf16": ("l1_distance_matrix_batched", "l1_distance_grads_batched",
+                                 "scatter_rows")}
+        for name, kernels in need.items():
+            missing = [k for k in kernels if not twins[name]["launches"].get(k)]
+            if missing:
+                raise AssertionError(f"{name} launched no {missing}: {twins[name]['launches']}")
+    out["twins"] = {name: {"line": r["line"], "wall_s": r["wall_s"]} for name, r in twins.items()}
+    out["wall_s"] = time.perf_counter() - t0
+    say("examples", f"done in {out['wall_s']:.1f}s")
+    return out
+
+
 def hold_bench_lines(lines: list, step_rates: Dict[str, float]) -> Dict[str, dict]:
     """``bench_torch.py``'s JSON lines, by name, held to the contract: one
     line per name of :data:`BENCH_METRICS` with its metric; a finite positive
@@ -5315,6 +5813,8 @@ def main() -> int:
         results[name].update(edges)
     results.update(check_multi_and_gather(gen, N_ENTITY))
     results["dense_adamw_update"] = check_dense_adamw(gen)
+    for name, r in check_fp16_kernels(gen).items():
+        results[name]["fp16"] = r
     for name, run in serving(gen).items():
         results[name].update(run)
     for name, run in autograd(gen).items():
@@ -5330,6 +5830,8 @@ def main() -> int:
         results[name].update(run)
     device = device_training(gen, profile="device" in profile)
     packed_run = packed_training(gen, profile="packed" in profile)
+    torch.cuda.empty_cache()
+    fp16_run = fp16_step(gen)
     ckpt = checkpoint_phase(gen)
     torch.cuda.empty_cache()
     yago_run = yago(gen, profile="yago" in profile)
@@ -5342,7 +5844,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     mesh_run = mesh_phase(gen, smi=smi, profile="mesh" in profile)
     torch.cuda.empty_cache()
+    examples_run = examples_phase(smi)
+    torch.cuda.empty_cache()
     bench_run = bench_phase(smi, device, packed_run)
+    for name in KERNELS:
+        results[name]["launches_examples"] = {
+            run: counts.get(name, 0) for run, counts in examples_run["launches"].items()}
     for bench_name, run in bench_run["launches"].items():
         for name in KERNELS:
             results[name].setdefault("launches_bench", {})[bench_name] = {
@@ -5438,9 +5945,14 @@ def main() -> int:
         if "library_kernel_ms" in r:
             entry["library_kernel_ms"] = r["library_kernel_ms"]
         for key in ("launches_yago", "launches_scorers", "launches_eval", "launches_conve",
-                    "conve_shape", "launches_mesh", "launches_bench"):
+                    "conve_shape", "launches_mesh", "launches_bench", "launches_examples"):
             if key in r:
                 entry[key] = r[key]
+        if "fp16" in r:  # fp16 operands (ROADMAP A17) at the path's shape
+            t = r["fp16"]
+            entry["fp16"] = {"shape": t["shape"], "ms": t["ms"], "plain_ms": t["plain_ms"],
+                             "library_ms": t["library_ms"], "bound_ms": t["bound"][0],
+                             "bound_by": t["bound"][1], "max_abs_err": t["max_abs_err"]}
         if "allscores_shape" in r:  # B5 at the all-scores window's shape too
             t = r["allscores_shape"]
             entry.update(allscores_shape=t["shape"], ms_allscores_shape=t["ms"],
@@ -5575,6 +6087,9 @@ def main() -> int:
                 "rest_s": [r["rest_s"] for r in gloo]}},
         "note": "gloo ranks share one card: no time here measures NCCL across cards",
         "card": smi}}), flush=True)
+    print(json.dumps({"fp16_scoring_step": fp16_run, "card": smi}), flush=True)
+    print(json.dumps({"examples": {k: v for k, v in examples_run.items() if k != "launches"}}),
+          flush=True)
     print(json.dumps({"bench": {
         "lines": {name: {k: v for k, v in line.items() if k not in ("peaks", "card")}
                   for name, line in bench_run["lines"].items()},

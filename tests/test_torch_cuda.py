@@ -43,7 +43,10 @@ pytestmark = pytest.mark.cuda
 
 RTOL, ATOL = 1e-5, 1e-4
 BF16_ULP = 2.0**-7
+FP16_ULP = 2.0**-10
 U32 = 2.0**-24
+#: The relative rounding of a 16-bit output (B1/B5 store a's dtype).
+OUT_ULP = {torch.float32: 0.0, torch.bfloat16: BF16_ULP, torch.float16: FP16_ULP}
 
 
 @pytest.fixture
@@ -53,7 +56,7 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("shape", [(3, 256, 100), (37, 1536, 96), (130, 1152, 128)])
 def test_kernels_match_plain(cuda, shape, dtype):
     B, N, d = shape
@@ -73,7 +76,7 @@ def test_kernels_match_plain(cuda, shape, dtype):
     torch.testing.assert_close(cmax, cmax_ref, rtol=RTOL, atol=ATOL)
     assert torch.equal(cmax, s.reshape(B, -1, 128).amax(-1))
     ref = l1_kernels.l1_distance_matrix_plain(a, b).float()
-    tol = ATOL + (RTOL + (BF16_ULP if dtype == torch.bfloat16 else 0.0)) * ref.abs()
+    tol = ATOL + (RTOL + OUT_ULP[dtype]) * ref.abs()
     assert dist.dtype == dtype
     assert ((dist.float() - ref).abs() <= tol).all()
 
@@ -115,7 +118,7 @@ def _grad_inputs(cuda, G, B, N, d, dtype, seed):
     return a, b, w
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("shape", [(8, 256, 288, 128), (3, 37, 211, 100), (2, 5, 9, 130)])
 def test_batched_kernels_match_plain(cuda, shape, dtype):
     G, B, N, d = shape
@@ -129,7 +132,7 @@ def test_batched_kernels_match_plain(cuda, shape, dtype):
     assert l1_kernels.l1_distance_grads_batched.launches == 1
     assert l1_kernels.l1_distance_grads.launches == 1
     ref = l1_kernels.l1_distance_matrix_batched_plain(a, b).float()
-    tol = ATOL + (RTOL + (BF16_ULP if dtype == torch.bfloat16 else 0.0)) * ref.abs()
+    tol = ATOL + (RTOL + OUT_ULP[dtype]) * ref.abs()
     assert dist.dtype == dtype and ((dist.float() - ref).abs() <= tol).all()
     rda, rdb = l1_kernels.l1_distance_grads_batched_plain(a, b, w)
     assert da.dtype == db.dtype == torch.float32
@@ -163,7 +166,7 @@ def _one_kernel(kernels, name):
     return len(kernels) == 1 and name in next(iter(kernels)) and list(kernels.values()) == [1]
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("shape", EDGE_SHAPES)
 def test_grads_match_plain_at_tile_edges(cuda, shape, dtype):
     G, B, N, d = shape
@@ -178,7 +181,7 @@ def test_grads_match_plain_at_tile_edges(cuda, shape, dtype):
     assert ((db6 - rdb[0]).abs() <= _sum_tol(w[0].T, 1)).all()
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("shape", [(8, 256, 288, 128), (3, 37, 211, 100)])
 def test_grads_are_one_deterministic_launch(cuda, shape, dtype):
     """B2 and B6 launch one kernel per call for both outputs, and sum in a
@@ -206,7 +209,7 @@ def _offset_tensor(flat, shape, offset):
     return out.view(shape)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("shape", DISTANCE_EDGES)
 def test_distance_at_tile_edges(cuda, shape, dtype):
     """B1 (and B5 for one group) at the edges of the distance kernel's tiles:
@@ -217,7 +220,7 @@ def test_distance_at_tile_edges(cuda, shape, dtype):
     a, b = _offset_tensor(a0, a0.shape, offset), _offset_tensor(b0, b0.shape, offset)
     assert a.is_contiguous() and (a.data_ptr() % 16 != 0) == (offset != 0)
     ref = l1_kernels.l1_distance_matrix_batched_plain(a, b).float()
-    tol = ATOL + (RTOL + (BF16_ULP if dtype == torch.bfloat16 else 0.0)) * ref.abs()
+    tol = ATOL + (RTOL + OUT_ULP[dtype]) * ref.abs()
     calls = [(l1_kernels.l1_distance_matrix_batched, lambda: l1_kernels.l1_distance_matrix_batched(a, b))]
     if G == 1:
         calls.append((l1_kernels.l1_distance_matrix, lambda: l1_kernels.l1_distance_matrix(a[0], b[0])[None]))
@@ -1390,3 +1393,80 @@ def test_bench_kernel_selftest_on_the_card(cuda):
     assert row_kernels.scatter_rows_multi.launches == 1
     assert adamw_kernels.dense_adamw_update.launches == 1
     assert l1_kernels.l1_distance_grads.launches == 1
+
+
+def test_fixture_pick_runs_b5_without_host_sync(cuda):
+    """One biokg ``pick`` at the build's shape (4,096 rows over the drug
+    type, chunks of 512) on the card: its scans launch B5, one per chunk,
+    no host synchronisation inside (``set_sync_debug_mode("error")``), and
+    the picks equal the CPU's but where the perturbed top two lie within
+    the two sides' fp32 sums (counted: at most 0.1 %)."""
+    from besskge_tpu_torch import fixtures
+
+    gen = torch.Generator(cuda).manual_seed(3)
+    n_ty, lo, chunk = 10_533, 200, 512
+    e_tab = torch.rand(lo + n_ty, 128, device=cuda, generator=gen) * 2 - 1
+    ph = torch.rand(51, 64, device=cuda, generator=gen) * 6.283
+    hh = torch.randint(0, lo, (4096,), device=cuda, generator=gen)
+    rr = torch.randint(0, 51, (4096,), device=cuda, generator=gen)
+    key = torch.tensor(17, device=cuda)
+    pick = fixtures._pick
+    pick(e_tab, ph, hh, rr, key, lo, n_ty, chunk, 0.5)  # warm-up: the build and the cuBLAS-free path
+    torch.cuda.synchronize()
+    l1_kernels.reset_launch_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = pick(e_tab, ph, hh, rr, key, lo, n_ty, chunk, 0.5)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert l1_kernels.l1_distance_matrix.launches == -(-n_ty // chunk)
+    want = pick(e_tab.cpu(), ph.cpu(), hh.cpu(), rr.cpu(), key.cpu(), lo, n_ty, chunk, 0.5)
+    assert (got.cpu() != want).float().mean() <= 0.001
+    assert ((got >= lo) & (got < lo + n_ty)).all()
+
+
+def test_grad_of_vmapped_p1_distance_on_the_card(cuda):
+    """The dense step's form, ``torch.func.grad`` of a vmapped p=1 forward,
+    on the card: B1 forward and B2 backward launch (their wrappers take the
+    plain tensors of the Functions' ``apply``), and the gradient equals the
+    CPU's within the gradient sums' bound."""
+    gen = torch.Generator(cuda).manual_seed(21)
+    a = torch.randn(4, 48, 64, device=cuda, generator=gen)
+    b = torch.randn(96, 64, device=cuda, generator=gen)
+    w = torch.randn(4, 48, 96, device=cuda, generator=gen)
+
+    def loss(p, w_):
+        return torch.func.vmap(lambda x, v: (distance.p_distance_matrix(x, p["b"], 1) * v).sum())(
+            p["a"], w_).sum()
+
+    l1_kernels.reset_launch_counts()
+    got = torch.func.grad(loss)({"a": a, "b": b}, w)
+    torch.cuda.synchronize()
+    assert l1_kernels.l1_distance_matrix_batched.launches == 1
+    assert l1_kernels.l1_distance_grads_batched.launches == 1
+    want = torch.func.grad(loss)({"a": a.cpu(), "b": b.cpu()}, w.cpu())
+    assert ((got["a"].cpu() - want["a"]).abs() <= _sum_tol(w.cpu(), 2)).all()
+    w_b = w.cpu().transpose(1, 2).reshape(96, -1)
+    assert ((got["b"].cpu() - want["b"]).abs() <= _sum_tol(w_b, 1)).all()
+
+
+def test_wikikg2_twin_on_the_card(cuda):
+    """``examples/wikikg2_parity_torch.py`` at a tiny scale on the card: the
+    packed bf16 table trained (B1, B2, B8), validated through
+    ``run_device_eval`` (its gathers before the vmap) and ranked against all
+    entities (B7)."""
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "examples"))
+    import wikikg2_parity_torch
+
+    for wrapper in (l1_kernels, row_kernels):
+        wrapper.reset_launch_counts()
+    got = wikikg2_parity_torch.main(["--scale", "0.002", "--epochs", "1", "--vs-all", "128",
+                                     "--eval-triples", "200", "--oracle-sample", "200"])
+    assert np.isfinite(got["value"]) and np.isfinite(got["vs_all"]["mrr"])
+    for wrapper in (l1_kernels.l1_distance_matrix_batched, l1_kernels.l1_distance_grads_batched,
+                    row_kernels.scatter_rows_multi, l1_kernels.l1_scores_chunkmax):
+        assert wrapper.launches > 0, wrapper.__name__

@@ -27,7 +27,7 @@ def test_port_imports_without_jax():
                  "convert", "checkpoint", "ops.distance", "ops.l1_kernels", "ops.row_kernels",
                  "ops.adamw_kernels", "eval_loop", "pipeline", "dataset", "negative_sampler",
                  "parallel", "parallel.mesh", "parallel.collectives", "parallel.census",
-                 "parallel.multihost", "monitor", "_hostmem"):
+                 "parallel.multihost", "monitor", "_hostmem", "fixtures", "schedules"):
         assert f"besskge_tpu_torch.{name}" in modules, name
     code = (
         "import importlib, sys\n"

@@ -17,7 +17,8 @@
 
 Tolerances: distances rtol 1e-5, atol 1e-4 (fp32 sums of d ≤ 128 terms in
 another order); one bf16 ulp (2^-7 relative) more where the output is bf16,
-because each side rounds its own fp32 sum. Gradients are fp32 sums of n terms
+because each side rounds its own fp32 sum; one fp16 ulp (2^-10 relative)
+where it is fp16. Gradients are fp32 sums of n terms
 ``±w``; recursive summation errs by at most ``(n − 1)·2^-24·Σ|w|`` on each
 side, so the two sides differ by at most ``2·n·2^-24·Σ|w|`` per output.
 Ties: both packages' kernels take ``sign(0) = 0``; XLA's autodiff of ``abs``
@@ -40,6 +41,7 @@ from besskge_tpu_torch.ops import l1_kernels
 
 RTOL, ATOL = 1e-5, 1e-4
 BF16_ULP = 2.0**-7
+FP16_ULP = 2.0**-10
 U = 2.0**-24
 
 # (G, B, N, d): the training shape cut in depth, ragged B and N, ragged d.
@@ -77,7 +79,14 @@ def _inputs(G, B, N, d, dtype, seed, ties=True):
     if dtype == "bfloat16":
         a = a.astype(ml_dtypes.bfloat16)
         b = b.astype(ml_dtypes.bfloat16)
+    elif dtype == "float16":
+        a, b = a.astype(np.float16), b.astype(np.float16)
     return a, b, w
+
+
+def _ulp(dtype):
+    """The relative rounding of an output in ``dtype``."""
+    return {"float32": 0.0, "bfloat16": BF16_ULP, "float16": FP16_ULP}[dtype]
 
 
 def _torch(x):
@@ -101,7 +110,7 @@ def _assert_grads(got_da, got_db, want_da, want_db, w):
     _within(got_db, want_db, _sum_tol(np.swapaxes(w, -1, -2), -1))
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 @pytest.mark.parametrize("shape", SHAPES + DISTANCE_EDGE_SHAPES)
 def test_batched_distance_matches_pallas(shape, dtype):
     """B1 on every group, and B5 where there is one group, planted ties
@@ -112,7 +121,7 @@ def test_batched_distance_matches_pallas(shape, dtype):
     ).astype(np.float32)
     got = l1_kernels.l1_distance_matrix_batched(_torch(a), _torch(b))
     assert got.dtype == getattr(torch, dtype) and got.shape == shape[:2] + shape[2:3]
-    tol = ATOL + (RTOL + (BF16_ULP if dtype == "bfloat16" else 0.0)) * np.abs(want)
+    tol = ATOL + (RTOL + _ulp(dtype)) * np.abs(want)
     assert (np.abs(got.float().numpy() - want) <= tol).all()
     if shape[0] == 1:
         want5 = np.asarray(
@@ -122,7 +131,7 @@ def test_batched_distance_matches_pallas(shape, dtype):
         assert (np.abs(got5.float().numpy() - want5) <= tol[0]).all()
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 @pytest.mark.parametrize("shape", SHAPES)
 def test_batched_grads_match_pallas(shape, dtype):
     a, b, w = _inputs(*shape, dtype, seed=2 * sum(shape))
@@ -134,7 +143,7 @@ def test_batched_grads_match_pallas(shape, dtype):
     _assert_grads(got_da.numpy(), got_db.numpy(), np.asarray(want_da), np.asarray(want_db), w)
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 @pytest.mark.parametrize("shape", SHAPES)
 def test_grads_match_pallas(shape, dtype):
     a, b, w = _inputs(*shape, dtype, seed=3 * sum(shape))
@@ -147,7 +156,7 @@ def test_grads_match_pallas(shape, dtype):
     _assert_grads(got_da.numpy(), got_db.numpy(), np.asarray(want_da), np.asarray(want_db), w)
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 @pytest.mark.parametrize("shape", EDGE_SHAPES)
 def test_grads_match_pallas_at_tile_edges(shape, dtype):
     """B2 on every group and B6 on the first, planted ties included."""
@@ -189,7 +198,7 @@ def test_wrappers_validate_inputs():
         l1_kernels.l1_distance_matrix_batched(meta, torch.empty(2, 5, 8, device="meta"))
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 def test_p1_distance_has_the_sign_subgradient(dtype):
     """The repaired fault: p_distance_matrix(·, ·, 1) is an autograd node
     whose VJP is the JAX package's _l1_grads_formula, ties included."""
@@ -208,9 +217,9 @@ def test_p1_distance_has_the_sign_subgradient(dtype):
     want_da = np.asarray(jnp.asarray(want_da).astype(a.dtype)).astype(np.float32)
     want_db = np.asarray(jnp.asarray(want_db).astype(b.dtype)).astype(np.float32)
     got_da, got_db = ta.grad.float().numpy(), tb.grad.float().numpy()
-    if dtype == "bfloat16":  # each side rounds its own fp32 sum to bf16
-        tol_a = _sum_tol(w_cast, -1) + BF16_ULP * np.abs(want_da)
-        tol_b = _sum_tol(w_cast.T, -1) + BF16_ULP * np.abs(want_db)
+    if dtype != "float32":  # each side rounds its own fp32 sum to 16 bits
+        tol_a = _sum_tol(w_cast, -1) + _ulp(dtype) * np.abs(want_da)
+        tol_b = _sum_tol(w_cast.T, -1) + _ulp(dtype) * np.abs(want_db)
         _within(got_da, want_da, tol_a)
         _within(got_db, want_db, tol_b)
     else:
@@ -271,6 +280,48 @@ def test_vjp_under_vmap_reaches_the_batched_rules(monkeypatch):
         ("l1_distance_grads_batched", (G, B, d)),
         ("l1_distance_grads_batched", (G, B, d)),
     ])
+
+
+def test_grad_of_vmap_reaches_the_batched_kernels_unwrapped(monkeypatch):
+    """The dense step's form: ``torch.func.grad`` of a vmapped forward
+    through p=1. The forward reaches B1 and the backward B2, both with plain
+    tensors (the kernels read data pointers, which a functorch wrapper of
+    the outer grad level has none of: the repaired fault, first seen on the
+    card in the biokg example's dense RotatE step), and the gradient equals
+    ``jax.grad`` of ``jax.vmap`` of ``_l1_broadcast`` (tie-free inputs)."""
+    G, B, N, d = 3, 11, 19, 24
+    rng = np.random.default_rng(12)
+    a = rng.normal(size=(G, B, d)).astype(np.float32)
+    b = rng.normal(size=(N, d)).astype(np.float32)
+    w = rng.normal(size=(G, B, N)).astype(np.float32)
+    calls = []
+    for name in ("l1_distance_matrix_batched", "l1_distance_grads_batched"):
+        orig = getattr(l1_kernels, name)
+
+        def spy(*args, _orig=orig, _name=name):
+            calls.append((_name, any(torch._C._functorch.is_functorch_wrapped_tensor(x)
+                                     for x in args)))
+            return _orig(*args)
+
+        monkeypatch.setattr(l1_kernels, name, spy)
+
+    def port_loss(p):
+        per = torch.func.vmap(lambda x, w_: (port_distance.p_distance_matrix(x, p["b"], 1)
+                                             * w_).sum())(p["a"], torch.from_numpy(w))
+        return per.sum()
+
+    got = torch.func.grad(port_loss)({"a": torch.from_numpy(a), "b": torch.from_numpy(b)})
+
+    def jax_loss(p):
+        return jax.vmap(lambda x, w_: (jax_distance._l1_broadcast(x, p["b"]) * w_).sum())(
+            p["a"], jnp.asarray(w)).sum()
+
+    want = jax.grad(jax_loss)({"a": jnp.asarray(a), "b": jnp.asarray(b)})
+    assert sorted(calls) == [("l1_distance_grads_batched", False),
+                             ("l1_distance_matrix_batched", False)]
+    _within(got["a"].numpy(), np.asarray(want["a"]), _sum_tol(w, -1))
+    w_b = np.swapaxes(w, 1, 2).reshape(N, G * B)  # db sums over every group's rows
+    _within(got["b"].numpy(), np.asarray(want["b"]), _sum_tol(w_b, -1))
 
 
 def test_launch_counts_only_move_on_cuda():

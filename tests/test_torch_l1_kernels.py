@@ -9,7 +9,9 @@ rtol 1e-5, atol 1e-4 whatever the summation order; bf16 inputs are converted
 to fp32 before the arithmetic in both packages, so the same holds. Where B5
 stores bf16 (its output has a's dtype) the two sides may round an fp32 sum
 that differs in its last bits to neighbouring bf16 values: one bf16 ulp,
-at most 2^-7 of the value.
+at most 2^-7 of the value. fp16 operands (ROADMAP A17) are widened to fp32
+at load in both packages as well; B5's fp16 output may differ by one fp16
+ulp, at most 2^-10 of the value, and past 65,504 it is inf on both sides.
 """
 
 import jax.numpy as jnp
@@ -29,11 +31,12 @@ from besskge_tpu_torch.ops import l1_kernels
 
 RTOL, ATOL = 1e-5, 1e-4
 BF16_ULP = 2.0**-7
+FP16_ULP = 2.0**-10
 
 # (B, N, d): aligned, ragged B and d (the chip check's ragged shape), and
 # shapes that are not multiples of the CUDA kernel's 64 x 128 tile.
 SHAPES = [(8, 128, 16), (3, 256, 100), (37, 1536, 96), (130, 1152, 64)]
-DTYPES = ["float32", "bfloat16"]
+DTYPES = ["float32", "bfloat16", "float16"]
 
 
 def _inputs(B, N, d, dtype, seed, invalid_chunk=False):
@@ -77,9 +80,25 @@ def test_distance_matrix_matches_pallas(shape, dtype):
     assert got.dtype == ta.dtype and got.shape == (B, N)
     err = np.abs(got.float().numpy() - want)
     tol = ATOL + RTOL * np.abs(want)
-    if dtype == "bfloat16":
-        tol += BF16_ULP * np.abs(want)
+    if dtype != "float32":
+        tol += (BF16_ULP if dtype == "bfloat16" else FP16_ULP) * np.abs(want)
     assert (err <= tol).all(), float((err - tol).max())
+
+
+def test_fp16_distance_overflows_to_inf_as_pallas_does():
+    """An fp16 distance past 65,504 is stored as inf by both kernels: no
+    clamp. The chunk-max scores stay fp32 and finite."""
+    a = np.full((4, 128), 300.0, np.float16)
+    b = np.full((128, 128), -300.0, np.float16)
+    b[:64] = 0.0  # 128 * 300 = 38,400 fits; 128 * 600 = 76,800 does not
+    want = np.asarray(jax_l1_distance_matrix(jnp.asarray(a), jnp.asarray(b), interpret=True))
+    got = l1_kernels.l1_distance_matrix(torch.from_numpy(a), torch.from_numpy(b))
+    assert got.dtype == torch.float16 and want.dtype == np.float16
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert np.isinf(want[:, 64:]).all() and np.isfinite(want[:, :64]).all()
+    scores, _ = l1_kernels.l1_scores_chunkmax(torch.from_numpy(a), torch.from_numpy(b),
+                                              torch.ones(128, dtype=torch.bool))
+    assert torch.isfinite(scores).all() and float(scores.min()) == -76800.0
 
 
 def test_p_distance_matrix_dispatch():
@@ -117,6 +136,10 @@ def test_wrappers_validate_inputs():
         l1_kernels.l1_scores_chunkmax(a, torch.zeros(100, 8), torch.ones(100, dtype=torch.bool))
     with pytest.raises(ValueError):
         l1_kernels.l1_distance_matrix(a, torch.zeros(128, 8, dtype=torch.bfloat16))
+    with pytest.raises(ValueError):
+        l1_kernels.l1_distance_matrix(a.half(), torch.zeros(128, 8, dtype=torch.bfloat16))
+    with pytest.raises(ValueError):
+        l1_kernels.l1_distance_matrix(a.double(), torch.zeros(128, 8, dtype=torch.float64))
     with pytest.raises(ValueError):
         l1_kernels.l1_distance_matrix(a, torch.zeros(128, 7))
 

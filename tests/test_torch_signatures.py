@@ -204,8 +204,9 @@ def test_unported_sampler_options_raise(key, value):
 def test_sixteen_bit_tables_raise_for_row_optimizers():
     """16-bit tables are ported (ROADMAP A9): the row optimizers take a plain
     or packed one, with fp32 moments. What still raises, as in the JAX
-    package: an interleaved optimizer over a plain 16-bit table; and, the
-    port's own gap, fp16 operands for the L1 kernels (ROADMAP A17)."""
+    package: an interleaved optimizer over a plain 16-bit table. fp16
+    operands of the L1 kernels (ROADMAP A17) compute, as the JAX package's
+    do; operands of two dtypes raise."""
     import torch
 
     from besskge_tpu_torch.ops import l1_kernels
@@ -219,10 +220,10 @@ def test_sixteen_bit_tables_raise_for_row_optimizers():
         with pytest.raises(ValueError, match="row-pair-packed"):
             opt.init(table)
     half = torch.zeros(3, 4, dtype=torch.float16)
-    with pytest.raises(NotImplementedError, match="A17"):
-        l1_kernels.l1_distance_matrix(half, half)
-    with pytest.raises(NotImplementedError, match="A17"):
-        l1_kernels.l1_distance_matrix_batched(half[None], half[None])
+    assert l1_kernels.l1_distance_matrix(half, half).dtype == torch.float16
+    assert l1_kernels.l1_distance_matrix_batched(half[None], half[None]).dtype == torch.float16
+    with pytest.raises(ValueError, match="share a dtype"):
+        l1_kernels.l1_distance_matrix(half, half.bfloat16())
 
 
 #: The port's own trailing dataclass fields, beyond the reference's: none.
@@ -296,10 +297,25 @@ def _member_gaps():
 
 def test_member_scan_holds_the_gaps_to_the_roadmap():
     """C3: the public members the port lacks are exactly the queued ones."""
-    assert set(UNPORTED_MEMBERS.values()) <= {"A16"}
+    assert set(UNPORTED_MEMBERS.values()) <= set()
     gaps = _member_gaps()
     assert gaps - set(UNPORTED_MEMBERS) == set(), "new gaps"
     assert set(UNPORTED_MEMBERS) - gaps == set(), "closed gaps still listed"
+
+
+def test_the_fixtures_module_keeps_the_reference_names():
+    """``besskge_tpu_torch.fixtures`` (ROADMAP A16(4)) has the reference
+    module's ``__all__``, and the scans above hold its signatures and
+    members."""
+    from besskge_tpu import fixtures as jax_fixtures
+    from besskge_tpu_torch import fixtures as port_fixtures
+
+    assert port_fixtures.__all__ == jax_fixtures.__all__
+    names = {name for name, _, _ in SHARED}
+    for name in jax_fixtures.__all__:
+        if callable(getattr(jax_fixtures, name)):
+            assert f"besskge_tpu_torch.fixtures.{name}" in names, name
+    assert not {gap for gap in _member_gaps() if gap.startswith("fixtures.")}
 
 
 def test_the_mesh_signatures_follow_the_reference():

@@ -90,7 +90,7 @@ def _triples(n_triple=5000, seed=0):
 
 
 def _setup(pkg, scheme="ht", augment=True, bf16=False, n_negative=32, triples=None,
-           use_native=True, return_scores=False):
+           use_native=True, return_scores=False, fp16=False):
     ds_mod, sh_mod, ns_mod, bs_mod, sc_mod, bess_mod, loss_mod = pkg
     tri = _triples() if triples is None else triples
     ds = ds_mod.KGDataset(n_entity=N_ENTITY, n_relation_type=N_RELATION,
@@ -101,6 +101,8 @@ def _setup(pkg, scheme="ht", augment=True, bf16=False, n_negative=32, triples=No
                              n_relation_type=N_RELATION, embedding_size=DIM, seed=0)
     if bf16:
         score_fn.compute_dtype = jnp.bfloat16 if pkg is JAX else torch.bfloat16
+    if fp16:
+        score_fn.compute_dtype = jnp.float16 if pkg is JAX else torch.float16
     ns = ns_mod.RandomShardedNegativeSampler(n_negative, sharding, 0, scheme, local_sampling=False,
                                              flat_negative_format=True, use_native=use_native)
     module = bess_mod.EmbeddingMovingBessKGE(
@@ -296,12 +298,12 @@ def test_two_steps_match_jax_fp32(variant):
     assert int(pstate["other"]["count"]) == 2
 
 
-def _positive_ties(params, batch):
-    """Coordinates where the bf16 positive score ``h + r − t`` is exactly 0:
-    (entity mask (N, D), relation mask (R, D)) of the rows they touch."""
+def _positive_ties(params, batch, bf=ml_dtypes.bfloat16):
+    """Coordinates where the 16-bit (``bf``) positive score ``h + r − t`` is
+    exactly 0: (entity mask (N, D), relation mask (R, D)) of the rows they
+    touch."""
     table = np.asarray(params["entity_embedding"])[0::2]  # param rows of the pair table
     rel = np.asarray(params["relation_embedding"])
-    bf = ml_dtypes.bfloat16
     heads = batch["head"].reshape(-1)
     tails = batch["tail"].reshape(-1)
     rels = batch["relation"].reshape(-1)
@@ -314,9 +316,9 @@ def _positive_ties(params, batch):
     return ent, rel_mask
 
 
-def _bf16_close(got, want, skip):
+def _bf16_close(got, want, skip, ulp=2.0**-8, max_term=2.0**-12):
     err = np.abs(got - want)[~skip]
-    tol = (2.0**-8 * np.abs(want) + 2.0**-12 * np.abs(want).max())[~skip]
+    tol = (ulp * np.abs(want) + max_term * np.abs(want).max())[~skip]
     assert (err <= tol).all(), float((err - tol).max())
 
 
@@ -338,6 +340,36 @@ def test_two_steps_match_jax_bf16(jax_kernel_path, variant):
         _bf16_close(got_e, want_e, np.repeat(ent_tie, 2, axis=0))  # param and momentum rows
         _bf16_close(got_r, want_r, rel_tie)
         _bf16_close(got_m, want_m, rel_tie)
+
+
+def test_two_steps_match_jax_fp16(jax_kernel_path):
+    """``compute_dtype=float16`` (ROADMAP A17): the JAX package's kernel path
+    (fp16 operands widened at load in its Pallas kernels) against the
+    port's B1/B2 plain versions, held as the bf16 step is with fp16's
+    rounding: one fp16 ulp (``2^-10·|want|``) plus ``2^-12·max|want|``,
+    the positive-score ties left out. Each side rounds every row gradient
+    of the distance to fp16 (``da.to(a.dtype)``, as the JAX package's VJP
+    does); an fp32 sum that differs in its last bits may round to the
+    neighbouring fp16 value, one ulp of a gradient entry, and the entries
+    reach the size of the largest momentum value (~2^-12·max|want| covers
+    an ulp of entries up to 2^-2 of it, which the momentum rows hold)."""
+    jfn, jmod, jsampler = _setup(JAX, fp16=True)
+    _, pmod, _ = _setup(PORT, fp16=True)
+    params, state, row, opt = _states(jfn)
+    jstep = jax_trainer.build_train_step(jmod, opt, None, row, donate=False)
+    pstep = _port_step(pmod, "xla")
+    for batch in _batches(jsampler, 2):
+        ent_tie, rel_tie = _positive_ties(params, batch, np.float16)
+        pparams, pstate = _port(params, state)  # each step from the same state
+        params, state, jout = jstep(params, state, batch)
+        pparams, pstate, pout = pstep(pparams, pstate, batch)
+        assert np.isfinite(float(pout["loss"]))
+        np.testing.assert_allclose(float(pout["loss"]), float(jout["loss"]), rtol=2.0**-11)
+        got_e, got_r, got_m = _arrays(pparams, pstate)
+        want_e, want_r, want_m = _arrays(params, state)
+        _bf16_close(got_e, want_e, np.repeat(ent_tie, 2, axis=0), 2.0**-10)
+        _bf16_close(got_r, want_r, rel_tie, 2.0**-10)
+        _bf16_close(got_m, want_m, rel_tie, 2.0**-10)
 
 
 # --------------------------------------------------------------------------
