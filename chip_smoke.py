@@ -237,6 +237,20 @@ the CUDA toolkit. Phases, one line each with its elapsed seconds:
    printed); then one device-sampled call of its wikikg2 and wikikg2_bf16
    set-ups counted by wrapper (first call) and by name (a replay): B1, B2
    2 x spc and B3 spc per call, B4, B8 and B9 none.
+18. dryrun (:func:`dryrun_phase`): ``graft_entry_torch.dryrun_multichip``,
+   the port's dry run of the BESS feature matrix (eleven sub-checks, each
+   against the unsharded model or an exact invariant), over one NCCL rank
+   in this process and over four gloo ranks sharing the card (spawned):
+   every rank's eleven lines and closing line, the kernels of each
+   sub-check counted by wrapper on every rank (B5 in the ScoreMoving eval;
+   B3 or B8 in each training check; B4 in the interleaved check, whose
+   direct call on the rank's block equals its plain version), then one
+   host-fed step over the NCCL rank at full wikikg2 width of
+   ``wikikg2_bf16`` and ``wikikg2_fp16`` (packed triplet store, B3) and
+   of the fp32 pair-major table with ``fused_variant="fused"`` (B4), the
+   params and state of each equal bit for bit to the same step's without
+   a mesh (the loss within 1e-6: vmap's batched reduction), B4's call
+   there held against its plain version on the recorded inputs.
 
 Each path is driven with every launch count set to 0 just before it and
 read just after. Then one JSON line describing each kernel, and the result
@@ -5685,6 +5699,202 @@ def bench_phase(smi: str, device_run: dict, packed_run: dict) -> dict:
     return {"lines": held, "launches": launches, "wall_s": wall_s}
 
 
+# dryrun: graft_entry_torch.py's dry run of the BESS feature matrix over a
+# mesh (ROADMAP A18), then three of its training forms at full wikikg2 width.
+DRYRUN_RANKS = 4
+#: The launches of each sub-check of the dry run on the card, by wrapper,
+#: on every rank (the two steps of each training run; B4 twice in the fused
+#: run and once on the rank's block); the sub-checks not named (RotatE p =
+#: 2 with AdamW, ComplEx, the sampler) launch none.
+DRYRUN_LAUNCHES = {
+    "score_moving_eval": {"l1_distance_matrix": 2},
+    "sparse_row_sgdm": {"scatter_rows": 2},
+    "packed_bf16_table": {"scatter_rows": 4, "scatter_rows_multi": 4},
+    "interleaved_row_sgdm": {"fused_pair_sgdm": 3, "scatter_rows_multi": 2},
+    "packed_fp16_table": {"scatter_rows": 4, "scatter_rows_multi": 2},
+    "packed_triplet_interleave": {"scatter_rows": 2, "scatter_rows_multi": 2},
+    "packed_quint_adamw": {"scatter_rows": 2, "scatter_rows_multi": 2},
+}
+
+
+def _dryrun_gates(what: str, ranks: list) -> dict:
+    """Each rank's eleven lines and closing line, the B4 block against its
+    plain version, and each sub-check's launches on every rank exactly
+    those of :data:`DRYRUN_LAUNCHES`: the launches per sub-check, by
+    wrapper, of each rank."""
+    for r in ranks:
+        lines = r["lines"]
+        if len(lines) != 12 or not lines[-1].endswith("11/11 golden sub-checks passed") or not all(
+                f"[{i}/11]" in line and "PARITY OK" in line for i, line in enumerate(lines[:11], 1)):
+            raise AssertionError(f"{what}: rank {r['rank']} printed {lines}")
+        b4 = r["checks"]["interleaved_row_sgdm"]["arrays"]["b4_vs_plain"]
+        if b4 > 1e-6:
+            raise AssertionError(f"{what}: B4 on rank {r['rank']}'s block off its plain version by {b4}")
+        for check, result in r["checks"].items():
+            expect_counts(f"{what} rank {r['rank']} {check}", result["launches"],
+                          DRYRUN_LAUNCHES.get(check, {}))
+    return {check: [{k: v for k, v in r["checks"][check]["launches"].items() if v} for r in ranks]
+            for check in ranks[0]["checks"]}
+
+
+def _b4_recorded(run):
+    """``run()``, with the arguments of every B4 call of it kept (the table
+    as it was before the call, cloned): the optimizer reaches B4 through
+    ``optim.row_kernels``, swapped for a view that records and passes each
+    call on, so each launch count is as without the record."""
+    calls = []
+
+    class Recording:
+        def __getattr__(self, name):
+            if name != "fused_pair_sgdm":
+                return getattr(row_kernels, name)
+
+            def call(table, phys, grads, lr, **kw):
+                calls.append((table.clone(), phys.clone(), grads.clone(), lr, kw))
+                return row_kernels.fused_pair_sgdm(table, phys, grads, lr, **kw)
+            return call
+
+    try:
+        optim.row_kernels = Recording()
+        result = run()
+    finally:
+        optim.row_kernels = row_kernels
+    return result, calls
+
+
+def _dryrun_full_width(gen: torch.Generator, mesh, profile: bool = False,
+                       device: str = "cuda") -> dict:
+    """At full wikikg2 width over the one-rank NCCL ``mesh``: one host-fed
+    step of bench.py's wikikg2_bf16 and wikikg2_fp16 forms (RowSGDM in the
+    packed triplet store) and of the fp32 pair-major form with
+    ``fused_variant="fused"`` (B4 on the rank's block, the whole table at
+    one rank), its params and optimizer state equal bit for bit to the same
+    step's without a mesh from a copy of one state, and its loss within
+    1e-6 relative (the mesh-free step reduces each micro-batch's loss under
+    vmap, whose batched reduction may sum in another order: one fp32 ulp
+    apart at one state of the card); B4's call in the fused step held
+    against its plain version on the same inputs. ``profile`` traces one more step of each
+    over the mesh. ``device`` "cpu" rehearses it over a one-rank gloo mesh
+    with the constants of this module, shrunk (the launch gates run only on
+    the card)."""
+    triples, sharding, _, _ = _wikikg2(1)
+    out = {}
+    for name, half in (("wikikg2_bf16", torch.bfloat16), ("wikikg2_fp16", torch.float16),
+                       ("wikikg2_fused", None)):
+        t = time.perf_counter()
+        steps, sampler = [], None
+        for m, axis in ((mesh, "shard"), (None, None)):
+            if half is None:
+                score_fn = TransE(True, 1, sharding, N_RELATION, DIM, seed=SEED)
+                score_fn.compute_dtype = torch.bfloat16
+            else:
+                score_fn = _packed_score_fn(sharding, half)
+            module, host, _ = _training_setup(triples, sharding, score_fn, axis)
+            sampler = sampler or host
+            sgd = optim.SGD(LR, momentum=MOMENTUM)
+            row = optim.RowSGDM(LR, momentum=MOMENTUM, interleaved=True,
+                                fused_variant="fused" if half is None else None)
+            steps.append((score_fn, trainer.build_train_step(module, sgd, m, row, device=device),
+                          sgd, row))
+        score_fn, _, sgd, row = steps[0]
+        params = score_fn.initial_params_device(device=device, generator=gen)
+        params["entity_embedding"] = row.widen_table(params["entity_embedding"])
+        state = trainer.init_optimizer_state(sgd, params, mesh, row,
+                                             n_logical=sharding.max_entity_per_shard)
+        free = (trainer._clone(params), trainer._clone(state))
+        batch = sampler.sample_batch(next(iter(sampler.epoch_index_blocks())))
+        sync(device)
+        reset_counts()
+        (params, state, o), calls = _b4_recorded(lambda: steps[0][1](params, state, batch))
+        sync(device)
+        counts = _launched()
+        free_params, free_state, fo = steps[1][1](*free, batch)
+        sync(device)
+        bits = {path: torch.equal(g, w) for (path, g), (_, w) in zip(
+            trainer._leaves({"p": params, "s": state}),
+            trainer._leaves({"p": free_params, "s": free_state}))}
+        loss, free_loss = float(o["loss"]), float(fo["loss"])
+        if not all(bits.values()) or abs(loss - free_loss) > 1e-6 * abs(free_loss):
+            raise AssertionError(f"dryrun {name}: one NCCL rank vs no mesh bit for bit {bits},"
+                                 f" loss {loss} vs {free_loss}")
+        want = {"l1_distance_matrix": 2 * BPS, "l1_distance_grads": 2 * BPS}
+        want["fused_pair_sgdm" if half is None else "scatter_rows"] = 1
+        if device == "cuda":
+            expect_counts(f"dryrun {name} step over one NCCL rank", counts, want)
+        out[name] = {"bitwise_vs_no_mesh": True, "loss_vs_no_mesh": loss - free_loss,
+                     "launches": counts,
+                     "table": list(params["entity_embedding"].shape),
+                     "s": time.perf_counter() - t}
+        if half is None:
+            if len(calls) != 1:
+                raise AssertionError(f"dryrun {name}: {len(calls)} B4 calls recorded")
+            table, phys, grads, lr, kw = calls[0]
+            plain = row_kernels.fused_pair_sgdm_plain(table.clone(), phys, grads, lr, **kw)
+            got = row_kernels.fused_pair_sgdm(table, phys, grads, lr, **kw)
+            sync(device)
+            err = (got - plain).abs().max().item()
+            if err != 0.0:
+                raise AssertionError(f"dryrun {name}: B4 at the step's shape off its plain version"
+                                     f" by {err}")
+            out[name]["b4_at_the_step"] = {"rows": list(table.shape), "slots": phys.shape[0],
+                                           "max_abs_err": err}
+            del table, phys, grads, plain, got, calls
+        if profile and device == "cuda":
+            out[name]["profile"] = profile_run(lambda: steps[0][1](params, state, batch), 1,
+                                               f"dryrun_{name}_trace.json")
+        del params, state, free, free_params, free_state
+        torch.cuda.empty_cache()
+    return out
+
+
+def dryrun_phase(smi: str, gen: torch.Generator, profile: bool = False) -> dict:
+    """``graft_entry_torch.dryrun_multichip`` over one NCCL rank on the card
+    (in this process) and over DRYRUN_RANKS gloo ranks sharing it (spawned),
+    then :func:`_dryrun_full_width` over the one NCCL rank (``profile``:
+    with a trace of each form's step). The wrappers' counts are set to 0
+    before the one-rank run and read after it."""
+    import graft_entry_torch
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        multihost.initialize(f"file://{Path(tmp) / 'dryrun_store'}", 1, 0, backend="nccl")
+        try:
+            reset_counts()
+            one = graft_entry_torch.dryrun_multichip(1)
+            torch.cuda.synchronize()
+            launches = read_counts()
+            one_s = time.perf_counter() - t0
+            full = _dryrun_full_width(gen, make_shard_mesh(1), profile)
+        finally:
+            torch.distributed.destroy_process_group()
+    say("dryrun", f"dryrun_multichip(1) over one NCCL rank: 11/11 ({one_s:.1f}s)")
+    t = time.perf_counter()
+    gloo = graft_entry_torch.dryrun_multichip(DRYRUN_RANKS, backend="gloo")
+    gloo_s = time.perf_counter() - t
+    say("dryrun", f"dryrun_multichip({DRYRUN_RANKS}) over gloo ranks sharing the card: 11/11"
+        f" on every rank ({gloo_s:.1f}s, processes included)")
+    per_check = {"nccl_1_rank": _dryrun_gates("dryrun nccl 1 rank", [one]),
+                 f"gloo_{DRYRUN_RANKS}_ranks": _dryrun_gates(f"dryrun gloo {DRYRUN_RANKS}", gloo)}
+    if launches != {k: sum(c["launches"].get(k, 0) for c in one["checks"].values())
+                    for k in launches}:
+        raise AssertionError(f"dryrun: counts {launches} differ from the sub-checks' sum")
+    for check, counts in per_check["nccl_1_rank"].items():
+        say("dryrun", f"{check}: launches one NCCL rank {counts[0]}; gloo ranks"
+            f" {per_check[f'gloo_{DRYRUN_RANKS}_ranks'][check]}")
+    for name, r in full.items():
+        say("dryrun", f"{name} at {N_ENTITY} x {DIM} ({r['table']} stored) over one NCCL rank:"
+            f" params and state equal to the step without a mesh bit for bit, loss"
+            f" {r['loss_vs_no_mesh']:+.3g} from its; launches {r['launches']}"
+            + (f"; B4 at {r['b4_at_the_step']['slots']} slots of the {r['b4_at_the_step']['rows']}"
+               " block equal to its plain version" if "b4_at_the_step" in r else "")
+            + f" ({r['s']:.1f}s)")
+    say("dryrun", f"phase done ({time.perf_counter() - t0:.1f}s, {smi})")
+    return {"launches": launches, "per_check": per_check, "full_width": full,
+            "one_rank_s": one_s, "gloo_s": gloo_s, "phase_s": time.perf_counter() - t0,
+            "b4_vs_plain": max(r["checks"]["interleaved_row_sgdm"]["arrays"]["b4_vs_plain"]
+                               for r in [one, *gloo])}
+
+
 def profile_steps(step, params, state, batches, trace: str) -> dict:
     """Device time by kernel and the device's busy share over a few host-fed
     steps (``torch.profiler``); the trace goes to chiprun_out/."""
@@ -5768,7 +5978,8 @@ def ptxas_report(names=("l1_distance", "dense_adamw")) -> None:
                 raise AssertionError(f"{k['name']} spills {k['spills']}")
 
 
-PHASES = ("training", "dense", "device", "packed", "yago", "scorers", "eval", "conve", "mesh")
+PHASES = ("training", "dense", "device", "packed", "yago", "scorers", "eval", "conve", "mesh",
+          "dryrun")
 
 
 def profiled_phases(argv) -> set:
@@ -5847,6 +6058,8 @@ def main() -> int:
     examples_run = examples_phase(smi)
     torch.cuda.empty_cache()
     bench_run = bench_phase(smi, device, packed_run)
+    torch.cuda.empty_cache()
+    dryrun_run = dryrun_phase(smi, gen, profile="dryrun" in profile)
     for name in KERNELS:
         results[name]["launches_examples"] = {
             run: counts.get(name, 0) for run, counts in examples_run["launches"].items()}
@@ -5855,6 +6068,16 @@ def main() -> int:
             results[name].setdefault("launches_bench", {})[bench_name] = {
                 "first_call_wrapper": run["first_call_wrapper_launches"].get(name, 0),
                 "steps_in_first_call": 2 * run["steps_per_call"]}
+    for name in KERNELS:
+        results[name]["launches_dryrun"] = {
+            "nccl_1_rank": dryrun_run["launches"][name],
+            "nccl_1_rank_by_sub_check": {check: counts[0].get(name, 0) for check, counts in
+                                         dryrun_run["per_check"]["nccl_1_rank"].items()},
+            f"gloo_{DRYRUN_RANKS}_ranks_by_sub_check": {
+                check: [c.get(name, 0) for c in counts] for check, counts in
+                dryrun_run["per_check"][f"gloo_{DRYRUN_RANKS}_ranks"].items()},
+            "full_width_nccl_1_rank_step": {form: r["launches"].get(name, 0)
+                                            for form, r in dryrun_run["full_width"].items()}}
     nccl, gloo = mesh_run["nccl_1_rank"], mesh_run["gloo_ranks"]
     for name in KERNELS:
         results[name]["launches_mesh"] = {
@@ -5945,7 +6168,8 @@ def main() -> int:
         if "library_kernel_ms" in r:
             entry["library_kernel_ms"] = r["library_kernel_ms"]
         for key in ("launches_yago", "launches_scorers", "launches_eval", "launches_conve",
-                    "conve_shape", "launches_mesh", "launches_bench", "launches_examples"):
+                    "conve_shape", "launches_mesh", "launches_bench", "launches_examples",
+                    "launches_dryrun"):
             if key in r:
                 entry[key] = r[key]
         if "fp16" in r:  # fp16 operands (ROADMAP A17) at the path's shape
@@ -6096,6 +6320,15 @@ def main() -> int:
         "replay_kernels_per_call": {name: run["per_call_by_name"]
                                     for name, run in bench_run["launches"].items()},
         "wall_s": bench_run["wall_s"], "card": smi}}), flush=True)
+    print(json.dumps({"dryrun": {
+        "nccl_1_rank_s": dryrun_run["one_rank_s"], f"gloo_{DRYRUN_RANKS}_ranks_s": dryrun_run["gloo_s"],
+        "phase_s": dryrun_run["phase_s"], "launches_by_sub_check": dryrun_run["per_check"],
+        "b4_block_vs_plain": dryrun_run["b4_vs_plain"],
+        "full_width": {form: {k: v for k, v in r.items() if k != "profile"}
+                       for form, r in dryrun_run["full_width"].items()},
+        "busy_pct": {form: r["profile"]["busy_pct"] for form, r in dryrun_run["full_width"].items()
+                     if "profile" in r},
+        "card": smi}}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1470,3 +1470,27 @@ def test_wikikg2_twin_on_the_card(cuda):
     for wrapper in (l1_kernels.l1_distance_matrix_batched, l1_kernels.l1_distance_grads_batched,
                     row_kernels.scatter_rows_multi, l1_kernels.l1_scores_chunkmax):
         assert wrapper.launches > 0, wrapper.__name__
+
+
+def test_graft_entry_dryrun_over_one_nccl_rank(cuda, tmp_path):
+    """``graft_entry_torch.dryrun_multichip(1)`` over one NCCL rank on the
+    card: the eleven sub-checks pass, B5 runs in the ScoreMoving eval, B4 in
+    the interleaved RowSGDM check (its block equal to its plain version) and
+    the sparse row writes in each training check."""
+    import graft_entry_torch as G
+    from besskge_tpu_torch.parallel import multihost
+
+    multihost.initialize(f"file://{tmp_path / 'store'}", 1, 0, backend="nccl")
+    try:
+        res = G.dryrun_multichip(1)
+    finally:
+        torch.distributed.destroy_process_group()
+    checks = res["checks"]
+    assert len(checks) == 11 and res["lines"][-1].endswith("11/11 golden sub-checks passed")
+    assert checks["score_moving_eval"]["launches"]["l1_distance_matrix"] > 0
+    assert checks["interleaved_row_sgdm"]["launches"]["fused_pair_sgdm"] == 3
+    assert checks["interleaved_row_sgdm"]["arrays"]["b4_vs_plain"] == 0.0
+    for name in ("sparse_row_sgdm", "packed_bf16_table", "packed_fp16_table",
+                 "packed_triplet_interleave", "packed_quint_adamw"):
+        counts = checks[name]["launches"]
+        assert counts["scatter_rows"] + counts["scatter_rows_multi"] > 0, (name, counts)

@@ -63,7 +63,8 @@ def test_no_source_of_the_port_names_jax():
         roots = _imported_roots(path)
         assert not roots & {"jax", "jaxlib", "besskge_tpu", "ml_dtypes"}, (path, roots)
     assert _imported_roots(ROOT / "chip_smoke.py") <= {
-        "__future__", "bench_torch", "gc", "json", "os", "subprocess", "sys", "tempfile", "threading", "time",
+        "__future__", "bench_torch", "gc", "graft_entry_torch", "json", "os", "subprocess", "sys",
+        "tempfile", "threading", "time",
         "pathlib", "typing",
         "numpy", "torch", "besskge_tpu_torch",
     }
@@ -88,4 +89,24 @@ def test_bench_torch_imports_without_jax():
     assert _imported_roots(ROOT / "bench_torch.py") <= {
         "__future__", "gc", "json", "os", "subprocess", "sys", "tempfile", "time", "pathlib",
         "typing", "numpy", "torch", "besskge_tpu_torch",
+    }
+
+
+def test_graft_entry_torch_imports_without_jax():
+    """``graft_entry_torch.py`` (the entry points) runs on the card's
+    machine: importing it pulls in no ``jax``, ``jaxlib``, ``besskge_tpu``,
+    ``optax``, ``bench`` or ``__graft_entry__``."""
+    code = (
+        "import sys, graft_entry_torch\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in"
+        " ('jax', 'jaxlib', 'besskge_tpu', 'optax', 'bench', '__graft_entry__'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    result = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120
+    )
+    assert result.returncode == 0, result.stderr
+    assert _imported_roots(ROOT / "graft_entry_torch.py") <= {
+        "__future__", "os", "sys", "typing", "numpy", "torch", "besskge_tpu_torch",
     }

@@ -421,3 +421,23 @@ def test_topk_constructor_raises_where_the_reference_does(sampler, sharing, sche
     want = _topk_case("jax", sampler, sharing, scheme, mask_on_gather, merge)
     got = _topk_case("port", sampler, sharing, scheme, mask_on_gather, merge)
     assert got == want
+
+
+#: The keywords ``graft_entry_torch.py`` adds after ``__graft_entry__.py``'s
+#: parameters: the device the entry points run on (default the card), the
+#: mesh a set-up runs over, the backend of a dry run's ranks.
+GRAFT_EXTRA = {"entry": ["device"], "dryrun_multichip": ["backend", "device"],
+               "_build": ["device", "mesh"], "_mini": []}
+
+
+@pytest.mark.parametrize("name", sorted(GRAFT_EXTRA))
+def test_graft_entry_signatures_follow_the_reference(name):
+    import __graft_entry__ as jax_entry
+    import graft_entry_torch as port_entry
+
+    port_fn, ref_fn = getattr(port_entry, name), getattr(jax_entry, name)
+    assert _params(port_fn) == _params(ref_fn) + GRAFT_EXTRA[name], name
+    ref = inspect.signature(ref_fn).parameters
+    for key, param in inspect.signature(port_fn).parameters.items():
+        if key in ref:
+            assert param.default == ref[key].default, (name, key)

@@ -715,6 +715,35 @@ def conve_train(n: int, form: str, sync_bn: bool, params: Dict[str, Any],
     return out
 
 
+def graft_dryrun(n: int, draws: List[np.ndarray]) -> Dict[str, Any]:
+    """``graft_entry_torch.dryrun_multichip(n)`` on the CPU inside this
+    rank's group, its sub-check 7 drawing the uniforms ``draws`` (in draw
+    order) in place of the port's own: the rank's lines and results."""
+    import graft_entry_torch as G
+
+    check = G._check_type_device_sampling
+
+    def with_draws(n_shard: int, mesh: Any) -> tuple:
+        queue = [np.array(d) for d in draws]
+
+        def uniform(key, stream, shape):
+            u = torch.from_numpy(queue.pop(0))
+            assert tuple(u.shape) == tuple(shape), (u.shape, shape)
+            return u.to(key.device)
+
+        drawn, port_dev._uniform = port_dev._uniform, uniform
+        try:
+            return check(n_shard, mesh)
+        finally:
+            port_dev._uniform = drawn
+
+    G._check_type_device_sampling = with_draws
+    try:
+        return G.dryrun_multichip(n, device="cpu")
+    finally:
+        G._check_type_device_sampling = check
+
+
 def run(jobs: List[tuple]) -> List[Any]:
     """Run the named bodies of this module in order, each with its
     arguments: one spawn serves a whole scenario."""
